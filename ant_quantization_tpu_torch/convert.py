@@ -1,0 +1,101 @@
+"""Carry engine state across from the JAX reference.
+
+``from_jax_engine_params`` takes the reference's engine-params tree (as
+its ``serve/engine.py:build_engine_params`` makes it, leaves fetched with
+``np.asarray``) and returns the port's tensors and layouts;
+``from_jax_kv`` does the same for the reference's stacked INT8 cache, so
+both engines can start from the same state. Only numpy crosses over: this
+module imports nothing of the reference package.
+
+Layouts that change:
+- weight stacks ``w_i8`` (L, K, N) -> the port's N-major (L, N, K);
+- ``a_q`` int8 -> f32 (the kernel's operand type; same values);
+- KV codes (L, B, H, S/f, f*D) lane-folded -> flat (L, B, H, S, D), and
+  plane-major scales (L, B, H, f, S/f) -> (L, B, H, S), by position.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+
+from ._ext import resolve_device
+from .kernels.kv_cache import QuantKV
+from .serve.engine import SITES
+
+__all__ = ["from_jax_engine_params", "from_jax_kv"]
+
+# reference site leaves that belong to paths this slice does not port,
+# with their ROADMAP Queue 1 item
+_UNPORTED = {"ovp": "8.4 (OVP weights)",
+             "kscale": "8.3 (Conv1D sites)",
+             "packed": "8.6 (w4pack)",
+             "a_out": "8.5 (activation outliers)",
+             "aovp_enc": "8.5 (activation outliers)",
+             "kernel": "8.7 (bf16 weights)"}
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":      # ml_dtypes arrays: exact via f32
+        return torch.tensor(a.astype(np.float32),
+                            device=device).to(torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
+def from_jax_engine_params(tree: Dict, device=None) -> Dict:
+    """The reference's engine params (numpy leaves) -> the port's, on
+    ``device`` (default "cuda")."""
+    dev = resolve_device(device)
+    layers = {}
+    for name, site in tree["layers"].items():
+        if name in ("ln_1", "ln_2"):
+            layers[name] = {k: _tensor(v, dev) for k, v in site.items()}
+            continue
+        if name not in SITES:
+            raise NotImplementedError(
+                f"site {name!r} (fused qkv) is not ported yet (ROADMAP "
+                "Queue 1 item 8.2)")
+        for key, item in _UNPORTED.items():
+            if key in site:
+                raise NotImplementedError(
+                    f"site {name!r} carries {key!r}: not ported yet "
+                    f"(ROADMAP Queue 1 item {item})")
+        if "a_q" not in site:
+            raise NotImplementedError(
+                f"site {name!r} has no int8-exact activation grid: not "
+                "ported yet (ROADMAP Queue 1 item 8)")
+        w = np.asarray(site["w_i8"])
+        layers[name] = {
+            "w_i8": _tensor(np.transpose(w, (0, 2, 1)), dev),
+            "oscale": _tensor(np.asarray(site["oscale"], np.float32), dev),
+            "bias": _tensor(np.asarray(site["bias"], np.float32), dev),
+            "a_q": _tensor(np.asarray(site["a_q"], np.float32), dev),
+            "a_scale": _tensor(
+                np.asarray(site["a_scale"], np.float32).reshape(-1), dev),
+        }
+    top = {}
+    for k, v in tree["top"].items():
+        if k == "embed_ln":
+            raise NotImplementedError(
+                "embed_ln is not ported yet (ROADMAP Queue 1 item 8.2)")
+        top[k] = ({kk: _tensor(vv, dev) for kk, vv in v.items()}
+                  if isinstance(v, dict) else _tensor(v, dev))
+    return {"layers": layers, "top": top}
+
+
+def from_jax_kv(kv: Sequence, head_dim: int, device=None) -> QuantKV:
+    """The reference's stacked cache ``(k, v, k_scale, v_scale)`` (numpy)
+    -> the port's flat :class:`QuantKV` on ``device`` (default
+    "cuda")."""
+    dev = resolve_device(device)
+    k, v, ks, vs = (np.asarray(a) for a in kv)
+    L, B, H = k.shape[:3]
+    S = k.shape[3] * k.shape[4] // head_dim
+    codes = lambda a: _tensor(a.reshape(L, B, H, S, head_dim), dev)
+    # plane-major (.., f, S/f): position p sits at [p % f, p // f]
+    scales = lambda a: _tensor(
+        np.swapaxes(a, -1, -2).reshape(L, B, H, S).astype(np.float32), dev)
+    return QuantKV(codes(k), codes(v), scales(ks), scales(vs))

@@ -1,0 +1,80 @@
+"""INT8 KV-cache storage.
+
+Counterpart of the reference's ``kernels/kv_cache.py``. K/V are stored as
+int8 codes with one f32 scale per (layer, batch, head, position):
+symmetric absmax over the head dim, round half to even, clip to +-127.
+
+The port's layout is flat and stacked over layers: codes
+``(L, B, H, S, D)`` int8, scales ``(L, B, H, S)`` f32. The reference's
+lane folding and plane-major scales are TPU layout workarounds; tests
+compare the two caches by position. Writes update the cache tensors in
+place (the reference returns new arrays), which keeps the cache at one
+copy on the card.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+__all__ = ["QuantKV", "init_kv", "quantize_kv", "append_kv_stacked",
+           "dequant_kv"]
+
+
+class QuantKV(NamedTuple):
+    k: torch.Tensor        # (L, B, H, S, D) int8
+    v: torch.Tensor        # (L, B, H, S, D) int8
+    k_scale: torch.Tensor  # (L, B, H, S) f32
+    v_scale: torch.Tensor  # (L, B, H, S) f32
+
+
+def init_kv(n_layers: int, batch: int, max_len: int, n_heads: int,
+            head_dim: int, device: torch.device) -> QuantKV:
+    shape = (n_layers, batch, n_heads, max_len)
+    z8 = lambda: torch.zeros(shape + (head_dim,), dtype=torch.int8,
+                             device=device)
+    zs = lambda: torch.zeros(shape, dtype=torch.float32, device=device)
+    return QuantKV(z8(), z8(), zs(), zs())
+
+
+def quantize_kv(x: torch.Tensor):
+    """(..., D) f32 -> (int8 codes, f32 scale over the last dim); the
+    scale is 1.0 where the row is all zeros."""
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    # divide by a tensor on x's device: CUDA turns a division by a
+    # Python scalar into a multiply by its reciprocal, which can move
+    # the scale by one ulp
+    scale = torch.where(amax > 0, amax / amax.new_tensor(127.0),
+                        amax.new_tensor(1.0))
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale[..., 0].to(torch.float32)
+
+
+def append_kv_stacked(cache: QuantKV, k: torch.Tensor, v: torch.Tensor,
+                      layer: int, index: int) -> QuantKV:
+    """Write new (B, T, H, D) f32 keys/values for one layer at positions
+    ``index .. index+T-1`` (a scalar position shared by the batch), in
+    place. Returns the same cache."""
+    if not isinstance(index, int):
+        raise NotImplementedError(
+            "per-sequence write positions are not ported yet (ROADMAP "
+            "Queue 1 item 8.1)")
+    T = k.shape[1]
+    S = cache.k.shape[3]
+    if index < 0 or index + T > S:
+        raise ValueError(f"write of {T} positions at {index} exceeds the "
+                         f"cache length {S}")
+    for codes, scales, x in ((cache.k, cache.k_scale, k),
+                             (cache.v, cache.v_scale, v)):
+        q, s = quantize_kv(x.to(torch.float32).transpose(1, 2))
+        codes[layer, :, :, index:index + T] = q
+        scales[layer, :, :, index:index + T] = s
+    return cache
+
+
+def dequant_kv(cache: QuantKV, dtype=torch.bfloat16):
+    """Materialized (k, v) in ``dtype``: codes times their scales."""
+    k = cache.k.to(dtype) * cache.k_scale[..., None].to(dtype)
+    v = cache.v.to(dtype) * cache.v_scale[..., None].to(dtype)
+    return k, v
