@@ -29,7 +29,7 @@ __all__ = ["resolve_device", "build_all", "load", "check", "stream_ptr",
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
-SOURCES = ("stacked_i8.cu", "int8_kv_attention.cu")
+SOURCES = ("stacked_i8.cu", "stacked_aovp.cu", "int8_kv_attention.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

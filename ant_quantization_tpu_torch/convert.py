@@ -8,8 +8,12 @@ both engines can start from the same state. Only numpy crosses over: this
 module imports nothing of the reference package.
 
 Layouts that change:
-- weight stacks ``w_i8`` (L, K, N) -> the port's N-major (L, N, K);
+- weight stacks ``w_i8`` (L, K, N) -> the port's N-major (L, N, K), for
+  int8 codebook values and OVP bytes (``ovp``) alike;
 - ``a_q`` int8 -> f32 (the kernel's operand type; same values);
+- every other site leaf (``oscale``, ``bias``, ``ovp``, ``a_grid``,
+  ``a_alpha``, ``a_out`` and the ``aovp_*`` tables of K4) keeps its
+  values and dtype;
 - KV codes (L, B, H, S/f, f*D) lane-folded -> flat (L, B, H, S, D), and
   plane-major scales (L, B, H, f, S/f) -> (L, B, H, S), by position.
 """
@@ -29,11 +33,8 @@ __all__ = ["from_jax_engine_params", "from_jax_kv"]
 
 # reference site leaves that belong to paths this slice does not port,
 # with their ROADMAP Queue 1 item
-_UNPORTED = {"ovp": "8.4 (OVP weights)",
-             "kscale": "8.3 (Conv1D sites)",
+_UNPORTED = {"kscale": "8.3 (Conv1D sites)",
              "packed": "8.6 (w4pack)",
-             "a_out": "8.5 (activation outliers)",
-             "aovp_enc": "8.5 (activation outliers)",
              "kernel": "8.7 (bf16 weights)"}
 
 
@@ -63,19 +64,14 @@ def from_jax_engine_params(tree: Dict, device=None) -> Dict:
                 raise NotImplementedError(
                     f"site {name!r} carries {key!r}: not ported yet "
                     f"(ROADMAP Queue 1 item {item})")
-        if "a_q" not in site:
-            raise NotImplementedError(
-                f"site {name!r} has no int8-exact activation grid: not "
-                "ported yet (ROADMAP Queue 1 item 8)")
-        w = np.asarray(site["w_i8"])
-        layers[name] = {
-            "w_i8": _tensor(np.transpose(w, (0, 2, 1)), dev),
-            "oscale": _tensor(np.asarray(site["oscale"], np.float32), dev),
-            "bias": _tensor(np.asarray(site["bias"], np.float32), dev),
-            "a_q": _tensor(np.asarray(site["a_q"], np.float32), dev),
-            "a_scale": _tensor(
-                np.asarray(site["a_scale"], np.float32).reshape(-1), dev),
-        }
+        out = {k: _tensor(v, dev) for k, v in site.items()}
+        out["w_i8"] = _tensor(np.transpose(np.asarray(site["w_i8"]),
+                                           (0, 2, 1)), dev)
+        if "a_q" in site:
+            out["a_q"] = _tensor(np.asarray(site["a_q"], np.float32), dev)
+            out["a_scale"] = _tensor(
+                np.asarray(site["a_scale"], np.float32).reshape(-1), dev)
+        layers[name] = out
     top = {}
     for k, v in tree["top"].items():
         if k == "embed_ln":

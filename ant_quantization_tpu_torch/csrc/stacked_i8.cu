@@ -1,9 +1,10 @@
-// K1: activation snap + int8 x int8 matmul for one layer of a stacked
-// weight, hand-written for Hopper (sm_90a).
+// K1 and K3: activation snap + int8 x int8 matmul for one layer of a
+// stacked weight, hand-written for Hopper (sm_90a).
 //
 // Replaces the reference's Pallas kernel
-// ant_quantization_tpu/kernels/stacked.py:stacked_quant_matmul, mode "i8",
-// ovp=False (_i8_kernel and _snap_int8). It computes
+// ant_quantization_tpu/kernels/stacked.py:stacked_quant_matmul, mode "i8"
+// (_i8_kernel and _snap_int8): K1 with ovp=False, K3 with ovp=True
+// (_ovp_dual_dot). K1 computes
 //
 //   out[m, n] = f32(sum_k int8(snap(x[m, k] / a_scale[l]; a_q[l])) * W[l, n, k])
 //               * scales[l, n]
@@ -15,16 +16,31 @@
 //     larger entry;
 //   - the dot accumulates exactly in int32 (__dp4a), then one f32 multiply.
 //
+// K3 takes sign-offset OVP weight bytes c (kernels/qmatmul.py), whose
+// value is 16 c - 15 clip(c, -64, 64). Its arithmetic is the reference's:
+// per 256-row sub-chunk ("segment") the int32 16 x@c - 15 x@clip(c),
+// converted to f32; the segments summed in f32 in order within each K
+// block of _fit(K, block_k) rows; the blocks summed in order into an f32
+// accumulator; one f32 multiply by scales[l, n]. Above 2^24 those f32
+// steps round, so their order is the result: each lane adds its own
+// int32 16*d1 - 15*d2 (exact), a shuffle reduction over the lanes of one
+// segment gives the segment's exact int32 (integer sums are order-free),
+// and then every lane of the warp does the same f32 additions, in the
+// reference's order, on the broadcast segment values. The f32 steps are
+// written with __fadd_rn / __fmul_rn, which nvcc never contracts into an
+// FMA. Per weight word the clamp is two SIMD byte ops
+// (__vmins4/__vmaxs4), so both dots read the weight stream once.
+//
 // What bounds it: at decode (M = 4) the weight stream, K*N bytes per call
-// (16.8 MB for a 4096 x 4096 site), against 2*M*K*N int8 operations, so
-// it is bound by bytes. Design: a first small kernel snaps x once into an
-// int8 (M, K) scratch (M*K bytes, it stays in L2); the matmul kernel then
-// gives each warp one output column n, whose K weight bytes are one
-// contiguous row of the N-major (L, N, K) stack, read once with 16-byte
-// loads; x codes are re-read from L1/L2. M rows are processed MT at a time
-// so each lane keeps MT int32 accumulators in registers; a warp shuffle
-// sums the lanes. The layer index only offsets the pointer: no per-layer
-// copy of the stack exists.
+// (16.8 MB for a 4096 x 4096 site), against 2*M*K*N int8 operations per
+// dot, so it is bound by bytes. Design: a first small kernel snaps x once
+// into an int8 (M, K) scratch (M*K bytes, it stays in L2); the matmul
+// kernel then gives each warp one output column n, whose K weight bytes
+// are one contiguous row of the N-major (L, N, K) stack, read once with
+// 16-byte loads; x codes are re-read from L1/L2. M rows are processed MT
+// at a time so each lane keeps MT int32 accumulators in registers; a warp
+// shuffle sums the lanes. The layer index only offsets the pointer: no
+// per-layer copy of the stack exists.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -99,6 +115,101 @@ __global__ void i8_matmul_kernel(const int8_t* __restrict__ xq,
   }
 }
 
+__device__ __forceinline__ int4 ovp_clip16(const int4& w) {
+  // clip(c, -64, 64) on each signed byte
+  int4 p;
+  p.x = __vmaxs4(__vmins4(w.x, 0x40404040), 0xC0C0C0C0);
+  p.y = __vmaxs4(__vmins4(w.y, 0x40404040), 0xC0C0C0C0);
+  p.z = __vmaxs4(__vmins4(w.z, 0x40404040), 0xC0C0C0C0);
+  p.w = __vmaxs4(__vmins4(w.w, 0x40404040), 0xC0C0C0C0);
+  return p;
+}
+
+// K3. A segment is `seg` rows of K (16..512 with seg/16 dividing 32, or a
+// multiple of 512): g = min(seg, 512)/16 lanes share one, a warp pass of
+// 512 rows ends 32/g segments, or one segment ends every seg/512 passes.
+// `fold` segments make one f32 block.
+template <int MT>
+__global__ void i8_ovp_matmul_kernel(const int8_t* __restrict__ xq,
+                                     const int8_t* __restrict__ w,
+                                     const float* __restrict__ scales,
+                                     float* __restrict__ out, int M, int K,
+                                     int N, int seg, int fold) {
+  const int n = (int)(((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (n >= N) return;  // whole warps leave together
+  const int4* wrow = reinterpret_cast<const int4*>(w + (long)n * K);
+  const int k16 = K / 16;
+  const int g = (seg < 512 ? seg : 512) / 16;
+  const int per_pass = 32 / g;
+  const int reps = seg > 512 ? seg / 512 : 1;
+  const int n_seg = K / seg;
+  const int n_pass = (k16 + 31) / 32;
+  for (int m0 = 0; m0 < M; m0 += MT) {
+    int p[MT];
+    float part[MT], acc[MT];
+#pragma unroll
+    for (int r = 0; r < MT; ++r) {
+      p[r] = 0;
+      part[r] = 0.f;
+      acc[r] = 0.f;
+    }
+    int done = 0;  // segments finished so far
+    for (int it = 0; it < n_pass; ++it) {
+      const int i = it * 32 + lane;
+      if (i < k16) {
+        const int4 wv = __ldg(wrow + i);
+        const int4 pv = ovp_clip16(wv);
+#pragma unroll
+        for (int r = 0; r < MT; ++r) {
+          if (m0 + r < M) {
+            const int4 xv = __ldg(
+                reinterpret_cast<const int4*>(xq + (long)(m0 + r) * K) + i);
+            p[r] += 16 * dot16(xv, wv, 0) - 15 * dot16(xv, pv, 0);
+          }
+        }
+      }
+      if ((it + 1) % reps) continue;
+#pragma unroll
+      for (int r = 0; r < MT; ++r)
+        for (int off = g / 2; off > 0; off >>= 1)
+          p[r] += __shfl_xor_sync(0xffffffffu, p[r], off);
+      for (int j = 0; j < per_pass && done < n_seg; ++j, ++done) {
+#pragma unroll
+        for (int r = 0; r < MT; ++r) {
+          const int v = __shfl_sync(0xffffffffu, p[r], j * g);
+          part[r] = __fadd_rn(part[r], __int2float_rn(v));
+        }
+        if ((done + 1) % fold == 0) {
+#pragma unroll
+          for (int r = 0; r < MT; ++r) {
+            acc[r] = __fadd_rn(acc[r], part[r]);
+            part[r] = 0.f;
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < MT; ++r) p[r] = 0;
+    }
+    if (lane == 0) {
+      const float sc = scales[n];
+#pragma unroll
+      for (int r = 0; r < MT; ++r)
+        if (m0 + r < M) out[(long)(m0 + r) * N + n] = __fmul_rn(acc[r], sc);
+    }
+  }
+}
+
+template <int MT>
+void launch_ovp_matmul(const int8_t* xq, const int8_t* w, const float* scales,
+                       float* out, int M, int K, int N, int seg, int fold,
+                       cudaStream_t s) {
+  const int threads = 256;  // 8 warps, one output column each
+  const int blocks = (N + 7) / 8;
+  i8_ovp_matmul_kernel<MT><<<blocks, threads, 0, s>>>(xq, w, scales, out, M,
+                                                      K, N, seg, fold);
+}
+
 template <int MT>
 void launch_matmul(const int8_t* xq, const int8_t* w, const float* scales,
                    float* out, int M, int K, int N, cudaStream_t s) {
@@ -106,6 +217,18 @@ void launch_matmul(const int8_t* xq, const int8_t* w, const float* scales,
   const int blocks = (N + 7) / 8;
   i8_matmul_kernel<MT><<<blocks, threads, 0, s>>>(xq, w, scales, out, M, K,
                                                   N);
+}
+
+cudaError_t launch_snap(const float* x, int8_t* xq, const float* a_q,
+                        const float* a_scale, int l, int M, int K, int G,
+                        cudaStream_t s) {
+  const long total = (long)M * K;
+  const int sthreads = 256;
+  long sblocks = (total + sthreads - 1) / sthreads;
+  if (sblocks > 1024) sblocks = 1024;
+  snap_i8_kernel<<<(int)sblocks, sthreads, 0, s>>>(
+      x, xq, a_q + (long)l * G, a_scale + l, G, total);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -125,13 +248,7 @@ int stacked_i8_matmul(const float* x, int8_t* xq, const int8_t* w,
                       const float* scales, float* out, int l, int M, int K,
                       int N, int G, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const long total = (long)M * K;
-  const int sthreads = 256;
-  long sblocks = (total + sthreads - 1) / sthreads;
-  if (sblocks > 1024) sblocks = 1024;
-  snap_i8_kernel<<<(int)sblocks, sthreads, 0, s>>>(
-      x, xq, a_q + (long)l * G, a_scale + l, G, total);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_snap(x, xq, a_q, a_scale, l, M, K, G, s);
   if (err != cudaSuccess) return (int)err;
   const int8_t* wl = w + (long)l * N * K;
   const float* sl = scales + (long)l * N;
@@ -143,6 +260,31 @@ int stacked_i8_matmul(const float* x, int8_t* xq, const int8_t* w,
     launch_matmul<4>(xq, wl, sl, out, M, K, N, s);
   else
     launch_matmul<8>(xq, wl, sl, out, M, K, N, s);
+  return (int)cudaGetLastError();
+}
+
+// K3: as stacked_i8_matmul on sign-offset OVP weight bytes; seg and fold
+// give the f32 partition of K (segments of seg rows, blocks of fold
+// segments). K % (seg * fold) == 0 and the segment rule above (the
+// wrapper checks).
+int stacked_i8_ovp_matmul(const float* x, int8_t* xq, const int8_t* w,
+                          const float* a_q, const float* a_scale,
+                          const float* scales, float* out, int l, int M,
+                          int K, int N, int G, int seg, int fold,
+                          void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = launch_snap(x, xq, a_q, a_scale, l, M, K, G, s);
+  if (err != cudaSuccess) return (int)err;
+  const int8_t* wl = w + (long)l * N * K;
+  const float* sl = scales + (long)l * N;
+  if (M <= 1)
+    launch_ovp_matmul<1>(xq, wl, sl, out, M, K, N, seg, fold, s);
+  else if (M <= 2)
+    launch_ovp_matmul<2>(xq, wl, sl, out, M, K, N, seg, fold, s);
+  else if (M <= 4)
+    launch_ovp_matmul<4>(xq, wl, sl, out, M, K, N, seg, fold, s);
+  else
+    launch_ovp_matmul<8>(xq, wl, sl, out, M, K, N, seg, fold, s);
   return (int)cudaGetLastError();
 }
 

@@ -4,8 +4,11 @@ Counterpart of the reference's ``kernels/qmatmul.py`` packing half:
 ``int8_codebook`` and ``quantize_weights_w4_i8``. The weights are stored
 as the exact int8 *values* of their 4-bit codebook entries, so the serving
 matmul is an int8 x int8 product with one f32 scale per output channel.
-Packed nibbles (``pack_w4``) and the OVP encodings belong to later slices
-of the port.
+
+The OVP section holds the sign-offset int8 encoding of OliVe weights
+(outlier-victim pairs), whose abfloat outliers do not fit an int8
+codebook. Packed nibbles (``pack_w4``) belong to a later slice of the
+port.
 """
 
 from __future__ import annotations
@@ -13,9 +16,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.snap import snap_codes
+from ..ops.ovp import apply_ovp
+from ..ops.snap import snap_codes, snap_concat
 
-__all__ = ["int8_codebook", "quantize_weights_w4_i8"]
+__all__ = ["int8_codebook", "quantize_weights_w4_i8", "OVP_OFFSET",
+           "OVP_SHIFT", "ovp_unit", "quantize_weights_ovp_i8",
+           "ovp_encode_scalar", "ovp_clip", "ovp_decode_values"]
 
 
 def int8_codebook(grid16) -> tuple[np.ndarray, float, bool]:
@@ -67,3 +73,124 @@ def quantize_weights_w4_i8(w: torch.Tensor, grid, alpha,
     w_i8 = torch.as_tensor(q16, device=dev)[codes.long()]
     unit_t = torch.tensor(np.float32(unit), device=dev)
     return w_i8, scale * unit_t
+
+
+# OVP: OliVe weights in one int8 stream.
+#
+# There is a unit u with every normal value an integer multiple of u of
+# magnitude <= 64, and every abfloat outlier magnitude of the form
+# (64 + 16 m) u with integer 1 <= m <= 63. One int8 byte c then carries
+# either kind:
+#
+#     normal  v:  c = v/u                       (|c| <= OVP_OFFSET)
+#     outlier v:  c = sign(v) (OVP_OFFSET + m),  m = (|v|/u - 64)/16
+#
+# and the decode is linear in two int8 streams:
+#
+#     v/u = 16 c - 15 clip(c, -64, 64)
+#
+# so x @ W is two exact int8 dots of one weight stream (K3, the OVP mode
+# of kernels/stacked.py).
+
+OVP_OFFSET = 64
+OVP_SHIFT = 16
+
+
+def ovp_unit(grid16, out16) -> tuple[float, bool]:
+    """Largest unit u that makes the sign-offset OVP encoding exact:
+    normals/u integral with |.| <= OVP_OFFSET, and every outlier
+    magnitude |o|/u = 64 + 16 m with integer 1 <= m <= 63. Returns
+    (u, exact); u = vmax/127 when no exact unit exists."""
+    g = np.asarray(grid16, np.float64).reshape(-1)
+    o = np.asarray(out16, np.float64).reshape(-1)
+    vmax = float(np.max(np.abs(g)))
+    if vmax == 0.0:
+        return 1.0, True
+    # zero-padded or absent outlier entries are ordinary (zero) values:
+    # only magnitudes beyond the normal grid constrain u
+    o = o[np.abs(o) > vmax + 1e-9]
+    for d in range(1, 128):
+        u = vmax / d
+        qn = g / u
+        ok_n = (np.max(np.abs(qn - np.round(qn))) < 1e-6
+                and np.max(np.abs(qn)) <= OVP_OFFSET + 1e-9)
+        if not ok_n:
+            continue
+        if o.size == 0:
+            return u, True
+        m = (np.abs(o) / u - OVP_OFFSET) / OVP_SHIFT
+        if (np.max(np.abs(m - np.round(m))) < 1e-6
+                and np.min(m) >= 1 - 1e-9
+                and np.max(m) <= 127 - OVP_OFFSET + 1e-9):
+            return u, True
+    return vmax / 127, False
+
+
+def ovp_encode_scalar(v: float, u: float, normal_max: float) -> int:
+    """Sign-offset byte of ONE integer-domain value: normals at unit u,
+    outliers past +-OVP_OFFSET. Used by the weight packer and by the
+    engine's activation tables."""
+    if abs(v) <= normal_max + 1e-9:
+        return int(round(v / u))
+    m = int(round((abs(v) / u - OVP_OFFSET) / OVP_SHIFT))
+    return int(np.sign(v)) * (OVP_OFFSET + m)
+
+
+def quantize_weights_ovp_i8(w: torch.Tensor, grid, outliers, alpha,
+                            pair_axis: int = 0, axis: int = 1
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """OVP-quantize a (K, N) f32 weight and store it sign-offset encoded.
+
+    Snap onto the grid || outliers concat, zero the victims along
+    ``pair_axis`` (0: pairs along K), encode. Returns ``(w_enc (K, N)
+    int8, scale (N,) f32)`` with the dequantized weight equal to
+    ``ovp_decode_values(w_enc) * scale[None, :]``. The per-channel scale
+    is ``alpha / max(grid)`` (the SIGNED max) times the unit. Runs on the
+    device of ``w``. Only per-output-channel (Linear) scales are ported;
+    GPT-2's per-input-channel Conv1D sites come later (ROADMAP Queue 1
+    item 8.3).
+    """
+    if axis != 1:
+        raise NotImplementedError(
+            "per-input-channel (Conv1D, 'kscale') weights are not ported "
+            "yet (ROADMAP Queue 1 item 8.3)")
+    dev = w.device
+    g16 = np.asarray(grid, np.float32).reshape(-1)[:16]
+    o16 = np.asarray(outliers, np.float32).reshape(-1)[:16]
+    u, exact = ovp_unit(g16, o16)
+    if not exact:
+        raise ValueError(
+            "no exact sign-offset OVP unit for this grid/outlier pair: "
+            "these weights cannot be served losslessly in 'w4'")
+    vmax = torch.tensor(float(np.max(g16)), dtype=torch.float32, device=dev)
+    alpha_t = torch.tensor(np.asarray(alpha, np.float32), device=dev)
+    scale = alpha_t.reshape(-1).expand(w.shape[1]) / vmax
+    full = torch.tensor(np.concatenate([g16, o16]), device=dev)
+    q, _ = snap_concat(w.to(torch.float32) / scale[None, :], full)
+    q = apply_ovp(q, pair_axis=pair_axis)          # victims -> 0
+    # integer-domain value -> encoded byte, one compare per codebook value
+    vals = np.unique(np.concatenate([g16, o16, [0.0]]))
+    thr = float(np.max(np.abs(g16)))
+    w_enc = torch.zeros(q.shape, dtype=torch.int8, device=dev)
+    for v in vals:
+        near = ((q - torch.tensor(np.float32(v), device=dev)).abs()
+                < torch.tensor(np.float32(1e-5 * max(1, abs(v))),
+                               device=dev))
+        w_enc = torch.where(near, torch.tensor(
+            ovp_encode_scalar(v, u, thr), dtype=torch.int8, device=dev),
+            w_enc)
+    return w_enc, scale * torch.tensor(np.float32(u), device=dev)
+
+
+def ovp_clip(c: torch.Tensor) -> torch.Tensor:
+    """clip(c, -64, 64) as int8: the second dot's operand."""
+    return torch.clamp(c.to(torch.int32), -OVP_OFFSET,
+                       OVP_OFFSET).to(torch.int8)
+
+
+def ovp_decode_values(c: torch.Tensor) -> torch.Tensor:
+    """Encoded int8 -> integer-domain values (int32):
+    16 c - 15 clip(c, -64, 64)."""
+    ci = c.to(torch.int32)
+    return OVP_SHIFT * ci - (OVP_SHIFT - 1) * torch.clamp(
+        ci, -OVP_OFFSET, OVP_OFFSET)

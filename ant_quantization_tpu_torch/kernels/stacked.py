@@ -1,17 +1,35 @@
-"""K1: stacked-layer snap + int8 matmul, the decode-path workhorse.
+"""Stacked-layer quantized matmuls, the decode-path workhorses.
 
-Counterpart of the reference's ``kernels/stacked.py:stacked_quant_matmul``
-in mode "i8" without OVP. The serving engine keeps every site's weights
-for all layers in one stack; one call computes, for layer ``l``,
+Counterparts of the reference's ``kernels/stacked.py``. The serving
+engine keeps every site's weights for all layers in one stack; one call
+computes one layer ``l``:
 
-    snap(x / a_scale[l]; a_q[l]) (int8) @ W[l] (int8), int32 accumulation,
-    times scales[l] (f32, per output channel)
+- K1, :func:`stacked_quant_matmul` (``ovp=False``): snap(x / a_scale[l];
+  a_q[l]) (int8) @ W[l] (int8 codebook values), int32 accumulation,
+  times scales[l] (f32, per output channel).
+- K3, :func:`stacked_quant_matmul` with ``ovp=True``: the same snap
+  against sign-offset OVP weight bytes c (``kernels/qmatmul.py``),
+  decoded exactly as 16 x@c - 15 x@clip(c, +-64). As in the reference,
+  that int32 value is formed per 256-row sub-chunk, converted to f32,
+  summed in order within each K block of ``_fit(K, block_k)`` rows, and
+  the blocks are summed in order into an f32 accumulator.
+- K4, :func:`stacked_quant_matmul_aovp`: full OliVe. x / prescale[l] is
+  snapped onto the (unsorted) grid || outlier concat by 31 midpoints
+  with tie flags, looked up to its sign-offset byte cx, the OVP victims
+  along K are zeroed, and px = clip(cx, +-64). Per K block, the int32
+  dots d1 = cx@w, d2 = cx@pw, d3 = px@w, d4 = px@pw (pw = clip(w, +-64))
+  are combined in f32 as ((256 d1 - 240 d2) - 240 d3) + 225 d4, or
+  16 d1 - 15 d3 for int8-value weights, summed block by block, times
+  scales[l].
 
-On a CUDA tensor :func:`stacked_quant_matmul` launches the hand-written
-Hopper kernel in ``csrc/stacked_i8.cu`` (which says what bounds it and
-how it is laid out); on a CPU tensor it runs
-:func:`stacked_quant_matmul_plain`, the plain PyTorch version with the
-same arithmetic, which the tests hold against the JAX reference and
+``block_k`` therefore sets the f32 partition of K3 and K4, and is part
+of their numbers (``EngineConfig.stacked_block_k``).
+
+On a CUDA tensor each wrapper launches its hand-written Hopper kernel
+(``csrc/stacked_i8.cu`` for K1 and K3, ``csrc/stacked_aovp.cu`` for K4;
+each source says what bounds it and how it is laid out); on a CPU tensor
+it runs its plain PyTorch version, which has the same arithmetic in the
+same order and which the tests hold against the JAX reference and
 ``chip_smoke.py`` holds against the kernel, bit for bit.
 
 The port's weight stack is N-major, ``(L, N, K)`` int8, so that one output
@@ -26,15 +44,22 @@ import ctypes
 import torch
 
 from .. import _ext
+from ..ops.ovp import victim_mask
 from ..ops.snap import snap_value
+from .qmatmul import OVP_OFFSET, ovp_clip
 
 __all__ = ["stacked_quant_matmul", "stacked_quant_matmul_plain",
-           "int8_matmul", "COUNTS"]
+           "stacked_quant_matmul_aovp", "stacked_quant_matmul_aovp_plain",
+           "int8_matmul", "COUNTS", "K3_COUNTS", "K4_COUNTS"]
 
-# launches of the CUDA kernel, and calls of the plain version
-COUNTS = {"launches": 0, "plain_calls": 0}
+# launches of each CUDA kernel, and calls of its plain version
+COUNTS = {"launches": 0, "plain_calls": 0}        # K1
+K3_COUNTS = {"launches": 0, "plain_calls": 0}
+K4_COUNTS = {"launches": 0, "plain_calls": 0}
 
 _SOURCE = "stacked_i8.cu"
+_AOVP_SOURCE = "stacked_aovp.cu"
+_SUB = 256          # K3's int32 sub-chunk rows (the reference's `sub`)
 
 
 def int8_matmul(a: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
@@ -51,17 +76,96 @@ def int8_matmul(a: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a, w_nk.t())[:M]
 
 
+def _fit(n: int, want: int, quantum: int = 128) -> int:
+    """The reference's block size: the largest multiple of ``quantum``
+    up to ``want`` that divides n, else n."""
+    if n <= want:
+        return n
+    b = (want // quantum) * quantum
+    while b >= quantum:
+        if n % b == 0:
+            return b
+        b -= quantum
+    return n
+
+
+def _segment_dots(a: torch.Tensor, ws, seg: int) -> list:
+    """Exact int8 dots per K segment: a (M, K) int8 against each (N, K)
+    int8 of ``ws`` -> (K/seg, M, N) int64 each. Products of int8 values
+    and their sums stay far inside float64's 53 bits, so a float64
+    product is exact on every device and under any TF32 setting."""
+    M, K = a.shape
+    n_seg = K // seg
+    a3 = a.to(torch.float64).reshape(M, n_seg, seg).transpose(0, 1)
+    outs = []
+    for w in ws:
+        w3 = w.to(torch.float64).reshape(w.shape[0], n_seg, seg)
+        outs.append(torch.matmul(a3, w3.permute(1, 2, 0)).to(torch.int64))
+    return outs
+
+
+def _blocked_sum(p: torch.Tensor, per_block: int) -> torch.Tensor:
+    """f32 values p (n_seg, M, N) summed in the reference's order: in
+    sequence within each block of ``per_block`` segments, then the
+    blocks in sequence."""
+    acc = None
+    for b0 in range(0, p.shape[0], per_block):
+        part = p[b0]
+        for s in range(b0 + 1, b0 + per_block):
+            part = part + p[s]
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def _check_segments(K: int, block_k: int, sub: int) -> tuple[int, int]:
+    """(segment rows, segments per block) the kernels take for K: the
+    reference's ``_fit(K, block_k)`` blocks, cut into ``sub``-row
+    segments. A segment must be 16-512 rows with seg/16 dividing 32, or a
+    multiple of 512."""
+    bk = _fit(K, block_k)
+    seg = min(bk, sub)
+    if bk % seg or seg % 16 or not (seg % 512 == 0 or 512 % seg == 0):
+        raise ValueError(f"K = {K} with block_k = {block_k} gives blocks "
+                         f"of {bk} rows, which the kernels cannot cut into "
+                         "equal segments")
+    return seg, bk // seg
+
+
 def stacked_quant_matmul_plain(l: int, x: torch.Tensor, w: torch.Tensor,
                                scales: torch.Tensor, a_q: torch.Tensor,
-                               a_scale: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of :func:`stacked_quant_matmul`."""
-    COUNTS["plain_calls"] += 1
+                               a_scale: torch.Tensor, ovp: bool = False,
+                               block_k: int = 1024) -> torch.Tensor:
+    """Plain PyTorch version of :func:`stacked_quant_matmul` (K1, or K3
+    with ``ovp``)."""
+    (K3_COUNTS if ovp else COUNTS)["plain_calls"] += 1
     xq = snap_value(x.to(torch.float32) / a_scale[l],
                     a_q[l].to(torch.float32)).to(torch.int8)
-    return int8_matmul(xq, w[l]).to(torch.float32) * scales[l]
+    if not ovp:
+        return int8_matmul(xq, w[l]).to(torch.float32) * scales[l]
+    K = w.shape[2]
+    seg, per_block = _check_segments(K, block_k, _SUB)
+    d1, d2 = _segment_dots(xq, (w[l], ovp_clip(w[l])), seg)
+    p = (16 * d1 - 15 * d2).to(torch.float32)      # exact int32 values
+    return _blocked_sum(p, per_block) * scales[l]
 
 
-def _launch(l, x, w, scales, a_q, a_scale):
+def _check_operands(name_tensors, dev):
+    for name, t, dt in name_tensors:
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dt} tensor on "
+                             f"{dev}, got {t.dtype} on {t.device}")
+
+
+def _fn(lib, name: str, n_ptr: int, n_int: int):
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(l, x, w, scales, a_q, a_scale, ovp, block_k):
     L, N, K = w.shape
     M = x.shape[0]
     G = a_q.shape[1]
@@ -70,47 +174,164 @@ def _launch(l, x, w, scales, a_q, a_scale):
         raise ValueError(f"K = {K} must be a multiple of 16")
     if x.ndim != 2 or x.shape[1] != K or M == 0:
         raise ValueError(f"x must be (M, {K}), got {tuple(x.shape)}")
-    for name, t, dt in (("x", x, torch.float32), ("w", w, torch.int8),
-                        ("scales", scales, torch.float32),
-                        ("a_q", a_q, torch.float32),
-                        ("a_scale", a_scale, torch.float32)):
-        if t.device != dev or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {dt} tensor on "
-                             f"{dev}, got {t.dtype} on {t.device}")
+    _check_operands((("x", x, torch.float32), ("w", w, torch.int8),
+                     ("scales", scales, torch.float32),
+                     ("a_q", a_q, torch.float32),
+                     ("a_scale", a_scale, torch.float32)), dev)
     if scales.shape != (L, N) or a_scale.shape != (L,) or a_q.shape[0] != L:
         raise ValueError("scales (L, N), a_q (L, G), a_scale (L,) expected")
     lib = _ext.load(_SOURCE)
-    fn = lib.stacked_i8_matmul
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
     xq = torch.empty((M, K), dtype=torch.int8, device=dev)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    code = fn(x.data_ptr(), xq.data_ptr(), w.data_ptr(), a_q.data_ptr(),
-              a_scale.data_ptr(), scales.data_ptr(), out.data_ptr(),
-              l, M, K, N, G, _ext.stream_ptr(dev))
-    _ext.check(lib, code, "stacked_i8_matmul")
-    COUNTS["launches"] += 1
+    ptrs = (x.data_ptr(), xq.data_ptr(), w.data_ptr(), a_q.data_ptr(),
+            a_scale.data_ptr(), scales.data_ptr(), out.data_ptr())
+    if ovp:
+        seg, per_block = _check_segments(K, block_k, _SUB)
+        fn = _fn(lib, "stacked_i8_ovp_matmul", 7, 7)
+        code = fn(*ptrs, l, M, K, N, G, seg, per_block,
+                  _ext.stream_ptr(dev))
+        _ext.check(lib, code, "stacked_i8_ovp_matmul")
+        K3_COUNTS["launches"] += 1
+    else:
+        fn = _fn(lib, "stacked_i8_matmul", 7, 5)
+        code = fn(*ptrs, l, M, K, N, G, _ext.stream_ptr(dev))
+        _ext.check(lib, code, "stacked_i8_matmul")
+        COUNTS["launches"] += 1
     return out
 
 
 def stacked_quant_matmul(l: int, x: torch.Tensor, w: torch.Tensor,
                          scales: torch.Tensor, a_q: torch.Tensor,
-                         a_scale: torch.Tensor) -> torch.Tensor:
+                         a_scale: torch.Tensor, ovp: bool = False,
+                         block_k: int = 1024) -> torch.Tensor:
     """``snap(x / a_scale[l]; a_q[l]) @ W[l].T * scales[l]`` -> (M, N) f32.
 
     l:       layer index (Python int)
     x:       (M, K) f32 activations (M <= 64 on the serving path)
-    w:       (L, N, K) int8 codebook values
+    w:       (L, N, K) int8 codebook values, or sign-offset OVP bytes
+             (``ovp``: K3)
     scales:  (L, N) f32, a_scale * per-channel weight scale, folded
     a_q:     (L, G) f32 int8-domain activation codebook, sorted
     a_scale: (L,) f32 activation scale (an IEEE division, not a
              multiply by the reciprocal)
+    block_k: K3's f32 partition of K (the reference's ``block_k``)
     """
     if not 0 <= l < w.shape[0]:
         raise IndexError(f"layer {l} outside a stack of {w.shape[0]}")
     if x.is_cuda:
         return _launch(l, x.to(torch.float32).contiguous(), w, scales, a_q,
-                       a_scale)
-    return stacked_quant_matmul_plain(l, x, w, scales, a_q, a_scale)
+                       a_scale, ovp, block_k)
+    return stacked_quant_matmul_plain(l, x, w, scales, a_q, a_scale, ovp,
+                                      block_k)
+
+
+def aovp_snap_encode(xs: torch.Tensor, mids: torch.Tensor,
+                     ties: torch.Tensor, enc: torch.Tensor) -> torch.Tensor:
+    """The tie-flagged concat snap of pre-scaled xs (M, K) f32 straight to
+    the encoded byte value (f32), before the victims are zeroed."""
+    cxf = enc[0].expand(xs.shape).clone()
+    for i in range(mids.shape[0]):
+        take = (xs > mids[i]) | ((xs == mids[i]) & (ties[i] > 0))
+        cxf = torch.where(take, enc[i + 1], cxf)
+    return cxf
+
+
+def aovp_encode(xs: torch.Tensor, mids: torch.Tensor, ties: torch.Tensor,
+                enc: torch.Tensor) -> torch.Tensor:
+    """K4's activation encode on pre-scaled xs (M, K) f32:
+    :func:`aovp_snap_encode`, then the OVP victims along K zeroed
+    (|byte| > 64 marks an outlier)."""
+    cxf = aovp_snap_encode(xs, mids, ties, enc)
+    victims = victim_mask(cxf.abs() > OVP_OFFSET, pair_axis=-1)
+    return torch.where(victims, torch.zeros_like(cxf), cxf)
+
+
+def stacked_quant_matmul_aovp_plain(l: int, x: torch.Tensor,
+                                    w: torch.Tensor, scales: torch.Tensor,
+                                    prescale: torch.Tensor,
+                                    mids: torch.Tensor, ties: torch.Tensor,
+                                    enc: torch.Tensor, w_ovp: bool = False,
+                                    block_k: int = 1024) -> torch.Tensor:
+    """Plain PyTorch version of :func:`stacked_quant_matmul_aovp`."""
+    K4_COUNTS["plain_calls"] += 1
+    K = w.shape[2]
+    seg, _ = _check_segments(K, block_k, K)        # one segment per block
+    cxf = aovp_encode(x.to(torch.float32) / prescale[l], mids[l], ties[l],
+                      enc[l])
+    cx = cxf.to(torch.int8)
+    px = torch.clamp(cxf, -OVP_OFFSET, OVP_OFFSET).to(torch.int8)
+    wl = w[l]
+    f = lambda d: d.to(torch.float32)
+    if w_ovp:
+        (d1, d2), (d3, d4) = (_segment_dots(a, (wl, ovp_clip(wl)), seg)
+                              for a in (cx, px))
+        part = (256.0 * f(d1) - 240.0 * f(d2) - 240.0 * f(d3)
+                + 225.0 * f(d4))
+    else:
+        (d1,), (d3,) = (_segment_dots(a, (wl,), seg) for a in (cx, px))
+        part = 16.0 * f(d1) - 15.0 * f(d3)
+    return _blocked_sum(part, 1) * scales[l]
+
+
+def _launch_aovp(l, x, w, scales, prescale, mids, ties, enc, w_ovp,
+                 block_k):
+    L, N, K = w.shape
+    M = x.shape[0]
+    G1 = mids.shape[1]
+    dev = x.device
+    if K % 16:
+        raise ValueError(f"K = {K} must be a multiple of 16")
+    if x.ndim != 2 or x.shape[1] != K or M == 0:
+        raise ValueError(f"x must be (M, {K}), got {tuple(x.shape)}")
+    _check_operands((("x", x, torch.float32), ("w", w, torch.int8),
+                     ("scales", scales, torch.float32),
+                     ("prescale", prescale, torch.float32),
+                     ("mids", mids, torch.float32),
+                     ("ties", ties, torch.int32),
+                     ("enc", enc, torch.float32)), dev)
+    if (scales.shape != (L, N) or prescale.shape != (L,)
+            or mids.shape != (L, G1) or ties.shape != (L, G1)
+            or enc.shape != (L, G1 + 1)):
+        raise ValueError("scales (L, N), prescale (L,), mids and ties "
+                         "(L, G-1), enc (L, G) expected")
+    seg, _ = _check_segments(K, block_k, K)
+    lib = _ext.load(_AOVP_SOURCE)
+    fn = _fn(lib, "stacked_aovp_matmul", 10, 7)
+    cx = torch.empty((M, K), dtype=torch.int8, device=dev)
+    px = torch.empty((M, K), dtype=torch.int8, device=dev)
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    code = fn(x.data_ptr(), cx.data_ptr(), px.data_ptr(), w.data_ptr(),
+              prescale.data_ptr(), mids.data_ptr(), ties.data_ptr(),
+              enc.data_ptr(), scales.data_ptr(), out.data_ptr(),
+              l, M, K, N, G1 + 1, seg, int(w_ovp), _ext.stream_ptr(dev))
+    _ext.check(lib, code, "stacked_aovp_matmul")
+    K4_COUNTS["launches"] += 1
+    return out
+
+
+def stacked_quant_matmul_aovp(l: int, x: torch.Tensor, w: torch.Tensor,
+                              scales: torch.Tensor, prescale: torch.Tensor,
+                              mids: torch.Tensor, ties: torch.Tensor,
+                              enc: torch.Tensor, w_ovp: bool = False,
+                              block_k: int = 1024) -> torch.Tensor:
+    """Full-OliVe stacked matmul (K4) -> (M, N) f32.
+
+    l:        layer index (Python int)
+    x:        (M, K) f32 raw activations
+    w:        (L, N, K) int8: codebook values, or OVP bytes (``w_ovp``)
+    scales:   (L, N) f32 output scale (prescale x activation unit x
+              weight scale, folded)
+    prescale: (L,) f32 alpha / max(normal grid); x / prescale is the
+              integer domain the concat snap runs in
+    mids:     (L, 31) f32 sorted-concat midpoints
+    ties:     (L, 31) int32 tie-to-the-later-entry flags
+    enc:      (L, 32) f32 encoded byte of each sorted concat entry
+    block_k:  the f32 partition of K (the reference's ``block_k``)
+    """
+    if not 0 <= l < w.shape[0]:
+        raise IndexError(f"layer {l} outside a stack of {w.shape[0]}")
+    if x.is_cuda:
+        return _launch_aovp(l, x.to(torch.float32).contiguous(), w, scales,
+                            prescale, mids, ties, enc, w_ovp, block_k)
+    return stacked_quant_matmul_aovp_plain(l, x, w, scales, prescale, mids,
+                                           ties, enc, w_ovp, block_k)

@@ -1,7 +1,8 @@
-"""ANT codebook (value-grid) construction, numpy only.
+"""ANT and OliVe codebook (value-grid) construction, numpy only.
 
-A copy of the reference's ``numerics/codebooks.py`` ANT half
-(``ant_grid`` and the value builders it calls): grids depend only on
+A copy of the reference's ``numerics/codebooks.py``: the ANT half
+(``ant_grid`` and the value functions it calls) and the OliVe half
+(``olive_grid`` and its normal and outlier grids). Grids depend only on
 (bit, signed, mode), so they are built once on the host.
 
 - ANT grids are normalized by ``convert_tensor``: sort ascending, pad with
@@ -15,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["ant_normalize", "int_values", "pot_values", "apot_values",
-           "float_values", "flint_values", "ant_grid"]
+           "float_values", "flint_values", "ant_grid", "olive_int_values",
+           "olive_flint_values", "olive_outlier_values", "olive_grid"]
 
 
 def _value_bits(bit: int, signed: bool) -> int:
@@ -178,3 +180,62 @@ def ant_grid(mode: str, bit: int, signed: bool) -> np.ndarray:
     else:
         raise ValueError(f"unknown ANT mode {mode!r}")
     return ant_normalize(vals, bit)
+
+
+# OliVe grids: normal values scaled so the outlier threshold is 32.
+
+def olive_int_values(bit: int, signed: bool) -> np.ndarray:
+    """OliVe int grid {0, +/-1 .. +/-(2^B - 1)} scaled by 32/2^B, sorted,
+    unpadded. Unlike ANT's int grid there is no -2^B, so every normal
+    magnitude stays below 32 and |q| > 32 marks an outlier."""
+    b = _value_bits(bit, signed)
+    values = [0.0] + [float(i) for i in range(1, 2 ** b)]
+    if signed:
+        values += [float(-i) for i in range(1, 2 ** b)]
+    arr = np.sort(np.asarray(values, dtype=np.float64))
+    arr = arr * (32.0 / 2 ** b)
+    return arr.astype(np.float32)
+
+
+def olive_flint_values(bit: int, signed: bool,
+                       exp_base: int = 0) -> np.ndarray:
+    """OliVe flint grid scaled by 32/2^exp_max, so its endpoint is +/-32.
+    The negative-exponent loop ignores ``exp_base`` in this variant."""
+    b = _value_bits(bit, signed)
+    if b < 2:
+        raise ValueError("flint needs at least 2 value bits")
+    exp_max = (b - 1) + exp_base
+    mags = _flint_magnitudes(b, exp_base, neg_exp_base=False)
+    vals = [0.0] + _signed_extend(mags, signed)
+    arr = np.sort(np.asarray(vals, dtype=np.float64))
+    arr = arr * (32.0 / 2 ** exp_max)
+    return arr.astype(np.float32)
+
+
+def olive_outlier_values(bit: int, signed: bool, exp_bit: int = 2,
+                         exp_base: int = 5) -> np.ndarray:
+    """OliVe "abfloat" outlier grid: +/-2^i * (1 + j 2^-m) for i in
+    [exp_base, exp_base + 2^exp_bit), without (exp_base, 0), which would
+    collide with the normal grid's endpoint 32."""
+    b = _value_bits(bit, signed)
+    mant_bit = b - exp_bit
+    if mant_bit < 0:
+        raise ValueError(f"outlier grid needs value bits >= {exp_bit}")
+    mags = []
+    for i in range(exp_base, exp_base + 2 ** exp_bit):
+        for j in range(2 ** mant_bit):
+            if i == exp_base and j == 0:
+                continue
+            mags.append(2.0 ** i * (1 + j * 2.0 ** (-mant_bit)))
+    vals = _signed_extend(mags, signed)
+    arr = np.sort(np.asarray(vals, dtype=np.float64))
+    return arr.astype(np.float32)
+
+
+def olive_grid(mode: str, bit: int, signed: bool) -> np.ndarray:
+    """The OliVe normal grid of one mode ("int" or "flint")."""
+    if mode == "int":
+        return olive_int_values(bit, signed)
+    if mode == "flint":
+        return olive_flint_values(bit, signed)
+    raise ValueError(f"unknown OliVe mode {mode!r}")

@@ -1,16 +1,28 @@
 """Quantized serving engine for the decoder LM family, main path.
 
 Counterpart of the reference's ``serve/engine.py`` for weight mode "w4"
-(4-bit weights stored as int8 codebook values), int8-exact activation
-grids, the INT8 KV cache and the int8 lm_head: prefill and greedy decode
-with one scalar write position per call.
+(4-bit weights stored as int8 bytes), the INT8 KV cache and the int8
+lm_head: prefill and greedy decode with one scalar write position per
+call. Both halves of the system are served:
+
+- ANT: weights as int8 codebook values, activations snapped onto an
+  int8-exact codebook (``a_q``);
+- OliVe: outlier-victim pairs (OVP). Weights with outliers take the
+  sign-offset OVP byte encoding (``ovp``); activations with outliers
+  carry per-layer concat-snap tables (``aovp_*``).
 
 Routing follows the reference:
-- decode-size matmuls (M = B*T <= ``stacked_max_m``) run K1, the stacked
-  snap + int8 matmul kernel (``kernels/stacked.py``);
-- prefill-size matmuls run plain torch ops: a midpoint snap of
-  ``x / a_scale`` onto ``a_q``, then an int8 x int8 -> int32 library
-  product (``int8_matmul``), as the reference leaves them to XLA;
+- decode-size matmuls (M = B*T <= ``stacked_max_m``) run a stacked
+  kernel (``kernels/stacked.py``): K4 at sites with aovp tables, K3 at
+  OVP-weight sites with ``a_q``, K1 at the others. The rule is
+  all-or-nothing: one site with neither ``a_q`` nor aovp tables sends
+  every site of the step to the unfused route;
+- prefill-size matmuls run plain torch ops: with ``a_q``, a midpoint
+  snap of ``x / a_scale`` and int8 x int8 -> int32 library products
+  (two for OVP weights, combined as 16 a - 15 b in f32); without it
+  (OVP activations, inexact grids), the activation fake-quant and an f32
+  product of the ``mm_dtype``-rounded operands against the decoded
+  weight values, as the reference leaves them to XLA;
 - attention runs K2 (``kernels/attention.py``) for decode and prefill
   alike, one launch per layer.
 
@@ -32,22 +44,34 @@ from torch import nn
 from .._ext import resolve_device
 from ..kernels.attention import stacked_int8_kv_attention
 from ..kernels.kv_cache import QuantKV, append_kv_stacked, init_kv
-from ..kernels.qmatmul import int8_codebook, quantize_weights_w4_i8
-from ..kernels.stacked import int8_matmul, stacked_quant_matmul
+from ..kernels.qmatmul import (int8_codebook, ovp_clip, ovp_decode_values,
+                               ovp_encode_scalar, ovp_unit,
+                               quantize_weights_ovp_i8,
+                               quantize_weights_w4_i8)
+from ..kernels.stacked import (int8_matmul, stacked_quant_matmul,
+                               stacked_quant_matmul_aovp)
 from ..models.transformer_lm import LMConfig, conv1d_site_names
-from ..ops.snap import snap_value
+from ..ops.ovp import apply_ovp
+from ..ops.snap import snap_concat, snap_value
 
-__all__ = ["EngineConfig", "quantize_lm_head", "build_engine_params",
-           "forward", "init_cache", "Engine", "SITES"]
+__all__ = ["EngineConfig", "quantize_lm_head", "quantize_activation",
+           "quantize_activation_ovp", "weight_entry", "act_entry",
+           "stack_entries", "build_engine_params", "forward", "init_cache",
+           "Engine", "SITES"]
 
 SITES = ("q", "k", "v", "out", "fc_in", "fc_out")
 _ATTN_SITES = ("q", "k", "v", "out")
+_AOVP_KEYS = ("aovp_mids", "aovp_ties", "aovp_enc", "aovp_unit")
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """The reference's EngineConfig, field for field. ``interpret`` and
-    the block sizes are Pallas settings and have no effect here."""
+    """The reference's EngineConfig, field for field. ``interpret``,
+    ``block_n`` and ``stacked_block_n`` are Pallas settings and have no
+    effect here. ``stacked_block_k`` does: it sets the f32 combine
+    partition of K3 and K4 (their int32 partial sums are converted and
+    added in f32 per block of that many K rows), so it is part of their
+    numbers, as in the reference."""
     lm: LMConfig
     weight_mode: str = "w4"        # only "w4" is ported
     act_bits: int = 0              # 0 = no activation quant, else 4/8
@@ -57,7 +81,8 @@ class EngineConfig:
     block_n: int = 512
     dtype: Any = torch.bfloat16
     interpret: bool = False
-    # decode-size matmuls (M = B*T <= stacked_max_m) run the K1 kernel
+    # decode-size matmuls (M = B*T <= stacked_max_m) run the stacked
+    # kernels (K1, K3, K4)
     stacked_kernel: bool = True
     stacked_max_m: int = 64
     stacked_block_n: int = 4096
@@ -114,6 +139,113 @@ def quantize_lm_head(wte: torch.Tensor) -> Dict[str, torch.Tensor]:
     return {"wte_i8": w_i8.to(torch.int8), "wte_scale": s}
 
 
+def quantize_activation(x: torch.Tensor, grid16: torch.Tensor,
+                        alpha: torch.Tensor) -> torch.Tensor:
+    """Per-tensor activation fake-quant onto a sorted grid, in x's dtype
+    (the unfused route of grids without an int8-exact codebook)."""
+    scale = (alpha / grid16.max()).to(x.dtype)
+    return snap_value(x / scale, grid16) * scale
+
+
+def quantize_activation_ovp(x: torch.Tensor, grid16: torch.Tensor,
+                            out16: torch.Tensor,
+                            alpha: torch.Tensor) -> torch.Tensor:
+    """OliVe activation fake-quant: snap onto the unsorted grid || outlier
+    concat (in f32), zero each outlier's pair neighbour along the feature
+    axis, rescale, back to x's dtype."""
+    scale = (alpha / grid16.max()).to(torch.float32)
+    full = torch.cat([grid16.to(torch.float32), out16.to(torch.float32)])
+    q, _ = snap_concat(x.to(torch.float32) / scale, full)
+    q = apply_ovp(q, pair_axis=-1)
+    return (q * scale).to(x.dtype)
+
+
+def _aovp_encode_tables(a_grid: np.ndarray, a_out16: np.ndarray, u_a: float,
+                        device: torch.device) -> Dict[str, torch.Tensor]:
+    """Per-layer tables of K4: the sorted grid || outlier concat's
+    midpoints, its tie-to-the-later-entry flags, and the sign-offset byte
+    of each sorted entry."""
+    av = np.concatenate([np.asarray(a_grid, np.float64),
+                         np.asarray(a_out16, np.float64)])
+    order = np.argsort(av, kind="stable")
+    sg = av[order]
+    ties = (order[1:] >= order[:-1]).astype(np.int32)
+    mids = ((sg[1:] + sg[:-1]) * 0.5).astype(np.float32)
+    thr = float(np.max(np.abs(np.asarray(a_grid))))
+    encs = np.asarray([ovp_encode_scalar(v, u_a, thr) for v in sg],
+                      np.float32)
+    t = lambda a: torch.as_tensor(a, device=device)
+    return {"aovp_mids": t(mids), "aovp_ties": t(ties), "aovp_enc": t(encs),
+            "aovp_unit": t(np.float32(u_a))}
+
+
+def _site_node(tree: Dict, site: str):
+    return tree["attn"][site] if site in _ATTN_SITES else tree[site]
+
+
+def weight_entry(kernel: torch.Tensor, wq, ovp: bool) -> Dict:
+    """One site-layer's weight leaves from its (K, N) f32 kernel (on the
+    device the leaves go to) and its weight quantizer state: the OVP
+    encoding when the site has outliers in any layer (``ovp``), else int8
+    codebook values; ``w_i8`` in the port's (N, K) layout."""
+    e = {}
+    if ovp:
+        w_i8, oscale = quantize_weights_ovp_i8(
+            kernel, _field(wq, "grid"), _field(wq, "outliers"),
+            _field(wq, "alpha"))
+        e["ovp"] = torch.zeros((), dtype=torch.int32, device=kernel.device)
+    else:
+        w_i8, oscale = quantize_weights_w4_i8(kernel, _field(wq, "grid"),
+                                              _field(wq, "alpha"))
+    e["w_i8"], e["oscale"] = w_i8.t().contiguous(), oscale
+    return e
+
+
+def act_entry(cfg: EngineConfig, aq, ovp: bool,
+              device: torch.device) -> Dict:
+    """One site-layer's activation leaves from its input quantizer state:
+    the grid and alpha, plus the outlier grid and, where it has an exact
+    sign-offset unit, K4's tables (``ovp``: the site has activation
+    outliers in any layer), or else the int8-exact codebook ``a_q`` and
+    its scale where the grid has one."""
+    t = lambda a: torch.as_tensor(a, device=device)
+    a_grid = np.asarray(_field(aq, "grid"), np.float32).reshape(
+        -1)[:2 ** cfg.act_bits]
+    a_alpha = np.asarray(_field(aq, "alpha"), np.float32).reshape(())
+    e = {"a_grid": t(a_grid.copy()), "a_alpha": t(a_alpha.copy())}
+    if ovp:
+        a_out16 = np.asarray(_field(aq, "outliers"),
+                             np.float32).reshape(-1)[:16]
+        e["a_out"] = t(a_out16.copy())
+        u_a, exact_a = ovp_unit(a_grid, a_out16)
+        if exact_a:
+            e.update(_aovp_encode_tables(a_grid, a_out16, u_a, device))
+        return e
+    a_q16, a_unit, a_exact = int8_codebook(a_grid)
+    if a_exact:
+        # the SIGNED max, as the reference quantizer scales
+        a_scale = a_alpha / np.float32(np.max(a_grid)) * np.float32(a_unit)
+        e["a_q"] = t(a_q16.astype(np.float32))
+        e["a_scale"] = t(np.float32(a_scale))
+    return e
+
+
+def stack_entries(site: str, es: list) -> Dict[str, torch.Tensor]:
+    """A site's per-layer entries stacked over layers. K4's tables must be
+    there for every layer (the stack shares keys): otherwise they are
+    dropped and the site takes the unfused route."""
+    if not all("aovp_enc" in e for e in es):
+        for e in es:
+            for k in _AOVP_KEYS:
+                e.pop(k, None)
+    keys = list(es[0])
+    if any(list(e) != keys for e in es):
+        raise ValueError(f"site {site!r}: layers quantize differently (an "
+                         "int8-exact activation grid in some layers only); "
+                         "they cannot be stacked")
+    return {k: torch.stack([e[k] for e in es]) for k in keys}
+
+
 def build_engine_params(cfg: EngineConfig, params: Dict, quant: Dict,
                         device=None) -> Dict:
     """Per-layer float weights + calibrated quantizer states -> stacked
@@ -124,16 +256,28 @@ def build_engine_params(cfg: EngineConfig, params: Dict, quant: Dict,
     ``h_{i}/{ln_1,ln_2}``, ``wte/embedding``, ``wpe/embedding``,
     ``ln_f``); ``quant`` holds, per site, ``weight_q`` and ``input_q``
     states with numpy ``grid``, ``alpha`` and ``outliers``. The result's
-    ``w_i8`` / ``oscale`` / ``a_q`` / ``a_scale`` equal the reference's
-    bit for bit (``w_i8`` transposed to the port's (L, N, K) layout).
+    site leaves equal the reference's bit for bit (``w_i8`` transposed to
+    the port's (L, N, K) layout, ``a_q`` as f32).
+
+    As in the reference, OVP is decided per site: if any layer's weight
+    state has outliers, every layer of the site is OVP-encoded
+    (``ovp``); if any layer's input state has outliers, every layer
+    fake-quantizes with them (``a_out``) and, when each layer's concat
+    grid has an exact sign-offset unit, carries K4's tables.
     """
     dev = resolve_device(device)
     _check_config(cfg)
     c = cfg.lm
     conv1d = conv1d_site_names(c)
-    layers: Dict[str, Dict[str, list]] = {
-        s: {k: [] for k in ("w_i8", "oscale", "bias", "a_q", "a_scale")}
-        for s in SITES}
+    site_ovp = dict.fromkeys(SITES, False)
+    site_act_ovp = dict.fromkeys(SITES, False)
+    for i in range(c.n_layers):
+        for site in SITES:
+            qn = _site_node(quant[f"h_{i}"], site)
+            site_ovp[site] |= bool(np.any(_field(qn["weight_q"], "outliers")))
+            site_act_ovp[site] |= bool(
+                np.any(_field(qn["input_q"], "outliers")))
+    entries: Dict[str, list] = {s: [] for s in SITES}
     lns: Dict[str, Dict[str, list]] = {
         n: {"scale": [], "bias": []} for n in ("ln_1", "ln_2")}
     for i in range(c.n_layers):
@@ -142,41 +286,19 @@ def build_engine_params(cfg: EngineConfig, params: Dict, quant: Dict,
             for k in ("scale", "bias"):
                 lns[n][k].append(np.asarray(p[n][k], np.float32))
         for site in SITES:
-            node = p["attn"][site] if site in _ATTN_SITES else p[site]
-            qn = q["attn"][site] if site in _ATTN_SITES else q[site]
-            wq, aq = qn["weight_q"], qn["input_q"]
             if site in conv1d:
                 raise _not_ported("Conv1D (per-input-channel) sites", "8.3")
-            if np.any(_field(wq, "outliers")):
-                raise _not_ported("OVP (outlier) weights", "8.4")
-            if np.any(_field(aq, "outliers")):
-                raise _not_ported("OliVe activation outliers", "8.5")
+            node, qn = _site_node(p, site), _site_node(q, site)
             kernel = torch.tensor(np.asarray(node["kernel"], np.float32),
                                   device=dev)
-            w_i8, oscale = quantize_weights_w4_i8(
-                kernel, _field(wq, "grid"), _field(wq, "alpha"))
-            a_grid = _field(aq, "grid").reshape(-1)[:2 ** cfg.act_bits]
-            a_q16, a_unit, exact = int8_codebook(a_grid)
-            if not exact:
-                raise _not_ported("activation grids that are not int8-exact",
-                                  "8")
-            a_alpha = np.float32(_field(aq, "alpha").reshape(()))
-            # the SIGNED max, as the reference quantizer scales
-            a_scale = (a_alpha / np.float32(np.max(a_grid))
-                       * np.float32(a_unit))
-            e = layers[site]
-            e["w_i8"].append(w_i8.t().contiguous())
-            e["oscale"].append(oscale)
             bias = node.get("bias", np.zeros(kernel.shape[1], np.float32))
-            e["bias"].append(torch.tensor(np.asarray(bias, np.float32),
-                                          device=dev))
-            e["a_q"].append(torch.as_tensor(a_q16.astype(np.float32),
-                                            device=dev))
-            e["a_scale"].append(torch.tensor(a_scale, dtype=torch.float32,
-                                             device=dev))
-    out_layers: Dict[str, Dict[str, torch.Tensor]] = {
-        s: {k: torch.stack(v) for k, v in d.items()}
-        for s, d in layers.items()}
+            e = {"bias": torch.tensor(np.asarray(bias, np.float32),
+                                      device=dev)}
+            e.update(weight_entry(kernel, qn["weight_q"], site_ovp[site]))
+            e.update(act_entry(cfg, qn["input_q"], site_act_ovp[site], dev))
+            entries[site].append(e)
+    out_layers = {site: stack_entries(site, es)
+                  for site, es in entries.items()}
     for n, d in lns.items():
         out_layers[n] = {k: torch.as_tensor(np.stack(v), device=dev)
                          for k, v in d.items()}
@@ -239,35 +361,97 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
 
 
 def _prepare_stacked(cfg: EngineConfig, ep: Dict,
-                     M: int) -> Optional[Dict[str, Dict[str, torch.Tensor]]]:
-    """Per-site K1 operands for decode-size M, or None (prefill-size M,
-    or the kernel switched off): the routing rule of the reference."""
+                     M: int) -> Optional[Dict[str, Dict[str, Any]]]:
+    """Per-site stacked-kernel operands for decode-size M, or None
+    (prefill-size M, the kernels switched off, or a site with neither
+    ``a_q`` nor K4's tables: all-or-nothing, so a step stays on one
+    route): the routing rule of the reference."""
     if not cfg.stacked_kernel or M > cfg.stacked_max_m:
         return None
-    return {name: {"w": s["w_i8"], "a_q": s["a_q"], "a_scale": s["a_scale"],
-                   "scales": s["a_scale"][:, None] * s["oscale"]}
-            for name, s in ep["layers"].items() if name in SITES}
+    stk = {}
+    for name, s in ep["layers"].items():
+        if name not in SITES:
+            continue
+        if "aovp_enc" in s:
+            # full OliVe: OVP activations (and maybe OVP weights) -> K4
+            prescale = s["a_alpha"] / s["a_grid"].amax(dim=1)        # (L,)
+            stk[name] = {
+                "mode": "aovp", "w": s["w_i8"], "w_ovp": "ovp" in s,
+                "scales": (prescale * s["aovp_unit"])[:, None] * s["oscale"],
+                "prescale": prescale, "mids": s["aovp_mids"],
+                "ties": s["aovp_ties"], "enc": s["aovp_enc"]}
+            continue
+        if "a_q" not in s:
+            return None
+        stk[name] = {"mode": "i8", "w": s["w_i8"], "ovp": "ovp" in s,
+                     "a_q": s["a_q"], "a_scale": s["a_scale"],
+                     "scales": s["a_scale"][:, None] * s["oscale"]}
+    return stk or None
 
 
-def _site_matmul_nobias(ep: Dict, name: str, x2d: torch.Tensor, l: int,
+def _f32_product(a: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
+    """a (M, K) @ w_nk (N, K).T with products and sums in f32, as the
+    reference's ``dot(.., preferred_element_type=f32)``: the operands are
+    taken to f32 (exact from bf16) and TF32 is held off for the call, so
+    the result is never rounded to bf16 or TF32."""
+    a, w = a.to(torch.float32), w_nk.to(torch.float32)
+    if not a.is_cuda:
+        return a @ w.t()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return a @ w.t()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _site_matmul_nobias(cfg: EngineConfig, ep: Dict, name: str,
+                        x2d: torch.Tensor, l: int,
                         stk: Optional[Dict]) -> torch.Tensor:
     """Quantized matmul of one site at layer l, WITHOUT the bias (f32)."""
     if stk is not None:
         s = stk[name]
+        if s["mode"] == "aovp":
+            return stacked_quant_matmul_aovp(
+                l, x2d, s["w"], s["scales"], s["prescale"], s["mids"],
+                s["ties"], s["enc"], w_ovp=s["w_ovp"],
+                block_k=cfg.stacked_block_k)
         return stacked_quant_matmul(l, x2d, s["w"], s["scales"], s["a_q"],
-                                    s["a_scale"])
+                                    s["a_scale"], ovp=s["ovp"],
+                                    block_k=cfg.stacked_block_k)
     site = ep["layers"][name]
-    a_scale = site["a_scale"][l]
-    xq = snap_value(x2d.to(torch.float32) / a_scale,
-                    site["a_q"][l]).to(torch.int8)
-    acc = int8_matmul(xq, site["w_i8"][l])
-    return acc.to(torch.float32) * (a_scale * site["oscale"][l])[None, :]
+    w = site["w_i8"][l]
+    if "a_q" in site:
+        a_scale = site["a_scale"][l]
+        xq = snap_value(x2d.to(torch.float32) / a_scale,
+                        site["a_q"][l]).to(torch.int8)
+        if "ovp" in site:
+            # OVP dual dot: two exact int32 products, combined in f32
+            # (16 x the first would overflow int32 at K = 16384)
+            acc = (16.0 * int8_matmul(xq, w).to(torch.float32)
+                   - 15.0 * int8_matmul(xq, ovp_clip(w)).to(torch.float32))
+        else:
+            acc = int8_matmul(xq, w).to(torch.float32)
+        return acc * (a_scale * site["oscale"][l])[None, :]
+    # OliVe activation outliers, or a grid without an int8-exact codebook:
+    # fake-quant, then the decoded weight values in mm_dtype
+    if "a_out" in site:
+        x2d = quantize_activation_ovp(x2d, site["a_grid"][l],
+                                      site["a_out"][l], site["a_alpha"][l])
+    else:
+        x2d = quantize_activation(x2d, site["a_grid"][l],
+                                  site["a_alpha"][l])
+    mm_dtype = torch.float32 if cfg.dtype == torch.float32 \
+        else torch.bfloat16
+    wv = ovp_decode_values(w) if "ovp" in site else w
+    y = _f32_product(x2d.to(mm_dtype), wv.to(mm_dtype))
+    return y * site["oscale"][l][None, :]
 
 
 def _site_matmul(cfg: EngineConfig, ep: Dict, name: str,
                  x2d: torch.Tensor, l: int,
                  stk: Optional[Dict]) -> torch.Tensor:
-    y = _site_matmul_nobias(ep, name, x2d, l, stk)
+    y = _site_matmul_nobias(cfg, ep, name, x2d, l, stk)
     return (y + ep["layers"][name]["bias"][l]).to(cfg.dtype)
 
 

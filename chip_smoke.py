@@ -28,7 +28,28 @@ Phases, each printing one JSON line (numbers unrounded):
    kernel call checked against its plain version on the same inputs, and
    a run with K1's plain version that must give identical greedy tokens
    and logits (see ``phase_insitu`` for why the all-plain run is only
-   reported).
+   reported);
+9. OliVe main path: OPT-6.7B under full OliVe W4A4 (OVP weights packed
+   on the card by ``quantize_weights_ovp_i8``, OVP activations at all six
+   sites), INT8 KV and the int8 head, 32 layers, full width, served as in
+   5: every decode site matmul runs K4 (launches counted as in 5), then
+   the observed share of OVP outliers and victims in the weights and in
+   the decode activations, which must be above 0;
+10. OVP-weights path: the same OVP weights with int8-exact A4 inputs
+   through ``Engine``: decode runs K3;
+11. K3 and K4 times at one decode layer's six sites, with the plain
+   versions, the bound and ``torch._int_mm`` on the same int8 weight
+   stream as a reference point (not the same function), and a profile
+   of the OliVe engine as in 7;
+12. in situ, OliVe: a 2-layer full-OliVe engine with every K4 call
+   checked against its plain version, and runs with K4's (and, on the
+   OVP-weights route, K3's) plain version that must give identical
+   greedy tokens and logits.
+
+The kernel checks (4) include K3 and K4 against their plain versions,
+bit for bit, at the three site shapes and M 4 and 64, on exact concat
+midpoints, padded duplicates and outlier pairs, and on adversarial
+inputs at K = 16384 whose partial sums pass 2^24.
 
 Then the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -218,10 +239,240 @@ def phase_checks(torch, gen):
     return k1_err, k2_err
 
 
-def random_engine_params(torch, cfg, seed: int):
+def _pad16(a):
+    """A grid padded to 16 entries by repeating its last, as calibration
+    stores it (so the 32-entry concat holds duplicates)."""
+    import numpy as np
+    a = np.asarray(a, np.float32)
+    return np.pad(a, (0, 16 - a.shape[0]), mode="edge")
+
+
+def olive_act_state(signed: bool, alpha: float) -> dict:
+    """An OliVe A4 input state: the flint grid with its abfloat outliers
+    (sign-offset unit 0.5 for both signednesses)."""
+    import numpy as np
+    from ant_quantization_tpu_torch.numerics import codebooks as cb
+    return {"grid": _pad16(cb.olive_grid("flint", 4, signed)),
+            "outliers": _pad16(cb.olive_outlier_values(4, signed)),
+            "alpha": np.float32(alpha)}
+
+
+def _aovp_tables(torch, signed: bool, L: int):
+    """K4's per-layer tables (mids, ties, enc) for the OliVe flint grid,
+    the same for each of L layers, as the engine builds them."""
+    from ant_quantization_tpu_torch.serve import engine as eng
+    st = olive_act_state(signed, 1.0)
+    t = eng._aovp_encode_tables(st["grid"], st["outliers"], 0.5, "cuda")
+    return tuple(torch.stack([t[k]] * L) for k in
+                 ("aovp_mids", "aovp_ties", "aovp_enc"))
+
+
+def _k3_operands(torch, M, K, N, L, gen, adversarial: bool):
+    """K3's operands: OVP weight bytes (every byte value; all-outlier
+    columns when adversarial), an int8 codebook with exact midpoint ties
+    in row 0, or activations at its top."""
+    import numpy as np
+    a_vals = np.round(np.linspace(-96, 127, 16)).astype(np.float32)
+    a_q = torch.tensor(np.stack([a_vals] * L), device="cuda")
+    a_scale = torch.full((L,), 0.25, device="cuda")     # a power of two
+    l = L - 1
+    if adversarial:
+        pick = torch.randint(0, 4, (L, N, K), device="cuda", generator=gen)
+        w = torch.tensor([100, 110, 120, 127], dtype=torch.int8,
+                         device="cuda")[pick]
+        x = torch.full((M, K), 127 * 0.25, device="cuda")
+        x[:, ::7] *= -0.5
+    else:
+        w = torch.randint(-127, 128, (L, N, K), dtype=torch.int8,
+                          device="cuda", generator=gen)
+        x = torch.randn((M, K), device="cuda", generator=gen) * 10
+        mids = (a_q[l, 1:] + a_q[l, :-1]) * 0.5
+        x[0, :mids.shape[0]] = mids * a_scale[l]      # exact midpoint ties
+    scales = torch.rand((L, N), device="cuda", generator=gen) * 2e-3 + 1e-3
+    return x, w, scales, a_q, a_scale, l
+
+
+def _k4_operands(torch, M, K, N, L, gen, signed, w_ovp, adversarial):
+    """K4's operands at prescale 0.25 (a power of two, so exact concat
+    midpoints survive x / prescale): row 0 walks every midpoint (the tie
+    flags and the padded duplicates), row 1 puts outliers on both members
+    of pairs; the rest are normal samples with ~10% outliers. Adversarial:
+    every activation at the top outlier against all-outlier columns."""
+    mids, ties, enc = _aovp_tables(torch, signed, L)
+    prescale = torch.full((L,), 0.25, device="cuda")
+    l = L - 1
+    if adversarial:
+        x = torch.full((M, K), 384 * 0.25, device="cuda")
+        x[:, 1::4] *= -1
+        pick = torch.randint(0, 3, (L, N, K), device="cuda", generator=gen)
+        w = torch.tensor([100, 120, 127], dtype=torch.int8,
+                         device="cuda")[pick]
+    else:
+        x = torch.randn((M, K), device="cuda", generator=gen) * 24 * 0.25
+        x[0] = (mids[l] * 0.25).repeat(K // mids.shape[1] + 1)[:K]
+        x[1, 0:64:2] = 300 * 0.25
+        x[1, 1:64:2] = -200 * 0.25
+        lo = -127 if w_ovp else -64
+        w = torch.randint(lo, 128 if w_ovp else 65, (L, N, K),
+                          dtype=torch.int8, device="cuda", generator=gen)
+    if not signed:
+        x = x.abs()
+    scales = torch.rand((L, N), device="cuda", generator=gen) * 2e-3 + 1e-3
+    return x, w, scales, prescale, mids, ties, enc, l
+
+
+def phase_checks_ovp(torch, gen):
+    """K3 and K4 against their plain versions, bit for bit, at the three
+    OPT site shapes and M 4 and 64 (K4 with OVP and int8-value weights,
+    signed and unsigned grids), and on adversarial inputs at K = 16384
+    whose int32 partial sums pass 2^24, where the order of the f32 steps
+    decides the result."""
+    from ant_quantization_tpu_torch.kernels import stacked as ks
+    from ant_quantization_tpu_torch.kernels.qmatmul import ovp_decode_values
+    from ant_quantization_tpu_torch.ops.snap import snap_value
+    d, ff = 4096, 16384
+    errs = {"K3": 0.0, "K4": 0.0}
+
+    def record(kernel, got, want, **info):
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        equal = torch.equal(got, want)
+        emit({"phase": "check", "kernel": kernel, **info,
+              "max_abs_err": err, "bit_equal": equal})
+        if not equal:
+            fail(f"{kernel} differs from its plain version: {info} "
+                 f"(max abs err {err})")
+        errs[kernel] = max(errs[kernel], err)
+
+    cases = [(K, N, M, False) for (K, N) in ((d, d), (d, ff), (ff, d))
+             for M in (4, 64)] + [(ff, d, 4, True)]
+    for K, N, M, adv in cases:
+        x, w, sc, aq, asc, l = _k3_operands(torch, M, K, N, 2, gen, adv)
+        got = ks.stacked_quant_matmul(l, x, w, sc, aq, asc, ovp=True)
+        want = ks.stacked_quant_matmul_plain(l, x, w, sc, aq, asc, ovp=True)
+        info = {"M": M, "K": K, "N": N, "adversarial": adv}
+        if adv:
+            # the f32 steps really round: a 256-row sub-chunk passes 2^24
+            # (reported beside it: whether one rounding of the exact sum
+            # gives another result than the reference's order)
+            xq = snap_value(x / asc[l], aq[l]).double()
+            wv = ovp_decode_values(w[l]).double()
+            info["subchunk_max"] = (xq[:, :256] @ wv[:, :256].t()).abs(
+                ).max().item()
+            once = (xq @ wv.t()).float() * sc[l]
+            info["differs_from_one_rounding"] = not torch.equal(once, want)
+            if info["subchunk_max"] <= 2 ** 24:
+                fail(f"K3 adversarial case stays exact: {info}")
+        record("K3", got, want, **info)
+        del x, w
+    for K, N, M, adv in cases:
+        for signed in (True, False):
+            for w_ovp in (True, False):
+                if adv and not (signed and w_ovp):
+                    continue
+                x, w, sc, pre, mids, ties, enc, l = _k4_operands(
+                    torch, M, K, N, 2, gen, signed, w_ovp, adv)
+                args = (l, x, w, sc, pre, mids, ties, enc)
+                got = ks.stacked_quant_matmul_aovp(*args, w_ovp=w_ovp)
+                want = ks.stacked_quant_matmul_aovp_plain(*args, w_ovp=w_ovp)
+                info = {"M": M, "K": K, "N": N, "signed": signed,
+                        "w_ovp": w_ovp, "adversarial": adv}
+                cx = ks.aovp_encode(x / pre[l], mids[l], ties[l], enc[l])
+                info["outlier_share"] = (cx.abs() > 64).float().mean().item()
+                if adv:
+                    # 256 d1 alone needs more than 24 bits
+                    d1 = cx[:, :1024].double() @ w[l][:, :1024].double().t()
+                    info["block_dot_max"] = d1.abs().max().item()
+                    if 256 * info["block_dot_max"] <= 2 ** 24:
+                        fail(f"K4 adversarial case stays exact: {info}")
+                record("K4", got, want, **info)
+                del x, w
+    return errs
+
+
+def engine_layer_shapes(c) -> dict:
+    d = c.d_model
+    return {"q": (d, d), "k": (d, d), "v": (d, d), "out": (d, d),
+            "fc_in": (d, c.d_ff), "fc_out": (c.d_ff, d)}
+
+
+# alpha of each site's OliVe A4 input state, about 2.5 times the input's
+# RMS, so that a few values in a thousand are outliers: q/k/v/fc_in read
+# a LayerNorm output and fc_out a ReLU of unit-variance values; out reads
+# the attention output, which is smaller (at alpha 0.2, 46% of its
+# values were outliers). The olive_ovp_shares phase reports each site's
+# input RMS beside its shares.
+OLIVE_A_ALPHA = {"q": 2.5, "k": 2.5, "v": 2.5, "out": 1.5, "fc_in": 2.5,
+                 "fc_out": 2.5}
+
+
+def olive_engine_params(torch, cfg, seed: int):
+    """Full-OliVe engine params built on the card from a seeded generator,
+    one site-layer at a time, through the functions that
+    ``build_engine_params`` runs for each site-layer
+    (``serve/engine.py``: weight_entry, act_entry, stack_entries).
+    Weights: normal samples with std 1/sqrt(K), OliVe int grids at q/k/v
+    and flint elsewhere with their outliers, alpha = 2.5 std, packed by
+    ``quantize_weights_ovp_i8``. Activations: ``olive_act_state``, signed
+    except at fc_out (after the ReLU)."""
+    import numpy as np
+    from ant_quantization_tpu_torch.numerics import codebooks as cb
+    from ant_quantization_tpu_torch.serve import engine as eng
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    c = cfg.lm
+    L, d = c.n_layers, c.d_model
+    dev = torch.device("cuda")
+    layers = {}
+    for name, (K, N) in engine_layer_shapes(c).items():
+        mode = "int" if name in ("q", "k", "v") else "flint"
+        wq = {"grid": _pad16(cb.olive_grid(mode, 4, True)),
+              "outliers": _pad16(cb.olive_outlier_values(4, True)),
+              "alpha": np.float32(2.5 / np.sqrt(K))}
+        aq = olive_act_state(name != "fc_out", OLIVE_A_ALPHA[name])
+        es = []
+        for _ in range(L):
+            w = torch.randn((K, N), device=dev, generator=gen) / float(
+                np.sqrt(K))
+            e = {"bias": torch.zeros((N,), device=dev)}
+            e.update(eng.weight_entry(w, wq, ovp=True))
+            e.update(eng.act_entry(cfg, aq, ovp=True, device=dev))
+            es.append(e)
+            del w
+        layers[name] = eng.stack_entries(name, es)
+        del es
+    rest = random_engine_params(torch, cfg, seed, sites=False)
+    layers.update(rest["layers"])
+    return {"layers": layers, "top": rest["top"]}
+
+
+def ovp_weight_params(torch, cfg, olive_ep):
+    """The OVP-weights route's params: the full-OliVe engine's OVP weight
+    stacks (shared, not copied) with int8-exact A4 inputs instead (ANT
+    flint, unsigned, alpha 3, as the ANT main path), so decode runs K3."""
+    import numpy as np
+    from ant_quantization_tpu_torch.numerics import codebooks as cb
+    from ant_quantization_tpu_torch.serve import engine as eng
+    L = cfg.lm.n_layers
+    aq = {"grid": cb.ant_grid("flint", 4, False), "alpha": np.float32(3.0)}
+    layers = {}
+    for name, s in olive_ep["layers"].items():
+        if name not in engine_layer_shapes(cfg.lm):
+            layers[name] = s
+            continue
+        acts = eng.stack_entries(name, [
+            eng.act_entry(cfg, aq, ovp=False, device=torch.device("cuda"))
+            for _ in range(L)])
+        layers[name] = {k: s[k] for k in ("bias", "ovp", "w_i8", "oscale")}
+        layers[name].update(acts)
+    return {"layers": layers, "top": olive_ep["top"]}
+
+
+def random_engine_params(torch, cfg, seed: int, sites: bool = True):
     """Random W4A4 engine params built on the card, one site at a time,
     from a seeded generator (the construction bench.py uses: int8
-    codebook values in [-64, 64), flint grids, alpha 3)."""
+    codebook values in [-64, 64), flint grids, alpha 3). ``sites=False``
+    leaves out the six sites (LayerNorms and the top only)."""
     import numpy as np
     from ant_quantization_tpu_torch.kernels.qmatmul import int8_codebook
     from ant_quantization_tpu_torch.numerics import codebooks as cb
@@ -236,7 +487,7 @@ def random_engine_params(torch, cfg, seed: int):
     shapes = {"q": (d, d), "k": (d, d), "v": (d, d), "out": (d, d),
               "fc_in": (d, c.d_ff), "fc_out": (c.d_ff, d)}
     layers = {}
-    for name, (K, N) in shapes.items():
+    for name, (K, N) in (shapes.items() if sites else ()):
         layers[name] = {
             "w_i8": torch.randint(-64, 64, (L, N, K), dtype=torch.int8,
                                   device="cuda", generator=gen),
@@ -274,32 +525,36 @@ def opt_engine_config(n_layers: int, dtype):
                         lm_head_int8=True, max_seq=MAX_SEQ, dtype=dtype)
 
 
-def reset_counts():
+def all_counts():
+    """Each kernel's launch and plain-call counts, by kernel."""
     from ant_quantization_tpu_torch.kernels import attention as k2
-    from ant_quantization_tpu_torch.kernels import stacked as k1
-    for counts in (k1.COUNTS, k2.COUNTS):
+    from ant_quantization_tpu_torch.kernels import stacked as ks
+    return {"K1": ks.COUNTS, "K2": k2.COUNTS, "K3": ks.K3_COUNTS,
+            "K4": ks.K4_COUNTS}
+
+
+def reset_counts():
+    for counts in all_counts().values():
         for key in counts:
             counts[key] = 0
-    return k1.COUNTS, k2.COUNTS
 
 
-def phase_main(torch, gen, n_layers: int = 32):
-    from ant_quantization_tpu_torch.serve.engine import Engine
-    cfg = opt_engine_config(n_layers, torch.bfloat16)
-    c = cfg.lm
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    engine = Engine(cfg, random_engine_params(torch, cfg, seed=0), BATCH)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    ids = torch.randint(0, c.vocab_size, (BATCH, PREFILL), device="cuda",
-                        generator=gen)
-    # warm-up (library handles, allocator); its cache writes are
-    # overwritten by the measured run
+def read_counts() -> dict:
+    return {k: dict(v) for k, v in all_counts().items()}
+
+
+def serve_path(torch, engine, ids, phase: str, want: dict, extra=None):
+    """The measured run of one serving path: a short warm-up (library
+    handles, allocator; its cache writes are overwritten), then every
+    count set to 0, one fenced ``Engine.prefill`` of ``ids`` and DECODE
+    greedy ``Engine.decode`` steps in fenced blocks of 8, and the counts
+    read. Fails unless the logits are finite (B, 1, V), the tokens in
+    range, each kernel's launches equal ``want`` and no plain version ran.
+    Emits and returns the phase's line."""
+    c = engine.cfg.lm
     engine.decode(engine.prefill(ids[:, :32])[:, -1].argmax(-1, True))
     torch.cuda.synchronize()
-
-    k1c, k2c = reset_counts()
+    reset_counts()
     t0 = time.perf_counter()
     logits = engine.prefill(ids)
     torch.cuda.synchronize()
@@ -314,34 +569,154 @@ def phase_main(torch, gen, n_layers: int = 32):
             tokens.append(logits[:, -1].argmax(-1, keepdim=True))
         torch.cuda.synchronize()
         block_ms.append((time.perf_counter() - t0) * 1e3 / block)
-    counts = {"K1": dict(k1c), "K2": dict(k2c)}
+    counts = read_counts()
     reset_counts()
-
     toks = torch.cat(tokens, 1)
     finite = bool(torch.isfinite(logits).all())
     step_ms = statistics.median(block_ms)
-    res = {"phase": "main_path", "model": "OPT-6.7B", "layers": c.n_layers,
+    res = {"phase": phase, "model": "OPT-6.7B", "layers": c.n_layers,
            "d_model": c.d_model, "batch": BATCH, "prefill_tokens": PREFILL,
-           "decode_steps": DECODE, "param_build_s": build_s,
+           "decode_steps": DECODE, **(extra or {}),
            "prefill_ms": prefill_ms, "decode_ms_per_step": step_ms,
            "decode_block_ms_per_step": block_ms,
            "decode_tokens_per_s": BATCH / (step_ms * 1e-3),
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "logits_shape": list(logits.shape), "logits_finite": finite,
-           "launches": counts}
+           "launches": counts, "want_launches": want}
     emit(res)
-    want_k1 = 6 * c.n_layers * DECODE
-    want_k2 = c.n_layers * (1 + DECODE)
     if not finite or list(logits.shape) != [BATCH, 1, c.vocab_size]:
-        fail("main path logits are not finite (B, 1, V)")
+        fail(f"{phase}: logits are not finite (B, 1, V)")
     if toks.min() < 0 or toks.max() >= c.vocab_size:
-        fail("main path tokens out of range")
-    if counts["K1"]["launches"] != want_k1 or \
-            counts["K2"]["launches"] != want_k2:
-        fail(f"launch counts {counts}, want K1 {want_k1}, K2 {want_k2}")
-    if counts["K1"]["plain_calls"] or counts["K2"]["plain_calls"]:
-        fail(f"plain versions ran on the main path: {counts}")
-    return engine, counts, ids
+        fail(f"{phase}: tokens out of range")
+    got = {k: v["launches"] for k, v in counts.items()}
+    if got != want:
+        fail(f"{phase}: launch counts {got}, want {want}")
+    if any(v["plain_calls"] for v in counts.values()):
+        fail(f"{phase}: plain versions ran: {counts}")
+    return res
+
+
+def phase_main(torch, gen, n_layers: int = 32):
+    from ant_quantization_tpu_torch.serve.engine import Engine
+    cfg = opt_engine_config(n_layers, torch.bfloat16)
+    c = cfg.lm
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = Engine(cfg, random_engine_params(torch, cfg, seed=0), BATCH)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ids = torch.randint(0, c.vocab_size, (BATCH, PREFILL), device="cuda",
+                        generator=gen)
+    want = {"K1": 6 * c.n_layers * DECODE, "K2": c.n_layers * (1 + DECODE),
+            "K3": 0, "K4": 0}
+    res = serve_path(torch, engine, ids, "main_path", want,
+                     {"param_build_s": build_s})
+    return engine, res["launches"], ids
+
+
+def ovp_shares(torch, engine, tok, steps: int = 8):
+    """The share of OVP outliers and victims: in the weight bytes of each
+    site (|byte| > 64; victims are the zeroed partners along K), and in
+    the activations K4 encodes over ``steps`` further decode steps (its
+    plain snap on the same inputs, before and after the victims).
+    Reported by site; the launches of these steps are not counted."""
+    from ant_quantization_tpu_torch.kernels import stacked as ks
+    from ant_quantization_tpu_torch.ops.ovp import victim_mask
+    from ant_quantization_tpu_torch.serve import engine as eng
+    ep = engine.engine_params()
+    sites = engine_layer_shapes(engine.cfg.lm)
+    out = {"weights": {}, "decode_activations": {}}
+    names = {}
+    for name in sites:
+        w = ep["layers"][name]["w_i8"]
+        names[w.data_ptr()] = name
+        m = w.abs() > 64
+        v = victim_mask(m, pair_axis=-1)
+        n = w.numel()
+        out["weights"][name] = {
+            "outliers": torch.count_nonzero(m & ~v).item() / n,
+            "victims": torch.count_nonzero(v).item() / n, "values": n}
+        del m, v
+    tally = {name: [0, 0, 0, 0.0] for name in sites}
+    k4 = eng.stacked_quant_matmul_aovp
+
+    def k4_watch(l, x, w, scales, prescale, mids, ties, enc, **kw):
+        c = ks.aovp_snap_encode(x.float() / prescale[l], mids[l], ties[l],
+                                enc[l])
+        m = c.abs() > 64
+        v = victim_mask(m, pair_axis=-1)
+        t = tally[names[w.data_ptr()]]
+        t[0] += int((m & ~v).sum())
+        t[1] += int(v.sum())
+        t[2] += c.numel()
+        t[3] += x.float().pow(2).sum().item()
+        return k4(l, x, w, scales, prescale, mids, ties, enc, **kw)
+
+    with mock.patch.object(eng, "stacked_quant_matmul_aovp", k4_watch):
+        for _ in range(steps):
+            tok = engine.decode(tok)[:, -1].argmax(-1, keepdim=True)
+    reset_counts()
+    for name, (o, v, n, sq) in tally.items():
+        out["decode_activations"][name] = {"outliers": o / n,
+                                           "victims": v / n, "values": n,
+                                           "rms": (sq / n) ** 0.5}
+    for kind in ("weights", "decode_activations"):
+        d = out[kind]
+        n = sum(x["values"] for x in d.values())
+        out[kind + "_total"] = {
+            k: sum(x[k] * x["values"] for x in d.values()) / n
+            for k in ("outliers", "victims")}
+    return out
+
+
+def phase_olive(torch, gen, n_layers: int = 32):
+    """The OliVe main path: OPT-6.7B under full OliVe W4A4 (OVP weights
+    and OVP activations at all six sites) with INT8 KV and the int8 head,
+    at full width and depth: every decode site matmul runs K4, the
+    prefill the unfused fake-quant route. Then the observed OVP shares,
+    which must be above 0 (or the path did not test OVP)."""
+    from ant_quantization_tpu_torch.serve.engine import Engine
+    cfg = opt_engine_config(n_layers, torch.bfloat16)
+    c = cfg.lm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ep = olive_engine_params(torch, cfg, seed=2)
+    engine = Engine(cfg, ep, BATCH)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ids = torch.randint(0, c.vocab_size, (BATCH, PREFILL), device="cuda",
+                        generator=gen)
+    want = {"K1": 0, "K2": c.n_layers * (1 + DECODE), "K3": 0,
+            "K4": 6 * c.n_layers * DECODE}
+    res = serve_path(torch, engine, ids, "olive_main_path", want,
+                     {"param_build_s": build_s,
+                      "act_alpha": OLIVE_A_ALPHA})
+    shares = ovp_shares(torch, engine, ids[:, :1])
+    emit({"phase": "olive_ovp_shares", **shares})
+    if not (shares["weights_total"]["outliers"] > 0
+            and shares["weights_total"]["victims"] > 0
+            and shares["decode_activations_total"]["outliers"] > 0
+            and shares["decode_activations_total"]["victims"] > 0):
+        fail(f"the OliVe path saw no outliers or victims: {shares}")
+    return engine, ep, res["launches"], ids
+
+
+def phase_ovp_weights(torch, olive_ep, ids, n_layers: int = 32):
+    """The OVP-weights route: the OliVe path's OVP weight stacks with
+    int8-exact ANT A4 activations, through ``Engine``: every decode site
+    matmul runs K3, the prefill the dual int8 product."""
+    from ant_quantization_tpu_torch.serve.engine import Engine
+    cfg = opt_engine_config(n_layers, torch.bfloat16)
+    c = cfg.lm
+    # the peak counts both engines: this one shares the OliVe engine's
+    # weight stacks and adds its own cache
+    torch.cuda.reset_peak_memory_stats()
+    engine = Engine(cfg, ovp_weight_params(torch, cfg, olive_ep), BATCH)
+    want = {"K1": 0, "K2": c.n_layers * (1 + DECODE),
+            "K3": 6 * c.n_layers * DECODE, "K4": 0}
+    res = serve_path(torch, engine, ids, "ovp_weights_path", want)
+    return engine, res["launches"]
 
 
 def k1_bound(M, K, N, G=16):
@@ -429,6 +804,73 @@ def phase_times(torch, engine):
     return sites, k2_rows
 
 
+def ovp_bound(M, K, N, dots: int, table_bytes: int):
+    """K3's or K4's bound: each input read once (weights K*N int8, x f32,
+    scales, tables) and the f32 output written once, against ``dots``
+    int8 dots of 2*M*K*N operations each."""
+    byts = K * N + 4 * M * K + 4 * M * N + 4 * N + table_bytes + 4
+    ops = dots * 2 * M * K * N
+    t_b, t_o = byts / HBM_BPS, ops / INT8_OPS
+    return byts, ops, max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else \
+        "operations"
+
+
+def phase_times_ovp(torch, olive_engine, ovpw_engine):
+    """K3 and K4 times at one decode layer's six sites (M = 4), on the
+    32-layer OVP weight stacks of the two OliVe engines and their own
+    tables, layers rotated so the weights come from device memory: the
+    kernel, its plain version, the bound, and torch._int_mm on the same
+    int8 weight stream and M as a reference point. _int_mm is one int8
+    dot, not the same function: no single PyTorch call computes K3's
+    dual or K4's quad dot with the encode."""
+    from ant_quantization_tpu_torch.kernels import stacked as ks
+    from ant_quantization_tpu_torch.serve.engine import _prepare_stacked
+    stk4 = _prepare_stacked(olive_engine.cfg, olive_engine.engine_params(),
+                            BATCH)
+    stk3 = _prepare_stacked(ovpw_engine.cfg, ovpw_engine.engine_params(),
+                            BATCH)
+    L = olive_engine.cfg.lm.n_layers
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    M, iters = BATCH, 2 * L
+    rows = {"K3": [], "K4": []}
+    for name in engine_layer_shapes(olive_engine.cfg.lm):
+        s3, s4 = stk3[name], stk4[name]
+        w = s4["w"]
+        N, K = w.shape[1:]
+        x = torch.randn((M, K), device="cuda", generator=gen)
+        if name == "fc_out":
+            x = x.relu()
+        a4 = (s4["scales"], s4["prescale"], s4["mids"], s4["ties"],
+              s4["enc"])
+        a3 = (s3["scales"], s3["a_q"], s3["a_scale"])
+        xq_pad = torch.randint(-64, 65, (32, K), dtype=torch.int8,
+                               device="cuda", generator=gen)
+        t_l = cuda_ms(torch, lambda i: torch._int_mm(xq_pad, w[i % L].t()),
+                      iters)
+        for kern, fn, plain, args, kw, dots, tb in (
+                ("K4", ks.stacked_quant_matmul_aovp,
+                 ks.stacked_quant_matmul_aovp_plain, a4, {"w_ovp": True}, 4,
+                 4 * (31 + 31 + 32 + 1)),
+                ("K3", ks.stacked_quant_matmul,
+                 ks.stacked_quant_matmul_plain, a3, {"ovp": True}, 2,
+                 4 * (s3["a_q"].shape[1] + 1))):
+            t_k = cuda_ms(torch, lambda i: fn(i % L, x, w, *args, **kw),
+                          iters)
+            t_p = cuda_ms(torch, lambda i: plain(i % L, x, w, *args, **kw),
+                          iters)
+            byts, ops, bound, by = ovp_bound(M, K, N, dots, tb)
+            rows[kern].append({
+                "site": name, "M": M, "K": K, "N": N, "ms": t_k,
+                "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
+                "bytes": byts, "ops": ops, "int_mm_ms": t_l})
+    emit({"phase": "kernel_times_ovp", "graphed": True,
+          "int_mm_note": "torch._int_mm (M padded to 32) on the same int8 "
+                         "weight stream: one int8 dot, not the same "
+                         "function", **rows})
+    return rows
+
+
 def _profiled(torch, fn):
     """Run ``fn`` under torch.profiler: wall microseconds and the device
     kernels' (self device microseconds, name, count), largest first."""
@@ -451,11 +893,11 @@ def _profiled(torch, fn):
     return wall_us, sorted(rows, reverse=True)
 
 
-def phase_profile(torch, engine, ids, steps: int = 4):
+def phase_profile(torch, engine, ids, steps: int = 4, path: str = "ANT"):
     """Device time by kernel for one prefill and for ``steps`` decode
-    steps of the main-path engine, and the device's busy share of their
+    steps of a main-path engine, and the device's busy share of their
     wall time (one stream, so the kernel times add up to busy time)."""
-    out = {"phase": "profile"}
+    out = {"phase": "profile", "path": path}
     tok = ids[:, :1]
 
     def decode():
@@ -476,11 +918,15 @@ def phase_profile(torch, engine, ids, steps: int = 4):
     emit(out)
 
 
-def _greedy(torch, eng, cfg, ep, ids, k1fn, k2fn, steps: int = 8):
+def _greedy(torch, eng, cfg, ep, ids, k1fn, k2fn, steps: int = 8,
+            k4fn=None):
     """Prefill + ``steps`` greedy decode steps of a fresh engine, with the
-    engine's K1 / K2 entry points replaced by ``k1fn`` / ``k2fn``."""
+    engine's K1 (and K3) / K2 / K4 entry points replaced by ``k1fn`` /
+    ``k2fn`` / ``k4fn`` (None keeps the kernel)."""
+    k4fn = k4fn or eng.stacked_quant_matmul_aovp
     with mock.patch.object(eng, "stacked_quant_matmul", k1fn), \
-            mock.patch.object(eng, "stacked_int8_kv_attention", k2fn):
+            mock.patch.object(eng, "stacked_int8_kv_attention", k2fn), \
+            mock.patch.object(eng, "stacked_quant_matmul_aovp", k4fn):
         engine = eng.Engine(cfg, ep, BATCH)
         logits = [engine.prefill(ids)]
         toks = [logits[-1][:, -1].argmax(-1, keepdim=True)]
@@ -514,9 +960,9 @@ def phase_insitu(torch, gen):
     stats = {"K1": {"calls": 0, "max_abs_err": 0.0, "unequal": 0},
              "K2": {"calls": 0, "max_abs_err": 0.0, "outside_tol": 0}}
 
-    def k1_checked(*args):
-        out = k1.stacked_quant_matmul(*args)
-        want = k1.stacked_quant_matmul_plain(*args)
+    def k1_checked(*args, **kw):
+        out = k1.stacked_quant_matmul(*args, **kw)
+        want = k1.stacked_quant_matmul_plain(*args, **kw)
         st = stats["K1"]
         st["calls"] += 1
         st["max_abs_err"] = max(st["max_abs_err"],
@@ -534,9 +980,9 @@ def phase_insitu(torch, gen):
         st["outside_tol"] += int(not k2_close(torch, out, want, "bf16"))
         return out
 
-    k1c, k2c = reset_counts()
+    reset_counts()
     ta, la = _greedy(torch, eng, cfg, ep, ids, k1_checked, k2_checked)
-    launched = (k1c["launches"], k2c["launches"])
+    launched = tuple(read_counts()[k]["launches"] for k in ("K1", "K2"))
     tb, lb = _greedy(torch, eng, cfg, ep, ids,
                      k1.stacked_quant_matmul_plain,
                      k2.stacked_int8_kv_attention)
@@ -560,6 +1006,69 @@ def phase_insitu(torch, gen):
     emit(res)
     if not res["pass"]:
         fail(f"in-situ check: {res}")
+
+
+def phase_insitu_olive(torch, gen):
+    """The full-OliVe engine at 2 layers and full width, prefill + 8
+    greedy steps: every K4 call checked against its plain version on the
+    same inputs, then a run with K4's plain version, which must give
+    identical greedy tokens and logits (K4 is bit-exact). The same for K3
+    on the OVP-weights route over the same weights."""
+    from ant_quantization_tpu_torch.kernels import attention as k2
+    from ant_quantization_tpu_torch.kernels import stacked as ks
+    from ant_quantization_tpu_torch.serve import engine as eng
+    cfg = opt_engine_config(2, torch.bfloat16)
+    ep = olive_engine_params(torch, cfg, seed=3)
+    ep3 = ovp_weight_params(torch, cfg, ep)
+    ids = torch.randint(0, cfg.lm.vocab_size, (BATCH, PREFILL),
+                        device="cuda", generator=gen)
+    stats = {k: {"calls": 0, "max_abs_err": 0.0, "unequal": 0}
+             for k in ("K3", "K4")}
+
+    def checked(tag, fn, plain):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            want = plain(*args, **kw)
+            st = stats[tag]
+            st["calls"] += 1
+            st["max_abs_err"] = max(st["max_abs_err"],
+                                    (out - want).abs().max().item())
+            st["unequal"] += int(not torch.equal(out, want))
+            return out
+        return call
+
+    k2fn = k2.stacked_int8_kv_attention
+    reset_counts()
+    ta, la = _greedy(torch, eng, cfg, ep, ids, ks.stacked_quant_matmul,
+                     k2fn, k4fn=checked("K4", ks.stacked_quant_matmul_aovp,
+                                        ks.stacked_quant_matmul_aovp_plain))
+    tb, lb = _greedy(torch, eng, cfg, ep, ids, ks.stacked_quant_matmul,
+                     k2fn, k4fn=ks.stacked_quant_matmul_aovp_plain)
+    tc, lc = _greedy(torch, eng, cfg, ep3, ids,
+                     checked("K3", ks.stacked_quant_matmul,
+                             ks.stacked_quant_matmul_plain), k2fn)
+    td, ld = _greedy(torch, eng, cfg, ep3, ids,
+                     ks.stacked_quant_matmul_plain, k2fn)
+    launched = {k: v["launches"] for k, v in read_counts().items()}
+    reset_counts()
+    res = {"phase": "in_situ_olive", "layers": 2, "dtype": "bfloat16",
+           "decode_steps": 8, "per_call": stats, "launches": launched,
+           "k4_swap_tokens_identical": torch.equal(ta, tb),
+           "k4_swap_logits_identical": torch.equal(la, lb),
+           "k3_swap_tokens_identical": torch.equal(tc, td),
+           "k3_swap_logits_identical": torch.equal(lc, ld),
+           "logits_finite": bool(torch.isfinite(la).all()
+                                 and torch.isfinite(lc).all())}
+    res["pass"] = (
+        all(st["calls"] == 6 * 2 * 8 and st["unequal"] == 0
+            for st in stats.values())
+        and res["k4_swap_tokens_identical"]
+        and res["k4_swap_logits_identical"]
+        and res["k3_swap_tokens_identical"]
+        and res["k3_swap_logits_identical"] and res["logits_finite"])
+    emit(res)
+    if not res["pass"]:
+        fail(f"OliVe in-situ check: {res}")
 
 
 def main() -> int:
@@ -587,12 +1096,20 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     k1_err, k2_err = phase_checks(torch, gen)
+    k34_err = phase_checks_ovp(torch, gen)
     engine, counts, ids = phase_main(torch, gen)
     sites, k2_rows = phase_times(torch, engine)
     phase_profile(torch, engine, ids)
     del engine
     torch.cuda.empty_cache()
     phase_insitu(torch, gen)
+    olive, olive_ep, olive_counts, olive_ids = phase_olive(torch, gen)
+    ovpw, ovpw_counts = phase_ovp_weights(torch, olive_ep, olive_ids)
+    ovp_rows = phase_times_ovp(torch, olive, ovpw)
+    phase_profile(torch, olive, olive_ids, path="OliVe")
+    del olive, ovpw, olive_ep
+    torch.cuda.empty_cache()
+    phase_insitu_olive(torch, gen)
 
     dec, pre = k2_rows
     kernels = [
@@ -623,6 +1140,32 @@ def main() -> int:
          "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
          "library_ms": dec["library_ms"]},
     ]
+    for tag, fname, src, line, launches in (
+            ("K3", "stacked_quant_matmul ovp=True (K3)", "stacked_i8.cu",
+             "ant_quantization_tpu/kernels/stacked.py:74",
+             ovpw_counts["K3"]["launches"]),
+            ("K4", "stacked_quant_matmul_aovp (K4)", "stacked_aovp.cu",
+             "ant_quantization_tpu/kernels/stacked.py:322",
+             olive_counts["K4"]["launches"])):
+        rows = ovp_rows[tag]
+        kernels.append({
+            "name": fname, "route": "cuda",
+            "source": f"ant_quantization_tpu_torch/csrc/{src}",
+            "replaces": line, "launches": launches,
+            "max_abs_err": k34_err[tag], "pass": True,
+            "ms_per_launch": {x["site"]: x["ms"] for x in rows},
+            "at": "one decode layer: the 6 site launches at M=4 on OVP "
+                  "weights (q, k, v, out 4096x4096; fc_in 4096x16384; "
+                  "fc_out 16384x4096)",
+            "ms": sum(x["ms"] for x in rows),
+            "plain_ms": sum(x["plain_ms"] for x in rows),
+            "bound_ms": sum(x["bound_ms"] for x in rows),
+            "bound_by": "bytes" if all(x["bound_by"] == "bytes"
+                                       for x in rows) else "operations",
+            "library_ms": None,
+            "int_mm_reference_ms": sum(x["int_mm_ms"] for x in rows),
+            "int_mm_note": "torch._int_mm on the same weights and M: one "
+                           "int8 dot, not the same function"})
     emit({"kernels": kernels, "card": smi, "hbm_copy_bytes_per_s": hbm,
           "seconds": time.perf_counter() - t_start})
     print(json.dumps({"ok": True, "device": {

@@ -196,6 +196,7 @@ def test_package_imports_no_jax():
             "ant_quantization_tpu_torch.kernels.qmatmul",
             "ant_quantization_tpu_torch.models.transformer_lm",
             "ant_quantization_tpu_torch.numerics.codebooks",
+            "ant_quantization_tpu_torch.ops.ovp",
             "ant_quantization_tpu_torch.ops.snap"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
