@@ -1,6 +1,7 @@
 """Where the port meets the card: device selection and the CUDA build.
 
-The kernels are CUDA C++ sources in ``csrc/`` with a plain C interface.
+The kernels are CUDA C++ sources in ``csrc/`` with a plain C interface
+(``*.cuh`` holds code that several sources include).
 At first CUDA use they are compiled with ``nvcc`` for ``sm_90a`` into
 ``build/`` (beside this file, listed in ``.gitignore``) and loaded with
 ``ctypes``; nothing here runs at import time, so the package imports on
@@ -29,7 +30,8 @@ __all__ = ["resolve_device", "build_all", "load", "check", "stream_ptr",
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
-SOURCES = ("stacked_i8.cu", "stacked_aovp.cu", "int8_kv_attention.cu")
+SOURCES = ("stacked_i8.cu", "stacked_aovp.cu", "int8_kv_attention.cu",
+           "stacked_prefill.cu", "stacked_p4.cu", "qmatmul_w4.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -61,7 +63,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(source: str) -> Path:
-    digest = hashlib.sha1((CSRC / source).read_bytes()
+    # the shared headers are part of every source's build
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1((CSRC / source).read_bytes() + headers
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD / f"lib{Path(source).stem}-{digest}.so"
 

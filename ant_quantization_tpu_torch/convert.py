@@ -10,10 +10,14 @@ module imports nothing of the reference package.
 Layouts that change:
 - weight stacks ``w_i8`` (L, K, N) -> the port's N-major (L, N, K), for
   int8 codebook values and OVP bytes (``ovp``) alike;
+- "w4pack" stacks ``packed`` (L, K/2, N) -> (L, N, K/2), the same bytes
+  (each still holds rows i and i + K/2 of one column); a per-layer
+  ``scale`` or ``oscale`` given for the whole row (L, 1) is broadcast to
+  (L, N), the same values;
 - ``a_q`` int8 -> f32 (the kernel's operand type; same values);
 - every other site leaf (``oscale``, ``bias``, ``ovp``, ``a_grid``,
-  ``a_alpha``, ``a_out`` and the ``aovp_*`` tables of K4) keeps its
-  values and dtype;
+  ``a_alpha``, ``a_out``, the ``aovp_*`` tables of K4, and "w4pack"'s
+  ``grid``, ``q16`` and ``affine4``) keeps its values and dtype;
 - KV codes (L, B, H, S/f, f*D) lane-folded -> flat (L, B, H, S, D), and
   plane-major scales (L, B, H, f, S/f) -> (L, B, H, S), by position.
 """
@@ -34,7 +38,6 @@ __all__ = ["from_jax_engine_params", "from_jax_kv"]
 # reference site leaves that belong to paths this slice does not port,
 # with their ROADMAP Queue 1 item
 _UNPORTED = {"kscale": "8.3 (Conv1D sites)",
-             "packed": "8.6 (w4pack)",
              "kernel": "8.7 (bf16 weights)"}
 
 
@@ -65,8 +68,16 @@ def from_jax_engine_params(tree: Dict, device=None) -> Dict:
                     f"site {name!r} carries {key!r}: not ported yet "
                     f"(ROADMAP Queue 1 item {item})")
         out = {k: _tensor(v, dev) for k, v in site.items()}
-        out["w_i8"] = _tensor(np.transpose(np.asarray(site["w_i8"]),
-                                           (0, 2, 1)), dev)
+        for key in ("w_i8", "packed"):
+            if key in site:
+                out[key] = _tensor(np.transpose(np.asarray(site[key]),
+                                                (0, 2, 1)), dev)
+        if "packed" in site:
+            n = np.asarray(site["packed"]).shape[2]
+            for key in ("scale", "oscale"):
+                out[key] = _tensor(np.broadcast_to(
+                    np.asarray(site[key], np.float32).reshape(
+                        out[key].shape[0], -1), (out[key].shape[0], n)), dev)
         if "a_q" in site:
             out["a_q"] = _tensor(np.asarray(site["a_q"], np.float32), dev)
             out["a_scale"] = _tensor(

@@ -42,36 +42,9 @@
 // shuffle sums the lanes. The layer index only offsets the pointer: no
 // per-layer copy of the stack exists.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "snap_i8.cuh"
 
 namespace {
-
-__global__ void snap_i8_kernel(const float* __restrict__ x,
-                               int8_t* __restrict__ xq,
-                               const float* __restrict__ aq,
-                               const float* __restrict__ a_scale, int G,
-                               long total) {
-  const float sc = *a_scale;
-  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (long)gridDim.x * blockDim.x) {
-    const float xs = x[i] / sc;
-    int idx = 0;
-    for (int g = 0; g < G - 1; ++g) {
-      const float mid = (aq[g] + aq[g + 1]) * 0.5f;
-      idx += (xs >= mid) ? 1 : 0;
-    }
-    xq[i] = (int8_t)__float2int_rn(aq[idx]);
-  }
-}
-
-__device__ __forceinline__ int dot16(const int4& a, const int4& b, int acc) {
-  acc = __dp4a(a.x, b.x, acc);
-  acc = __dp4a(a.y, b.y, acc);
-  acc = __dp4a(a.z, b.z, acc);
-  acc = __dp4a(a.w, b.w, acc);
-  return acc;
-}
 
 template <int MT>
 __global__ void i8_matmul_kernel(const int8_t* __restrict__ xq,
@@ -217,18 +190,6 @@ void launch_matmul(const int8_t* xq, const int8_t* w, const float* scales,
   const int blocks = (N + 7) / 8;
   i8_matmul_kernel<MT><<<blocks, threads, 0, s>>>(xq, w, scales, out, M, K,
                                                   N);
-}
-
-cudaError_t launch_snap(const float* x, int8_t* xq, const float* a_q,
-                        const float* a_scale, int l, int M, int K, int G,
-                        cudaStream_t s) {
-  const long total = (long)M * K;
-  const int sthreads = 256;
-  long sblocks = (total + sthreads - 1) / sthreads;
-  if (sblocks > 1024) sblocks = 1024;
-  snap_i8_kernel<<<(int)sblocks, sthreads, 0, s>>>(
-      x, xq, a_q + (long)l * G, a_scale + l, G, total);
-  return cudaGetLastError();
 }
 
 }  // namespace

@@ -1,27 +1,55 @@
-"""Host-side weight packing for the int8-value weight mode ("w4").
+"""Weight packing, and K8, the packed-4-bit f32 matmul.
 
-Counterpart of the reference's ``kernels/qmatmul.py`` packing half:
-``int8_codebook`` and ``quantize_weights_w4_i8``. The weights are stored
-as the exact int8 *values* of their 4-bit codebook entries, so the serving
-matmul is an int8 x int8 product with one f32 scale per output channel.
+Counterpart of the reference's ``kernels/qmatmul.py``:
 
-The OVP section holds the sign-offset int8 encoding of OliVe weights
-(outlier-victim pairs), whose abfloat outliers do not fit an int8
-codebook. Packed nibbles (``pack_w4``) belong to a later slice of the
-port.
+- the int8-value weight mode ("w4"): ``int8_codebook`` and
+  ``quantize_weights_w4_i8`` store the exact int8 *values* of the 4-bit
+  codebook entries, so the serving matmul is an int8 x int8 product with
+  one f32 scale per output channel;
+- the OVP section: the sign-offset int8 encoding of OliVe weights
+  (outlier-victim pairs), whose abfloat outliers do not fit an int8
+  codebook;
+- the packed mode ("w4pack"): ``pack_w4``, ``quantize_weights_w4``,
+  ``dequant_w4_reference`` and K8, :func:`quantized_matmul_w4`.
+
+Packed layout. The reference packs a (K, N) code matrix into (K/2, N)
+bytes in split-K halves: the byte at (i, n) holds code(i, n) in the low
+nibble and code(i + K/2, n) in the high nibble. The port keeps the
+split-K halves but stores the bytes N-major, ``(N, K/2)`` per layer and
+``(L, N, K/2)`` for a stack, as it stores the int8 stacks ``(L, N, K)``:
+one output column's packed bytes are contiguous, which both of its
+kernels stream (K6 in ``kernels/stacked.py`` one column per warp, K8 in
+column tiles). ``convert.py`` transposes the reference's stacks.
+
+K8 computes ``x (M, K) f32 @ grid[codes] * scale`` in f32: on a CUDA
+tensor it launches ``csrc/qmatmul_w4.cu`` (f32 FMAs on the CUDA cores,
+no TF32, no tensor cores), on a CPU tensor its plain version. The f32
+sum order differs between the two and from the reference's, so they
+agree within the rounding of an f32 dot, not bit for bit.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from .. import _ext
 from ..ops.ovp import apply_ovp
 from ..ops.snap import snap_codes, snap_concat
 
 __all__ = ["int8_codebook", "quantize_weights_w4_i8", "OVP_OFFSET",
            "OVP_SHIFT", "ovp_unit", "quantize_weights_ovp_i8",
-           "ovp_encode_scalar", "ovp_clip", "ovp_decode_values"]
+           "ovp_encode_scalar", "ovp_clip", "ovp_decode_values",
+           "pack_w4", "unpack_w4", "quantize_weights_w4",
+           "dequant_w4_reference", "f32_product", "quantized_matmul_w4",
+           "quantized_matmul_w4_plain", "K8_COUNTS"]
+
+# launches of K8's CUDA kernel, and calls of its plain version
+K8_COUNTS = {"launches": 0, "plain_calls": 0}
+
+_SOURCE = "qmatmul_w4.cu"
 
 
 def int8_codebook(grid16) -> tuple[np.ndarray, float, bool]:
@@ -194,3 +222,128 @@ def ovp_decode_values(c: torch.Tensor) -> torch.Tensor:
     ci = c.to(torch.int32)
     return OVP_SHIFT * ci - (OVP_SHIFT - 1) * torch.clamp(
         ci, -OVP_OFFSET, OVP_OFFSET)
+
+
+# Packed 4-bit weights ("w4pack") and K8.
+
+def pack_w4(codes: torch.Tensor) -> torch.Tensor:
+    """(K, N) int codes in [0, 16) -> (N, K/2) uint8, split-K packed: the
+    byte at (n, i) holds code(i, n) low and code(i + K/2, n) high."""
+    K = codes.shape[0]
+    if K % 2:
+        raise ValueError("K must be even for split-K packing")
+    c = codes.t().to(torch.uint8)
+    return (c[:, :K // 2] | (c[:, K // 2:] << 4)).contiguous()
+
+
+def unpack_w4(packed: torch.Tensor) -> torch.Tensor:
+    """(..., N, K/2) uint8 -> (..., N, K) int64 codes, in logical K
+    order (low nibbles first, then the high ones)."""
+    p = packed.to(torch.int64)
+    return torch.cat([p & 0xF, p >> 4], dim=-1)
+
+
+def _decode16(nibbles: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """Codes (any shape) -> the f32 values of a 16-entry grid."""
+    return grid.to(torch.float32)[nibbles.long()]
+
+
+def quantize_weights_w4(w: torch.Tensor, grid, alpha
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize a (K, N) f32 weight onto a 16-entry grid with per-output-
+    channel alpha. Returns ``(packed (N, K/2) uint8, scale (N,) f32)``:
+    scale = alpha / max(grid) (the SIGNED max), codes = snap(w / scale),
+    the reference's arithmetic. Runs on the device of ``w``."""
+    dev = w.device
+    g16 = np.asarray(grid, np.float32).reshape(-1)[:16]
+    vmax = torch.tensor(float(np.max(g16)), dtype=torch.float32, device=dev)
+    alpha_t = torch.tensor(np.asarray(alpha, np.float32), device=dev)
+    scale = alpha_t.reshape(-1).expand(w.shape[1]) / vmax
+    codes = snap_codes(w.to(torch.float32) / scale[None, :],
+                       torch.tensor(g16, device=dev))
+    return pack_w4(codes), scale
+
+
+def dequant_w4_reference(packed: torch.Tensor, scale: torch.Tensor,
+                         grid: torch.Tensor) -> torch.Tensor:
+    """Unpack + look up + scale: packed (N, K/2) -> the (K, N) f32 weight
+    (the reference's logical layout)."""
+    w = _decode16(unpack_w4(packed), grid).t()
+    return w * scale.reshape(-1).to(torch.float32).expand(w.shape[1])[None]
+
+
+def f32_product(a: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
+    """a (M, K) @ w_nk (N, K).T with products and sums in f32, as the
+    reference's ``dot(.., preferred_element_type=f32)``: the operands are
+    taken to f32 (exact from bf16) and TF32 is held off for the call, so
+    the result is never rounded to bf16 or TF32."""
+    a, w = a.to(torch.float32), w_nk.to(torch.float32)
+    if not a.is_cuda:
+        return a @ w.t()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return a @ w.t()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def quantized_matmul_w4_plain(x: torch.Tensor, packed: torch.Tensor,
+                              scale: torch.Tensor,
+                              grid: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`quantized_matmul_w4`: the decoded
+    f32 weight, an f32 product, then the scale."""
+    K8_COUNTS["plain_calls"] += 1
+    w = _decode16(unpack_w4(packed), grid)                    # (N, K)
+    return f32_product(x, w) * scale.to(torch.float32)[None, :]
+
+
+def _launch_w4(x, packed, scale, grid):
+    N, K2 = packed.shape
+    M, K = x.shape
+    dev = x.device
+    if K != 2 * K2 or K2 % 16 or M == 0:
+        raise ValueError(f"x (M, {2 * K2}) with K/2 a multiple of 16 "
+                         f"expected, got x {tuple(x.shape)}, packed "
+                         f"{tuple(packed.shape)}")
+    for name, t, dt, shape in (("x", x, torch.float32, (M, K)),
+                               ("packed", packed, torch.uint8, (N, K2)),
+                               ("scale", scale, torch.float32, (N,)),
+                               ("grid", grid, torch.float32, (16,))):
+        if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {dt} tensor of "
+                             f"shape {shape} on {dev}")
+    if x.data_ptr() % 16 or packed.data_ptr() % 8:
+        raise ValueError("x must be 16-byte and packed 8-byte aligned")
+    lib = _ext.load(_SOURCE)
+    fn = lib.w4_f32_matmul
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    code = fn(x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+              grid.data_ptr(), out.data_ptr(), M, K, N,
+              _ext.stream_ptr(dev))
+    _ext.check(lib, code, "w4_f32_matmul")
+    K8_COUNTS["launches"] += 1
+    return out
+
+
+def quantized_matmul_w4(x: torch.Tensor, packed: torch.Tensor,
+                        scale: torch.Tensor,
+                        grid: torch.Tensor) -> torch.Tensor:
+    """K8: ``x @ dequant(packed) * scale`` -> (M, N) f32.
+
+    x:      (M, K) activations (taken to f32)
+    packed: (N, K/2) uint8 split-K packed codes: one layer of the
+            engine's (L, N, K/2) stack is the view ``stack[l]``, no copy
+    scale:  (N,) f32 per-output-channel scale, alpha / max(grid)
+    grid:   (16,) f32 integer-domain codebook
+    """
+    if x.is_cuda:
+        return _launch_w4(x.to(torch.float32).contiguous(), packed,
+                          scale.to(torch.float32).contiguous(),
+                          grid.to(torch.float32).contiguous())
+    return quantized_matmul_w4_plain(x, packed, scale, grid)

@@ -22,12 +22,25 @@ computes one layer ``l``:
   16 d1 - 15 d3 for int8-value weights, summed block by block, times
   scales[l].
 
+- K5, :func:`stacked_quant_matmul` at M > 256 (the reference's
+  ``_prefill_i8``): K1 or K3 for prefill-size M, on the int8 tensor
+  cores, with the same numbers (the reference holds its M-blocked kernel
+  bit-identical to the decode kernel, so K5's plain version is K1's or
+  K3's). As in the reference, 64 < M <= 256 stays on K1/K3.
+- K6, :func:`stacked_quant_matmul_p4`: the packed 4-bit weights of
+  "w4pack" (``kernels/qmatmul.py``: split-K nibbles, (L, N, K/2) uint8).
+  Each nibble decodes to int8 as ``code - 8`` (``affine``) or through
+  the layer's 16-entry int8 table q16[l]; the low nibble of byte i pairs
+  with snap(x)[:, i], the high one with snap(x)[:, i + K/2]. int32
+  accumulation, times scales[l].
+
 ``block_k`` therefore sets the f32 partition of K3 and K4, and is part
 of their numbers (``EngineConfig.stacked_block_k``).
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
-(``csrc/stacked_i8.cu`` for K1 and K3, ``csrc/stacked_aovp.cu`` for K4;
-each source says what bounds it and how it is laid out); on a CPU tensor
+(``csrc/stacked_i8.cu`` for K1 and K3, ``csrc/stacked_prefill.cu`` for
+K5, ``csrc/stacked_p4.cu`` for K6, ``csrc/stacked_aovp.cu`` for K4; each
+source says what bounds it and how it is laid out); on a CPU tensor
 it runs its plain PyTorch version, which has the same arithmetic in the
 same order and which the tests hold against the JAX reference and
 ``chip_smoke.py`` holds against the kernel, bit for bit.
@@ -46,20 +59,29 @@ import torch
 from .. import _ext
 from ..ops.ovp import victim_mask
 from ..ops.snap import snap_value
-from .qmatmul import OVP_OFFSET, ovp_clip
+from .qmatmul import OVP_OFFSET, ovp_clip, unpack_w4
 
 __all__ = ["stacked_quant_matmul", "stacked_quant_matmul_plain",
            "stacked_quant_matmul_aovp", "stacked_quant_matmul_aovp_plain",
-           "int8_matmul", "COUNTS", "K3_COUNTS", "K4_COUNTS"]
+           "stacked_quant_matmul_p4", "stacked_quant_matmul_p4_plain",
+           "int8_matmul", "COUNTS", "K3_COUNTS", "K4_COUNTS", "K5_COUNTS",
+           "K6_COUNTS", "PREFILL_M"]
 
-# launches of each CUDA kernel, and calls of its plain version
+# launches of each CUDA kernel, and calls of its plain version (K5 counts
+# both of its modes, int8 values and OVP)
 COUNTS = {"launches": 0, "plain_calls": 0}        # K1
 K3_COUNTS = {"launches": 0, "plain_calls": 0}
 K4_COUNTS = {"launches": 0, "plain_calls": 0}
+K5_COUNTS = {"launches": 0, "plain_calls": 0}
+K6_COUNTS = {"launches": 0, "plain_calls": 0}
 
 _SOURCE = "stacked_i8.cu"
 _AOVP_SOURCE = "stacked_aovp.cu"
+_PREFILL_SOURCE = "stacked_prefill.cu"
+_P4_SOURCE = "stacked_p4.cu"
 _SUB = 256          # K3's int32 sub-chunk rows (the reference's `sub`)
+PREFILL_M = 256     # larger M takes K5 (the reference's M-blocked route)
+_K5_BK = 64         # K5's K tile: K and the OVP segments are multiples
 
 
 def int8_matmul(a: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
@@ -136,8 +158,11 @@ def stacked_quant_matmul_plain(l: int, x: torch.Tensor, w: torch.Tensor,
                                a_scale: torch.Tensor, ovp: bool = False,
                                block_k: int = 1024) -> torch.Tensor:
     """Plain PyTorch version of :func:`stacked_quant_matmul` (K1, or K3
-    with ``ovp``)."""
-    (K3_COUNTS if ovp else COUNTS)["plain_calls"] += 1
+    with ``ovp``; K5 above ``PREFILL_M`` rows, with the same numbers)."""
+    if x.shape[0] > PREFILL_M:
+        K5_COUNTS["plain_calls"] += 1
+    else:
+        (K3_COUNTS if ovp else COUNTS)["plain_calls"] += 1
     xq = snap_value(x.to(torch.float32) / a_scale[l],
                     a_q[l].to(torch.float32)).to(torch.int8)
     if not ovp:
@@ -180,6 +205,8 @@ def _launch(l, x, w, scales, a_q, a_scale, ovp, block_k):
                      ("a_scale", a_scale, torch.float32)), dev)
     if scales.shape != (L, N) or a_scale.shape != (L,) or a_q.shape[0] != L:
         raise ValueError("scales (L, N), a_q (L, G), a_scale (L,) expected")
+    if M > PREFILL_M:
+        return _launch_prefill(l, x, w, scales, a_q, a_scale, ovp, block_k)
     lib = _ext.load(_SOURCE)
     xq = torch.empty((M, K), dtype=torch.int8, device=dev)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
@@ -200,6 +227,30 @@ def _launch(l, x, w, scales, a_q, a_scale, ovp, block_k):
     return out
 
 
+def _launch_prefill(l, x, w, scales, a_q, a_scale, ovp, block_k):
+    """K5: the snap pre-kernel, then the int8 tensor-core product."""
+    L, N, K = w.shape
+    M = x.shape[0]
+    dev = x.device
+    if K % _K5_BK:
+        raise ValueError(f"K = {K} must be a multiple of {_K5_BK} for K5")
+    seg, per_block = _check_segments(K, block_k, _SUB) if ovp else (K, 1)
+    if seg % _K5_BK:
+        raise ValueError(f"K5 needs OVP segments of a multiple of {_K5_BK} "
+                         f"rows, K = {K} and block_k = {block_k} give {seg}")
+    lib = _ext.load(_PREFILL_SOURCE)
+    fn = _fn(lib, "stacked_prefill_matmul", 7, 8)
+    xq = torch.empty((M, K), dtype=torch.int8, device=dev)
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    code = fn(x.data_ptr(), xq.data_ptr(), w.data_ptr(), a_q.data_ptr(),
+              a_scale.data_ptr(), scales.data_ptr(), out.data_ptr(),
+              l, M, K, N, a_q.shape[1], seg // _K5_BK, per_block, int(ovp),
+              _ext.stream_ptr(dev))
+    _ext.check(lib, code, "stacked_prefill_matmul")
+    K5_COUNTS["launches"] += 1
+    return out
+
+
 def stacked_quant_matmul(l: int, x: torch.Tensor, w: torch.Tensor,
                          scales: torch.Tensor, a_q: torch.Tensor,
                          a_scale: torch.Tensor, ovp: bool = False,
@@ -207,7 +258,8 @@ def stacked_quant_matmul(l: int, x: torch.Tensor, w: torch.Tensor,
     """``snap(x / a_scale[l]; a_q[l]) @ W[l].T * scales[l]`` -> (M, N) f32.
 
     l:       layer index (Python int)
-    x:       (M, K) f32 activations (M <= 64 on the serving path)
+    x:       (M, K) f32 activations: M <= 64 at decode; M > 256 (K5)
+             with ``EngineConfig.stacked_prefill``
     w:       (L, N, K) int8 codebook values, or sign-offset OVP bytes
              (``ovp``: K3)
     scales:  (L, N) f32, a_scale * per-channel weight scale, folded
@@ -223,6 +275,79 @@ def stacked_quant_matmul(l: int, x: torch.Tensor, w: torch.Tensor,
                        a_scale, ovp, block_k)
     return stacked_quant_matmul_plain(l, x, w, scales, a_q, a_scale, ovp,
                                       block_k)
+
+
+def stacked_quant_matmul_p4_plain(l: int, x: torch.Tensor, w: torch.Tensor,
+                                  scales: torch.Tensor, a_q: torch.Tensor,
+                                  a_scale: torch.Tensor, q16: torch.Tensor,
+                                  affine: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of :func:`stacked_quant_matmul_p4`: K1's
+    snap, the codes decoded to int8, one exact int32 product (the sum of
+    the reference's two half-K dots)."""
+    K6_COUNTS["plain_calls"] += 1
+    xq = snap_value(x.to(torch.float32) / a_scale[l],
+                    a_q[l].to(torch.float32)).to(torch.int8)
+    codes = unpack_w4(w[l])                                   # (N, K)
+    wv = codes - 8 if affine else q16[l].to(torch.int64)[codes]
+    return int8_matmul(xq, wv.to(torch.int8)).to(torch.float32) * scales[l]
+
+
+def _launch_p4(l, x, w, scales, a_q, a_scale, q16, affine):
+    L, N, K2 = w.shape
+    K, M = 2 * K2, x.shape[0]
+    dev = x.device
+    if K2 % 16:
+        raise ValueError(f"K/2 = {K2} must be a multiple of 16")
+    if x.ndim != 2 or x.shape[1] != K or M == 0:
+        raise ValueError(f"x must be (M, {K}), got {tuple(x.shape)}")
+    _check_operands((("x", x, torch.float32), ("w", w, torch.uint8),
+                     ("scales", scales, torch.float32),
+                     ("a_q", a_q, torch.float32),
+                     ("a_scale", a_scale, torch.float32),
+                     ("q16", q16, torch.int32)), dev)
+    if (scales.shape != (L, N) or a_scale.shape != (L,)
+            or a_q.shape[0] != L or q16.shape != (L, 16)):
+        raise ValueError("scales (L, N), a_q (L, G), a_scale (L,), q16 "
+                         "(L, 16) expected")
+    if w.data_ptr() % 16:
+        raise ValueError("w must be 16-byte aligned")
+    lib = _ext.load(_P4_SOURCE)
+    fn = _fn(lib, "stacked_p4_matmul", 8, 6)
+    xq = torch.empty((M, K), dtype=torch.int8, device=dev)
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    code = fn(x.data_ptr(), xq.data_ptr(), w.data_ptr(), q16.data_ptr(),
+              a_q.data_ptr(), a_scale.data_ptr(), scales.data_ptr(),
+              out.data_ptr(), l, M, K, N, a_q.shape[1], int(affine),
+              _ext.stream_ptr(dev))
+    _ext.check(lib, code, "stacked_p4_matmul")
+    K6_COUNTS["launches"] += 1
+    return out
+
+
+def stacked_quant_matmul_p4(l: int, x: torch.Tensor, w: torch.Tensor,
+                            scales: torch.Tensor, a_q: torch.Tensor,
+                            a_scale: torch.Tensor, q16: torch.Tensor,
+                            affine: bool = False) -> torch.Tensor:
+    """K6: ``snap(x / a_scale[l]; a_q[l]) @ dec(W[l]).T * scales[l]`` over
+    packed 4-bit weights -> (M, N) f32.
+
+    l:       layer index (Python int)
+    x:       (M, K) f32 activations (any M; the engine sends M <= 64)
+    w:       (L, N, K/2) uint8 split-K packed codes (``kernels/qmatmul.py``)
+    scales:  (L, N) f32, a_scale * oscale (oscale = scale * the table's
+             unit), folded
+    a_q:     (L, G) f32 int8-domain activation codebook, sorted
+    a_scale: (L,) f32 activation scale (an IEEE division)
+    q16:     (L, 16) int32 int8 values of each layer's weight grid
+    affine:  decode as ``code - 8`` (every layer's q16 is arange(16) - 8)
+    """
+    if not 0 <= l < w.shape[0]:
+        raise IndexError(f"layer {l} outside a stack of {w.shape[0]}")
+    if x.is_cuda:
+        return _launch_p4(l, x.to(torch.float32).contiguous(), w, scales,
+                          a_q, a_scale, q16, affine)
+    return stacked_quant_matmul_p4_plain(l, x, w, scales, a_q, a_scale, q16,
+                                         affine)
 
 
 def aovp_snap_encode(xs: torch.Tensor, mids: torch.Tensor,

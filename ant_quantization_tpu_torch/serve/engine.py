@@ -1,28 +1,40 @@
 """Quantized serving engine for the decoder LM family, main path.
 
-Counterpart of the reference's ``serve/engine.py`` for weight mode "w4"
-(4-bit weights stored as int8 bytes), the INT8 KV cache and the int8
-lm_head: prefill and greedy decode with one scalar write position per
-call. Both halves of the system are served:
+Counterpart of the reference's ``serve/engine.py`` for the weight modes
+"w4" (4-bit weights stored as int8 bytes) and "w4pack" (4-bit codes
+packed two to a byte), the INT8 KV cache and the int8 lm_head: prefill
+and greedy decode with one scalar write position per call. Both halves
+of the system are served:
 
-- ANT: weights as int8 codebook values, activations snapped onto an
-  int8-exact codebook (``a_q``);
-- OliVe: outlier-victim pairs (OVP). Weights with outliers take the
-  sign-offset OVP byte encoding (``ovp``); activations with outliers
-  carry per-layer concat-snap tables (``aovp_*``).
+- ANT: weights as int8 codebook values ("w4") or packed codes
+  ("w4pack"), activations snapped onto an int8-exact codebook (``a_q``);
+  "w4pack" also serves without activation quantization (``act_bits=0``,
+  W4A16);
+- OliVe: outlier-victim pairs (OVP). Under "w4", weights with outliers
+  take the sign-offset OVP byte encoding (``ovp``) and activations with
+  outliers carry per-layer concat-snap tables (``aovp_*``). "w4pack"
+  cannot hold outlier weights (it raises) and fake-quantizes outlier
+  activations.
 
-Routing follows the reference:
+Routing follows the reference (``_prepare_stacked``):
 - decode-size matmuls (M = B*T <= ``stacked_max_m``) run a stacked
   kernel (``kernels/stacked.py``): K4 at sites with aovp tables, K3 at
-  OVP-weight sites with ``a_q``, K1 at the others. The rule is
-  all-or-nothing: one site with neither ``a_q`` nor aovp tables sends
-  every site of the step to the unfused route;
-- prefill-size matmuls run plain torch ops: with ``a_q``, a midpoint
-  snap of ``x / a_scale`` and int8 x int8 -> int32 library products
-  (two for OVP weights, combined as 16 a - 15 b in f32); without it
-  (OVP activations, inexact grids), the activation fake-quant and an f32
-  product of the ``mm_dtype``-rounded operands against the decoded
-  weight values, as the reference leaves them to XLA;
+  OVP-weight sites with ``a_q``, K1 at the other "w4" sites, K6 at
+  "w4pack" sites with ``a_q``. The rule is all-or-nothing: one site with
+  neither ``a_q`` nor aovp tables sends every site of the step to the
+  unfused route;
+- prefill-size matmuls under "w4" run plain torch ops: with ``a_q``, a
+  midpoint snap of ``x / a_scale`` and int8 x int8 -> int32 library
+  products (two for OVP weights, combined as 16 a - 15 b in f32);
+  without it (OVP activations, inexact grids), the activation fake-quant
+  and an f32 product of the ``mm_dtype``-rounded operands against the
+  decoded weight values, as the reference leaves them to XLA. With
+  ``stacked_prefill`` the sites with ``a_q`` run the stacked kernel
+  instead (K5 above 256 rows, else K1/K3) and the others keep the torch
+  route, site by site;
+- the unfused "w4pack" route (prefill, and decode when the rule above
+  fails) fake-quantizes the activation in ``cfg.dtype`` and runs K8
+  (``kernels/qmatmul.py``), an f32 product against the grid values;
 - attention runs K2 (``kernels/attention.py``) for decode and prefill
   alike, one launch per layer.
 
@@ -44,20 +56,22 @@ from torch import nn
 from .._ext import resolve_device
 from ..kernels.attention import stacked_int8_kv_attention
 from ..kernels.kv_cache import QuantKV, append_kv_stacked, init_kv
-from ..kernels.qmatmul import (int8_codebook, ovp_clip, ovp_decode_values,
-                               ovp_encode_scalar, ovp_unit,
-                               quantize_weights_ovp_i8,
-                               quantize_weights_w4_i8)
+from ..kernels.qmatmul import (f32_product, int8_codebook, ovp_clip,
+                               ovp_decode_values, ovp_encode_scalar,
+                               ovp_unit, quantize_weights_ovp_i8,
+                               quantize_weights_w4,
+                               quantize_weights_w4_i8, quantized_matmul_w4)
 from ..kernels.stacked import (int8_matmul, stacked_quant_matmul,
-                               stacked_quant_matmul_aovp)
+                               stacked_quant_matmul_aovp,
+                               stacked_quant_matmul_p4)
 from ..models.transformer_lm import LMConfig, conv1d_site_names
 from ..ops.ovp import apply_ovp
 from ..ops.snap import snap_concat, snap_value
 
 __all__ = ["EngineConfig", "quantize_lm_head", "quantize_activation",
-           "quantize_activation_ovp", "weight_entry", "act_entry",
-           "stack_entries", "build_engine_params", "forward", "init_cache",
-           "Engine", "SITES"]
+           "quantize_activation_ovp", "weight_entry", "packed_weight_entry",
+           "act_entry", "stack_entries", "build_engine_params", "forward",
+           "init_cache", "Engine", "SITES"]
 
 SITES = ("q", "k", "v", "out", "fc_in", "fc_out")
 _ATTN_SITES = ("q", "k", "v", "out")
@@ -73,7 +87,7 @@ class EngineConfig:
     added in f32 per block of that many K rows), so it is part of their
     numbers, as in the reference."""
     lm: LMConfig
-    weight_mode: str = "w4"        # only "w4" is ported
+    weight_mode: str = "w4"        # "w4" or "w4pack" ("bf16": not ported)
     act_bits: int = 0              # 0 = no activation quant, else 4/8
     kv_int8: bool = True
     lm_head_int8: bool = False
@@ -82,11 +96,13 @@ class EngineConfig:
     dtype: Any = torch.bfloat16
     interpret: bool = False
     # decode-size matmuls (M = B*T <= stacked_max_m) run the stacked
-    # kernels (K1, K3, K4)
+    # kernels (K1, K3, K4; K6 under "w4pack")
     stacked_kernel: bool = True
     stacked_max_m: int = 64
     stacked_block_n: int = 4096
     stacked_block_k: int = 1024
+    # "w4" prefill-size sites with a_q run the stacked kernels (K5 above
+    # 256 rows, K1/K3 below), the others the torch route
     stacked_prefill: bool = False
     tp_axis: Optional[str] = None
     tp_size: int = 1
@@ -101,15 +117,12 @@ def _not_ported(what: str, item: str):
 
 def _check_config(cfg: EngineConfig) -> None:
     c = cfg.lm
-    if cfg.weight_mode != "w4":
-        raise _not_ported(f"weight_mode={cfg.weight_mode!r}",
-                          "8.6" if cfg.weight_mode == "w4pack" else "8.7")
-    if not cfg.act_bits:
+    if cfg.weight_mode not in ("w4", "w4pack"):
+        raise _not_ported(f"weight_mode={cfg.weight_mode!r}", "8.7")
+    if not cfg.act_bits and cfg.weight_mode == "w4":
         raise _not_ported("w4 without activation quantization", "8")
     if not cfg.kv_int8:
         raise _not_ported("the bf16 KV cache", "8.7")
-    if cfg.stacked_prefill:
-        raise _not_ported("stacked_prefill (K5)", "8.8")
     if cfg.tp_axis is not None or cfg.tp_size != 1:
         raise _not_ported("tensor parallelism", "14")
     if c.fused_qkv or c.embed_ln or c.positions == "alibi":
@@ -201,13 +214,29 @@ def weight_entry(kernel: torch.Tensor, wq, ovp: bool) -> Dict:
     return e
 
 
+def packed_weight_entry(kernel: torch.Tensor, wq) -> Dict:
+    """One site-layer's "w4pack" leaves from its (K, N) f32 kernel and its
+    weight quantizer state: ``packed`` (N, K/2) uint8 split-K codes,
+    ``scale`` = alpha / max(grid), the f32 ``grid`` (K8's operands),
+    ``q16`` its int8 values (int32) and ``oscale`` = scale * their unit
+    (K6's operands)."""
+    dev = kernel.device
+    g16 = np.asarray(_field(wq, "grid"), np.float32).reshape(-1)[:16]
+    packed, scale = quantize_weights_w4(kernel, g16, _field(wq, "alpha"))
+    q16, w_unit, _ = int8_codebook(g16)
+    return {"packed": packed, "scale": scale,
+            "grid": torch.as_tensor(g16.copy(), device=dev),
+            "q16": torch.as_tensor(q16.astype(np.int32), device=dev),
+            "oscale": scale * torch.tensor(np.float32(w_unit), device=dev)}
+
+
 def act_entry(cfg: EngineConfig, aq, ovp: bool,
               device: torch.device) -> Dict:
     """One site-layer's activation leaves from its input quantizer state:
     the grid and alpha, plus the outlier grid and, where it has an exact
     sign-offset unit, K4's tables (``ovp``: the site has activation
     outliers in any layer), or else the int8-exact codebook ``a_q`` and
-    its scale where the grid has one."""
+    its scale where the grid has one. K4's tables belong to "w4" only."""
     t = lambda a: torch.as_tensor(a, device=device)
     a_grid = np.asarray(_field(aq, "grid"), np.float32).reshape(
         -1)[:2 ** cfg.act_bits]
@@ -218,7 +247,7 @@ def act_entry(cfg: EngineConfig, aq, ovp: bool,
                              np.float32).reshape(-1)[:16]
         e["a_out"] = t(a_out16.copy())
         u_a, exact_a = ovp_unit(a_grid, a_out16)
-        if exact_a:
+        if exact_a and cfg.weight_mode == "w4":
             e.update(_aovp_encode_tables(a_grid, a_out16, u_a, device))
         return e
     a_q16, a_unit, a_exact = int8_codebook(a_grid)
@@ -233,7 +262,9 @@ def act_entry(cfg: EngineConfig, aq, ovp: bool,
 def stack_entries(site: str, es: list) -> Dict[str, torch.Tensor]:
     """A site's per-layer entries stacked over layers. K4's tables must be
     there for every layer (the stack shares keys): otherwise they are
-    dropped and the site takes the unfused route."""
+    dropped and the site takes the unfused route. A "w4pack" site whose
+    q16 is arange(16) - 8 in every layer gets the ``affine4`` marker (K6
+    then decodes ``code - 8``)."""
     if not all("aovp_enc" in e for e in es):
         for e in es:
             for k in _AOVP_KEYS:
@@ -243,7 +274,13 @@ def stack_entries(site: str, es: list) -> Dict[str, torch.Tensor]:
         raise ValueError(f"site {site!r}: layers quantize differently (an "
                          "int8-exact activation grid in some layers only); "
                          "they cannot be stacked")
-    return {k: torch.stack([e[k] for e in es]) for k in keys}
+    out = {k: torch.stack([e[k] for e in es]) for k in keys}
+    if "q16" in out:
+        aff16 = torch.arange(16, dtype=torch.int32, device=out["q16"].device)
+        if torch.equal(out["q16"], (aff16 - 8).expand(len(es), 16)):
+            out["affine4"] = torch.zeros(len(es), dtype=torch.int32,
+                                         device=aff16.device)
+    return out
 
 
 def build_engine_params(cfg: EngineConfig, params: Dict, quant: Dict,
@@ -264,6 +301,12 @@ def build_engine_params(cfg: EngineConfig, params: Dict, quant: Dict,
     (``ovp``); if any layer's input state has outliers, every layer
     fake-quantizes with them (``a_out``) and, when each layer's concat
     grid has an exact sign-offset unit, carries K4's tables.
+
+    "w4pack" packs every site (``packed_weight_entry``; ``packed`` in the
+    port's (L, N, K/2) layout) and marks a site ``affine4`` when every
+    layer's q16 is arange(16) - 8. It raises ``ValueError`` on weight
+    outliers and on Conv1D sites, as the reference does. With
+    ``act_bits=0`` no activation leaves are built.
     """
     dev = resolve_device(device)
     _check_config(cfg)
@@ -277,6 +320,7 @@ def build_engine_params(cfg: EngineConfig, params: Dict, quant: Dict,
             site_ovp[site] |= bool(np.any(_field(qn["weight_q"], "outliers")))
             site_act_ovp[site] |= bool(
                 np.any(_field(qn["input_q"], "outliers")))
+    packed = cfg.weight_mode == "w4pack"
     entries: Dict[str, list] = {s: [] for s in SITES}
     lns: Dict[str, Dict[str, list]] = {
         n: {"scale": [], "bias": []} for n in ("ln_1", "ln_2")}
@@ -287,15 +331,28 @@ def build_engine_params(cfg: EngineConfig, params: Dict, quant: Dict,
                 lns[n][k].append(np.asarray(p[n][k], np.float32))
         for site in SITES:
             if site in conv1d:
+                if packed:
+                    raise ValueError(
+                        "w4pack assumes per-output-channel scales; GPT-2 "
+                        "Conv1D sites are per-input-channel")
                 raise _not_ported("Conv1D (per-input-channel) sites", "8.3")
+            if packed and site_ovp[site]:
+                raise ValueError(
+                    "w4pack cannot represent OliVe outlier grids (abfloat "
+                    "values exceed the 16-entry pack); use "
+                    "weight_mode='w4', whose OVP encoding serves them")
             node, qn = _site_node(p, site), _site_node(q, site)
             kernel = torch.tensor(np.asarray(node["kernel"], np.float32),
                                   device=dev)
             bias = node.get("bias", np.zeros(kernel.shape[1], np.float32))
             e = {"bias": torch.tensor(np.asarray(bias, np.float32),
                                       device=dev)}
-            e.update(weight_entry(kernel, qn["weight_q"], site_ovp[site]))
-            e.update(act_entry(cfg, qn["input_q"], site_act_ovp[site], dev))
+            e.update(packed_weight_entry(kernel, qn["weight_q"]) if packed
+                     else weight_entry(kernel, qn["weight_q"],
+                                       site_ovp[site]))
+            if cfg.act_bits:
+                e.update(act_entry(cfg, qn["input_q"], site_act_ovp[site],
+                                   dev))
             entries[site].append(e)
     out_layers = {site: stack_entries(site, es)
                   for site, es in entries.items()}
@@ -362,17 +419,26 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
 
 def _prepare_stacked(cfg: EngineConfig, ep: Dict,
                      M: int) -> Optional[Dict[str, Dict[str, Any]]]:
-    """Per-site stacked-kernel operands for decode-size M, or None
-    (prefill-size M, the kernels switched off, or a site with neither
-    ``a_q`` nor K4's tables: all-or-nothing, so a step stays on one
-    route): the routing rule of the reference."""
-    if not cfg.stacked_kernel or M > cfg.stacked_max_m:
+    """Per-site stacked-kernel operands, or None: the routing rule of the
+    reference. Decode-size M (<= ``stacked_max_m``) is all-or-nothing: a
+    site with neither ``a_q`` nor K4's tables sends the whole step to the
+    unfused route. Prefill-size M takes the stacked kernels only with
+    ``stacked_prefill`` under "w4", and then site by site: sites with
+    K4's tables or without ``a_q`` are left out and keep the torch
+    route. None also when the kernels are off or there is no activation
+    quantization."""
+    if not (cfg.stacked_kernel and cfg.act_bits):
+        return None
+    prefill = M > cfg.stacked_max_m
+    if prefill and not (cfg.stacked_prefill and cfg.weight_mode == "w4"):
         return None
     stk = {}
     for name, s in ep["layers"].items():
         if name not in SITES:
             continue
         if "aovp_enc" in s:
+            if prefill:
+                continue
             # full OliVe: OVP activations (and maybe OVP weights) -> K4
             prescale = s["a_alpha"] / s["a_grid"].amax(dim=1)        # (L,)
             stk[name] = {
@@ -382,44 +448,52 @@ def _prepare_stacked(cfg: EngineConfig, ep: Dict,
                 "ties": s["aovp_ties"], "enc": s["aovp_enc"]}
             continue
         if "a_q" not in s:
+            if prefill:
+                continue
             return None
-        stk[name] = {"mode": "i8", "w": s["w_i8"], "ovp": "ovp" in s,
-                     "a_q": s["a_q"], "a_scale": s["a_scale"],
-                     "scales": s["a_scale"][:, None] * s["oscale"]}
+        common = {"a_q": s["a_q"], "a_scale": s["a_scale"],
+                  "scales": s["a_scale"][:, None] * s["oscale"]}
+        if "packed" in s:
+            stk[name] = {"mode": "p4", "w": s["packed"], "q16": s["q16"],
+                         "affine": "affine4" in s, **common}
+        else:
+            stk[name] = {"mode": "i8", "w": s["w_i8"], "ovp": "ovp" in s,
+                         **common}
     return stk or None
-
-
-def _f32_product(a: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
-    """a (M, K) @ w_nk (N, K).T with products and sums in f32, as the
-    reference's ``dot(.., preferred_element_type=f32)``: the operands are
-    taken to f32 (exact from bf16) and TF32 is held off for the call, so
-    the result is never rounded to bf16 or TF32."""
-    a, w = a.to(torch.float32), w_nk.to(torch.float32)
-    if not a.is_cuda:
-        return a @ w.t()
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        return a @ w.t()
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _site_matmul_nobias(cfg: EngineConfig, ep: Dict, name: str,
                         x2d: torch.Tensor, l: int,
                         stk: Optional[Dict]) -> torch.Tensor:
-    """Quantized matmul of one site at layer l, WITHOUT the bias (f32)."""
-    if stk is not None:
-        s = stk[name]
+    """Quantized matmul of one site at layer l, WITHOUT the bias (f32).
+    ``stk`` is :func:`_prepare_stacked`'s result; a site it leaves out
+    takes the unfused route."""
+    s = stk.get(name) if stk is not None else None
+    if s is not None:
         if s["mode"] == "aovp":
             return stacked_quant_matmul_aovp(
                 l, x2d, s["w"], s["scales"], s["prescale"], s["mids"],
                 s["ties"], s["enc"], w_ovp=s["w_ovp"],
                 block_k=cfg.stacked_block_k)
+        if s["mode"] == "p4":
+            return stacked_quant_matmul_p4(l, x2d, s["w"], s["scales"],
+                                           s["a_q"], s["a_scale"], s["q16"],
+                                           affine=s["affine"])
         return stacked_quant_matmul(l, x2d, s["w"], s["scales"], s["a_q"],
                                     s["a_scale"], ovp=s["ovp"],
                                     block_k=cfg.stacked_block_k)
     site = ep["layers"][name]
+    if "packed" in site:
+        # "w4pack": fake-quant in cfg.dtype, then K8 on the f32 values
+        if "a_out" in site:
+            x2d = quantize_activation_ovp(x2d, site["a_grid"][l],
+                                          site["a_out"][l],
+                                          site["a_alpha"][l])
+        elif "a_grid" in site:
+            x2d = quantize_activation(x2d, site["a_grid"][l],
+                                      site["a_alpha"][l])
+        return quantized_matmul_w4(x2d.to(torch.float32), site["packed"][l],
+                                   site["scale"][l], site["grid"][l])
     w = site["w_i8"][l]
     if "a_q" in site:
         a_scale = site["a_scale"][l]
@@ -444,7 +518,7 @@ def _site_matmul_nobias(cfg: EngineConfig, ep: Dict, name: str,
     mm_dtype = torch.float32 if cfg.dtype == torch.float32 \
         else torch.bfloat16
     wv = ovp_decode_values(w) if "ovp" in site else w
-    y = _f32_product(x2d.to(mm_dtype), wv.to(mm_dtype))
+    y = f32_product(x2d.to(mm_dtype), wv.to(mm_dtype))
     return y * site["oscale"][l][None, :]
 
 

@@ -44,12 +44,31 @@ Phases, each printing one JSON line (numbers unrounded):
 12. in situ, OliVe: a 2-layer full-OliVe engine with every K4 call
    checked against its plain version, and runs with K4's (and, on the
    OVP-weights route, K3's) plain version that must give identical
-   greedy tokens and logits.
+   greedy tokens and logits;
+13. stacked_prefill (K5): the ANT main path's params, and then the
+   OVP-weights params, served by a second ``Engine`` with
+   ``stacked_prefill=True``: one prefill whose site matmuls all launch
+   K5 (192), logits bit-equal to the unstacked prefill (OVP weights:
+   within SP_OVP_RTOL), 8 greedy steps each; K5 times at one prefill
+   layer (M = 2048) beside the torch route it replaces; a profile; and
+   in situ at 2 layers, every K5 call checked and a swap for its plain
+   version that must give identical tokens and logits;
+14. w4pack path: OPT-6.7B with packed 4-bit weights built on the card
+   by ``quantize_weights_w4`` (ANT int grid at q/k/v: affine decode;
+   flint elsewhere: table decode), 32 layers, served as in 5: decode
+   runs K6 (12,288), prefill K8 (192); K6 times at one decode layer and
+   K8 times at one prefill layer beside their bounds, plain versions
+   and library calls; a profile; and in situ at 2 layers (every K6 call
+   bit-equal, every K8 call within K8_RTOL, a K6 swap with identical
+   tokens and logits).
 
 The kernel checks (4) include K3 and K4 against their plain versions,
 bit for bit, at the three site shapes and M 4 and 64, on exact concat
 midpoints, padded duplicates and outlier pairs, and on adversarial
-inputs at K = 16384 whose partial sums pass 2^24.
+inputs at K = 16384 whose partial sums pass 2^24; and K6 (M 1, 4, 64,
+affine and table decode) and K5 (M 300 and 2048, int8 values and OVP,
+and K3's adversarial case) bit for bit, K8 (M 4 and 2048) within
+K8_RTOL of each output's sum of term magnitudes.
 
 Then the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -79,6 +98,14 @@ F32_FLOPS = 67e12          # f32 outside the tensor cores
 # one output step is up to 2^-7 of the value, so a summation-order
 # difference may move an output by one step
 K2_TOL = {"bf16": (2e-2, 1e-2), "f32": (1e-4, 0.0)}
+# K8 and its plain version are f32 dots summed in other orders: they agree
+# within this share of each output's sum of term magnitudes |x| @ |W| (a
+# random-sign sum of K roundings stays near 2^-24 of it; 1e-5 is far
+# inside the worst case K 2^-24, 1e-3 at K = 16384)
+K8_RTOL = 1e-5
+# the OVP-weights prefill with and without stacked_prefill: two f32 orders
+# of the same int32 partial sums (exact while they stay below 2^24)
+SP_OVP_RTOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -390,6 +417,107 @@ def phase_checks_ovp(torch, gen):
     return errs
 
 
+def _k8_size(torch, x, packed, scale, grid):
+    """The sum of the magnitudes of K8's terms, per output: |x| @ |W|."""
+    from ant_quantization_tpu_torch.kernels import qmatmul as kq
+    wv = kq.dequant_w4_reference(packed, scale, grid).abs()      # (K, N)
+    return kq.f32_product(x.abs(), wv.t())
+
+
+def k8_close(torch, got, want, size) -> bool:
+    """K8 against its plain version: both f32 dots in other orders."""
+    return bool(torch.isfinite(got).all()) and bool(
+        ((got - want).abs() <= K8_RTOL * size).all())
+
+
+def phase_checks_w4pack(torch, gen):
+    """K6, K5 and K8 against their plain versions on the card, at the
+    three OPT site shapes: K6 bit for bit at M 1, 4 and 64, affine and
+    table decode; K5 (stacked_quant_matmul at M > 256) bit for bit at M
+    300 and 2048, int8 values and OVP bytes, and on K3's adversarial
+    K = 16384 case whose 256-row segment sums pass 2^24; K8 at M 4 and
+    2048 within K8_RTOL of each output's sum of term magnitudes."""
+    import numpy as np
+    from ant_quantization_tpu_torch.kernels import qmatmul as kq
+    from ant_quantization_tpu_torch.kernels import stacked as ks
+    from ant_quantization_tpu_torch.kernels.qmatmul import (
+        int8_codebook, ovp_decode_values)
+    from ant_quantization_tpu_torch.numerics import codebooks as cb
+    from ant_quantization_tpu_torch.ops.snap import snap_value
+    d, ff = 4096, 16384
+    shapes = ((d, d), (d, ff), (ff, d))
+    errs = {"K5": 0.0, "K6": 0.0, "K8": 0.0}
+
+    def record(kernel, got, want, ok, **info):
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        equal = torch.equal(got, want)
+        emit({"phase": "check", "kernel": kernel, **info,
+              "max_abs_err": err, "bit_equal": equal, "pass": ok(equal)})
+        if not ok(equal):
+            fail(f"{kernel} differs from its plain version: {info} "
+                 f"(max abs err {err})")
+        errs[kernel] = max(errs[kernel], err)
+
+    exact = lambda equal: equal
+    flint = cb.ant_grid("flint", 4, True).astype(np.float32)
+    for K, N in shapes:
+        for affine in (True, False):
+            q16v = np.arange(16) - 8 if affine else int8_codebook(flint)[0]
+            q16 = torch.tensor(np.stack([q16v] * 2).astype(np.int32),
+                               device="cuda")
+            w = torch.randint(0, 256, (2, N, K // 2), dtype=torch.uint8,
+                              device="cuda", generator=gen)
+            for M in (1, 4, 64):
+                x, _, sc, aq, asc, l = _k1_operands(torch, M, K, 8, 2, gen)
+                sc = torch.rand((2, N), device="cuda", generator=gen) * 1e-3
+                args = (l, x, w, sc, aq, asc, q16, affine)
+                got = ks.stacked_quant_matmul_p4(*args)
+                want = ks.stacked_quant_matmul_p4_plain(*args)
+                record("K6", got, want, exact, M=M, K=K, N=N, affine=affine)
+        del w
+    for K, N in shapes:
+        for M, ovp, adv in ((300, False, False), (2048, False, False),
+                            (300, True, False), (2048, True, False)) + (
+                ((300, True, True),) if K == ff else ()):
+            if ovp:
+                x, w, sc, aq, asc, l = _k3_operands(torch, M, K, N, 2, gen,
+                                                    adv)
+            else:
+                x, w, sc, aq, asc, l = _k1_operands(torch, M, K, N, 2, gen)
+            info = {"M": M, "K": K, "N": N, "ovp": ovp, "adversarial": adv}
+            before = ks.K5_COUNTS["launches"]
+            got = ks.stacked_quant_matmul(l, x, w, sc, aq, asc, ovp=ovp)
+            if ks.K5_COUNTS["launches"] != before + 1:
+                fail(f"K5 did not launch at {info}")
+            want = ks.stacked_quant_matmul_plain(l, x, w, sc, aq, asc,
+                                                 ovp=ovp)
+            if adv:
+                xq = snap_value(x / asc[l], aq[l]).double()
+                wv = ovp_decode_values(w[l]).double()
+                info["subchunk_max"] = (xq[:, :256] @ wv[:, :256].t()).abs(
+                    ).max().item()
+                if info["subchunk_max"] <= 2 ** 24:
+                    fail(f"K5 adversarial case stays exact: {info}")
+            record("K5", got, want, exact, **info)
+            del x, w, got, want
+    grid = torch.tensor(flint, device="cuda")
+    for K, N in shapes:
+        packed = torch.randint(0, 256, (N, K // 2), dtype=torch.uint8,
+                               device="cuda", generator=gen)
+        scale = torch.rand((N,), device="cuda", generator=gen) * 1e-2
+        for M in (4, 2048):
+            x = torch.randn((M, K), device="cuda", generator=gen)
+            got = kq.quantized_matmul_w4(x, packed, scale, grid)
+            want = kq.quantized_matmul_w4_plain(x, packed, scale, grid)
+            size = _k8_size(torch, x, packed, scale, grid)
+            record("K8", got, want,
+                   lambda _: k8_close(torch, got, want, size),
+                   M=M, K=K, N=N, rtol_of_size=K8_RTOL,
+                   max_err_over_size=((got - want).abs() / size).max().item())
+    return errs
+
+
 def engine_layer_shapes(c) -> dict:
     d = c.d_model
     return {"q": (d, d), "k": (d, d), "v": (d, d), "out": (d, d),
@@ -514,23 +642,25 @@ def random_engine_params(torch, cfg, seed: int, sites: bool = True):
     return {"layers": layers, "top": top}
 
 
-def opt_engine_config(n_layers: int, dtype):
+def opt_engine_config(n_layers: int, dtype, **kw):
     import dataclasses
     from ant_quantization_tpu_torch.models.transformer_lm import opt_config
     from ant_quantization_tpu_torch.serve.engine import EngineConfig
     lm = dataclasses.replace(opt_config("6.7b"), n_layers=n_layers,
                              max_seq=MAX_SEQ)
-    return EngineConfig(lm=lm,
-                        weight_mode="w4", act_bits=4, kv_int8=True,
-                        lm_head_int8=True, max_seq=MAX_SEQ, dtype=dtype)
+    return EngineConfig(lm=lm, **{
+        "weight_mode": "w4", "act_bits": 4, "kv_int8": True,
+        "lm_head_int8": True, "max_seq": MAX_SEQ, "dtype": dtype, **kw})
 
 
 def all_counts():
     """Each kernel's launch and plain-call counts, by kernel."""
     from ant_quantization_tpu_torch.kernels import attention as k2
+    from ant_quantization_tpu_torch.kernels import qmatmul as kq
     from ant_quantization_tpu_torch.kernels import stacked as ks
     return {"K1": ks.COUNTS, "K2": k2.COUNTS, "K3": ks.K3_COUNTS,
-            "K4": ks.K4_COUNTS}
+            "K4": ks.K4_COUNTS, "K5": ks.K5_COUNTS, "K6": ks.K6_COUNTS,
+            "K8": kq.K8_COUNTS}
 
 
 def reset_counts():
@@ -549,9 +679,11 @@ def serve_path(torch, engine, ids, phase: str, want: dict, extra=None):
     count set to 0, one fenced ``Engine.prefill`` of ``ids`` and DECODE
     greedy ``Engine.decode`` steps in fenced blocks of 8, and the counts
     read. Fails unless the logits are finite (B, 1, V), the tokens in
-    range, each kernel's launches equal ``want`` and no plain version ran.
-    Emits and returns the phase's line."""
+    range, each kernel's launches equal ``want`` (0 for a kernel it does
+    not name) and no plain version ran. Emits and returns the phase's
+    line."""
     c = engine.cfg.lm
+    want = {k: want.get(k, 0) for k in all_counts()}
     engine.decode(engine.prefill(ids[:, :32])[:, -1].argmax(-1, True))
     torch.cuda.synchronize()
     reset_counts()
@@ -607,8 +739,7 @@ def phase_main(torch, gen, n_layers: int = 32):
     build_s = time.perf_counter() - t0
     ids = torch.randint(0, c.vocab_size, (BATCH, PREFILL), device="cuda",
                         generator=gen)
-    want = {"K1": 6 * c.n_layers * DECODE, "K2": c.n_layers * (1 + DECODE),
-            "K3": 0, "K4": 0}
+    want = {"K1": 6 * c.n_layers * DECODE, "K2": c.n_layers * (1 + DECODE)}
     res = serve_path(torch, engine, ids, "main_path", want,
                      {"param_build_s": build_s})
     return engine, res["launches"], ids
@@ -687,8 +818,7 @@ def phase_olive(torch, gen, n_layers: int = 32):
     build_s = time.perf_counter() - t0
     ids = torch.randint(0, c.vocab_size, (BATCH, PREFILL), device="cuda",
                         generator=gen)
-    want = {"K1": 0, "K2": c.n_layers * (1 + DECODE), "K3": 0,
-            "K4": 6 * c.n_layers * DECODE}
+    want = {"K2": c.n_layers * (1 + DECODE), "K4": 6 * c.n_layers * DECODE}
     res = serve_path(torch, engine, ids, "olive_main_path", want,
                      {"param_build_s": build_s,
                       "act_alpha": OLIVE_A_ALPHA})
@@ -713,16 +843,154 @@ def phase_ovp_weights(torch, olive_ep, ids, n_layers: int = 32):
     # weight stacks and adds its own cache
     torch.cuda.reset_peak_memory_stats()
     engine = Engine(cfg, ovp_weight_params(torch, cfg, olive_ep), BATCH)
-    want = {"K1": 0, "K2": c.n_layers * (1 + DECODE),
-            "K3": 6 * c.n_layers * DECODE, "K4": 0}
+    want = {"K2": c.n_layers * (1 + DECODE), "K3": 6 * c.n_layers * DECODE}
     res = serve_path(torch, engine, ids, "ovp_weights_path", want)
     return engine, res["launches"]
+
+
+def w4pack_engine_params(torch, cfg, seed: int):
+    """"w4pack" engine params built on the card from a seeded generator,
+    one site-layer at a time, through the functions that
+    ``build_engine_params`` runs for each site-layer (packed_weight_entry,
+    act_entry, stack_entries). Weights: normal samples with std 1/sqrt(K),
+    the ANT int grid at q/k/v (affine: K6 decodes code - 8) and flint
+    elsewhere (table decode), alpha = 2.5 std, packed by the port's
+    ``quantize_weights_w4``. A4 inputs: the unsigned ANT flint grid with
+    alpha 3, as the ANT main path."""
+    import numpy as np
+    from ant_quantization_tpu_torch.numerics import codebooks as cb
+    from ant_quantization_tpu_torch.serve import engine as eng
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    dev = torch.device("cuda")
+    aq = {"grid": cb.ant_grid("flint", 4, False), "alpha": np.float32(3.0)}
+    layers = {}
+    for name, (K, N) in engine_layer_shapes(cfg.lm).items():
+        mode = "int" if name in ("q", "k", "v") else "flint"
+        wq = {"grid": cb.ant_grid(mode, 4, True),
+              "alpha": np.float32(2.5 / np.sqrt(K))}
+        es = []
+        for _ in range(cfg.lm.n_layers):
+            w = torch.randn((K, N), device=dev, generator=gen) / float(
+                np.sqrt(K))
+            e = {"bias": torch.zeros((N,), device=dev)}
+            e.update(eng.packed_weight_entry(w, wq))
+            e.update(eng.act_entry(cfg, aq, ovp=False, device=dev))
+            es.append(e)
+            del w
+        layers[name] = eng.stack_entries(name, es)
+        if ("affine4" in layers[name]) != (mode == "int"):
+            fail(f"w4pack site {name}: affine4 marker is wrong")
+        del es
+    rest = random_engine_params(torch, cfg, seed, sites=False)
+    layers.update(rest["layers"])
+    return {"layers": layers, "top": rest["top"]}
+
+
+def phase_w4pack(torch, gen, n_layers: int = 32):
+    """The "w4pack" path: OPT-6.7B with packed 4-bit weights built on the
+    card, at full width and depth, through ``Engine``: every decode site
+    matmul runs K6, every prefill site matmul K8 (M = 2048)."""
+    from ant_quantization_tpu_torch.serve.engine import Engine
+    cfg = opt_engine_config(n_layers, torch.bfloat16, weight_mode="w4pack")
+    c = cfg.lm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = Engine(cfg, w4pack_engine_params(torch, cfg, seed=4), BATCH)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    packed_bytes = sum(s["packed"].numel() for n, s in
+                       engine.engine_params()["layers"].items()
+                       if "packed" in s)
+    ids = torch.randint(0, c.vocab_size, (BATCH, PREFILL), device="cuda",
+                        generator=gen)
+    want = {"K2": c.n_layers * (1 + DECODE), "K6": 6 * c.n_layers * DECODE,
+            "K8": 6 * c.n_layers}
+    res = serve_path(torch, engine, ids, "w4pack_path", want,
+                     {"param_build_s": build_s,
+                      "packed_weight_bytes": packed_bytes})
+    return engine, res["launches"], ids
+
+
+def phase_stacked_prefill(torch, engine, ids, phase: str):
+    """``engine``'s params (shared, not copied) served by a second Engine
+    with ``stacked_prefill=True`` (its own cache): one fenced prefill,
+    whose launches must be K5 at every site (6 per layer) and K2 once per
+    layer; its logits against ``engine``'s own prefill of the same ids,
+    then 8 greedy decode steps on each engine. On int8-value weights the
+    logits must be bit-equal (same snap, exact int32, same scale
+    product). On OVP weights (K5's OVP mode against the dual ``_int_mm``
+    route) they must agree within SP_OVP_RTOL of the largest logit, and
+    the greedy tokens are reported. Returns (the new engine, its
+    launches)."""
+    import dataclasses
+    from ant_quantization_tpu_torch.serve.engine import Engine
+    cfg = dataclasses.replace(engine.cfg, stacked_prefill=True)
+    L = cfg.lm.n_layers
+    ovp = "ovp" in engine.engine_params()["layers"]["q"]
+    sp = Engine(cfg, engine.engine_params(), BATCH)
+    sp.prefill(ids[:, :300])                        # warm-up, M = 1200
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    got = sp.prefill(ids)
+    torch.cuda.synchronize()
+    sp_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    reset_counts()
+    t0 = time.perf_counter()
+    want = engine.prefill(ids)
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    toks = []
+    for e, logits in ((sp, got), (engine, want)):
+        t = [logits[:, -1].argmax(-1, keepdim=True)]
+        for _ in range(8):
+            t.append(e.decode(t[-1])[:, -1].argmax(-1, keepdim=True))
+        toks.append(torch.cat(t, 1))
+    torch.cuda.synchronize()
+    reset_counts()
+    launches = {k: v["launches"] for k, v in counts.items()}
+    want_l = {k: {"K5": 6 * L, "K2": L}.get(k, 0) for k in launches}
+    err = (got - want).abs().max().item()
+    res = {"phase": phase, "layers": L, "ovp_weights": ovp,
+           "prefill_ms_stacked": sp_ms, "prefill_ms_unstacked": ref_ms,
+           "launches": launches, "want_launches": want_l,
+           "plain_calls": {k: v["plain_calls"] for k, v in counts.items()},
+           "logits_bit_equal": torch.equal(got, want),
+           "logits_max_abs_err": err,
+           "logits_max_abs": want.abs().max().item(),
+           "greedy_tokens_identical_8_steps": torch.equal(*toks)}
+    ok = (launches == want_l and bool(torch.isfinite(got).all())
+          and not any(res["plain_calls"].values()))
+    if ovp:
+        res["rtol_of_max_logit"] = SP_OVP_RTOL
+        ok = ok and err <= SP_OVP_RTOL * res["logits_max_abs"]
+        if not res["greedy_tokens_identical_8_steps"]:
+            res["tokens_note"] = (
+                "the two f32 orders moved an activation across an A4 "
+                "midpoint, which cascades (ROADMAP Queue 3)")
+    else:
+        ok = ok and res["logits_bit_equal"]
+    res["pass"] = ok
+    emit(res)
+    if not ok:
+        fail(f"{phase}: {res}")
+    return sp, counts
+
+
+def _bound(byts, ops, peak):
+    """(ms, what binds): the larger of the bytes over the HBM rate and the
+    operations over ``peak``."""
+    t_b, t_o = byts / HBM_BPS, ops / peak
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
 def k1_bound(M, K, N, G=16):
     byts = K * N + 4 * M * K + 4 * M * N + 4 * N + 4 * G + 4
     ops = 2 * M * K * N
-    return byts, ops, max(byts / HBM_BPS, ops / INT8_OPS) * 1e3
+    return byts, ops, _bound(byts, ops, INT8_OPS)[0]
 
 
 def k2_bound(B, H, T, D, S, pos0):
@@ -730,9 +998,7 @@ def k2_bound(B, H, T, D, S, pos0):
     keys = sum(min(p + T, S) for p in pos0)       # each key read once
     byts = keys * H * (2 * D + 8) + B * H * T * D * (4 + 2) + 4 * B + 4 * H
     ops = sum(vis) * H * 4 * D
-    t_b, t_o = byts / HBM_BPS, ops / F32_FLOPS
-    return byts, ops, max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else \
-        "operations"
+    return (byts, ops, *_bound(byts, ops, F32_FLOPS))
 
 
 def phase_times(torch, engine):
@@ -810,9 +1076,7 @@ def ovp_bound(M, K, N, dots: int, table_bytes: int):
     int8 dots of 2*M*K*N operations each."""
     byts = K * N + 4 * M * K + 4 * M * N + 4 * N + table_bytes + 4
     ops = dots * 2 * M * K * N
-    t_b, t_o = byts / HBM_BPS, ops / INT8_OPS
-    return byts, ops, max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else \
-        "operations"
+    return (byts, ops, *_bound(byts, ops, INT8_OPS))
 
 
 def phase_times_ovp(torch, olive_engine, ovpw_engine):
@@ -871,6 +1135,118 @@ def phase_times_ovp(torch, olive_engine, ovpw_engine):
     return rows
 
 
+def phase_times_w4pack(torch, engine):
+    """K6 and K8 times on the 32-layer "w4pack" engine's own stacks:
+    K6 at one decode layer's six sites (M = 4, layers rotated so the
+    weights come from device memory) beside its byte bound, its plain
+    version and torch._int_mm on the unpacked int8 weights (the same
+    weight values at twice the bytes, one int8 dot without the snap: a
+    reference point, not the same function); K8 at one prefill layer's six
+    sites (M = 2048) beside its operation bound, its plain version and
+    cuBLAS SGEMM (TF32 off) on the dequantized f32 weight, which is the
+    same function."""
+    from ant_quantization_tpu_torch.kernels import qmatmul as kq
+    from ant_quantization_tpu_torch.kernels import stacked as ks
+    from ant_quantization_tpu_torch.serve.engine import _prepare_stacked
+    ep = engine.engine_params()
+    stk = _prepare_stacked(engine.cfg, ep, BATCH)
+    L = engine.cfg.lm.n_layers
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    rows = {"K6": [], "K8": []}
+    for name in engine_layer_shapes(engine.cfg.lm):
+        s = stk[name]
+        w = s["w"]
+        N, K = w.shape[1], 2 * w.shape[2]
+        M, iters = BATCH, 2 * L
+        x = torch.randn((M, K), device="cuda", generator=gen)
+        args = (s["scales"], s["a_q"], s["a_scale"], s["q16"], s["affine"])
+        t_k = cuda_ms(torch, lambda i: ks.stacked_quant_matmul_p4(
+            i % L, x, w, *args), iters)
+        t_p = cuda_ms(torch, lambda i: ks.stacked_quant_matmul_p4_plain(
+            i % L, x, w, *args), iters)
+        n_l = min(8, L)                      # 8 unpacked layers exceed L2
+        codes = kq.unpack_w4(w[:n_l])
+        w8 = ((codes - 8) if s["affine"] else s["q16"][:n_l].long().gather(
+            1, codes.reshape(n_l, -1)).reshape(codes.shape)).to(torch.int8)
+        del codes
+        xq_pad = torch.randint(-64, 65, (32, K), dtype=torch.int8,
+                               device="cuda", generator=gen)
+        t_l = cuda_ms(torch, lambda i: torch._int_mm(xq_pad, w8[i % n_l].t()),
+                      iters)
+        del w8
+        byts = K * N // 2 + 4 * M * K + 4 * M * N + 4 * N + 64 + 4 * 17
+        bound, by = _bound(byts, 2 * M * K * N, INT8_OPS)
+        rows["K6"].append({"site": name, "M": M, "K": K, "N": N,
+                           "affine": s["affine"], "ms": t_k, "plain_ms": t_p,
+                           "bound_ms": bound, "bound_by": by, "bytes": byts,
+                           "int_mm_ms": t_l})
+        site = ep["layers"][name]
+        M, n_l = BATCH * PREFILL, 4
+        x = torch.randn((M, K), device="cuda", generator=gen)
+        k8 = [(site["packed"][l], site["scale"][l], site["grid"][l])
+              for l in range(n_l)]
+        t_k = cuda_ms(torch, lambda i: kq.quantized_matmul_w4(x, *k8[i % n_l]),
+                      n_l)
+        t_p = cuda_ms(torch, lambda i: kq.quantized_matmul_w4_plain(
+            x, *k8[i % n_l]), n_l)
+        wdq = [kq.dequant_w4_reference(*a) for a in k8]           # (K, N)
+        t_l = cuda_ms(torch, lambda i: torch.mm(x, wdq[i % n_l]), n_l)
+        del wdq
+        byts = 4 * M * K + K * N // 2 + 4 * M * N + 4 * N + 64
+        ops = 2 * M * K * N
+        bound, by = _bound(byts, ops, F32_FLOPS)
+        rows["K8"].append({"site": name, "M": M, "K": K, "N": N, "ms": t_k,
+                           "plain_ms": t_p, "library_ms": t_l,
+                           "bound_ms": bound, "bound_by": by, "bytes": byts,
+                           "ops": ops})
+    emit({"phase": "kernel_times_w4pack", "graphed": True,
+          "int_mm_note": "K6 beside torch._int_mm (M padded to 32) on the "
+                         "unpacked int8 weights: one int8 dot, not the "
+                         "same function", **rows})
+    return rows
+
+
+def phase_times_k5(torch, engine):
+    """K5 times at one prefill layer's six sites (M = 2048) on the ANT
+    engine's 32-layer int8 stacks, layers rotated: beside its operation
+    bound, its plain version, which is the torch route it replaces (the
+    snap's where-chain, torch._int_mm, the scale), and torch._int_mm alone
+    on the snapped codes (the product without the snap)."""
+    from ant_quantization_tpu_torch.kernels import stacked as ks
+    from ant_quantization_tpu_torch.ops.snap import snap_value
+    ep = engine.engine_params()
+    L = engine.cfg.lm.n_layers
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    M, iters = BATCH * PREFILL, 2 * L
+    rows = []
+    for name in engine_layer_shapes(engine.cfg.lm):
+        s = ep["layers"][name]
+        w, aq, asc = s["w_i8"], s["a_q"], s["a_scale"]
+        sc = asc[:, None] * s["oscale"]
+        N, K = w.shape[1:]
+        x = torch.randn((M, K), device="cuda", generator=gen)
+        t_k = cuda_ms(torch, lambda i: ks.stacked_quant_matmul(
+            i % L, x, w, sc, aq, asc), iters)
+        t_p = cuda_ms(torch, lambda i: ks.stacked_quant_matmul_plain(
+            i % L, x, w, sc, aq, asc), iters)
+        xq = snap_value(x / asc[0], aq[0]).to(torch.int8)
+        t_l = cuda_ms(torch, lambda i: torch._int_mm(xq, w[i % L].t()),
+                      iters)
+        byts = 4 * M * K + K * N + 4 * M * N + 4 * N + 4 * 17
+        ops = 2 * M * K * N
+        bound, by = _bound(byts, ops, INT8_OPS)
+        rows.append({"site": name, "M": M, "K": K, "N": N, "ms": t_k,
+                     "plain_ms": t_p, "library_ms": t_l, "bound_ms": bound,
+                     "bound_by": by, "bytes": byts, "ops": ops})
+    emit({"phase": "kernel_times_k5", "graphed": True,
+          "plain_note": "K5's plain version is the torch route it replaces",
+          "library_note": "torch._int_mm on the snapped codes: the product "
+                          "without the snap", "K5": rows})
+    return rows
+
+
 def _profiled(torch, fn):
     """Run ``fn`` under torch.profiler: wall microseconds and the device
     kernels' (self device microseconds, name, count), largest first."""
@@ -919,14 +1295,19 @@ def phase_profile(torch, engine, ids, steps: int = 4, path: str = "ANT"):
 
 
 def _greedy(torch, eng, cfg, ep, ids, k1fn, k2fn, steps: int = 8,
-            k4fn=None):
+            k4fn=None, k6fn=None, k8fn=None):
     """Prefill + ``steps`` greedy decode steps of a fresh engine, with the
-    engine's K1 (and K3) / K2 / K4 entry points replaced by ``k1fn`` /
-    ``k2fn`` / ``k4fn`` (None keeps the kernel)."""
+    engine's K1 (and K3, K5) / K2 / K4 / K6 / K8 entry points replaced by
+    ``k1fn`` / ``k2fn`` / ``k4fn`` / ``k6fn`` / ``k8fn`` (None keeps the
+    kernel)."""
     k4fn = k4fn or eng.stacked_quant_matmul_aovp
+    k6fn = k6fn or eng.stacked_quant_matmul_p4
+    k8fn = k8fn or eng.quantized_matmul_w4
     with mock.patch.object(eng, "stacked_quant_matmul", k1fn), \
             mock.patch.object(eng, "stacked_int8_kv_attention", k2fn), \
-            mock.patch.object(eng, "stacked_quant_matmul_aovp", k4fn):
+            mock.patch.object(eng, "stacked_quant_matmul_aovp", k4fn), \
+            mock.patch.object(eng, "stacked_quant_matmul_p4", k6fn), \
+            mock.patch.object(eng, "quantized_matmul_w4", k8fn):
         engine = eng.Engine(cfg, ep, BATCH)
         logits = [engine.prefill(ids)]
         toks = [logits[-1][:, -1].argmax(-1, keepdim=True)]
@@ -935,6 +1316,29 @@ def _greedy(torch, eng, cfg, ep, ids, k1fn, k2fn, steps: int = 8,
             toks.append(logits[-1][:, -1].argmax(-1, keepdim=True))
     torch.cuda.synchronize()
     return torch.cat(toks, 1), torch.cat(logits, 1).float()
+
+
+def _checked(torch, stats, tag, fn, plain, close=None, when=None):
+    """``fn`` that also runs ``plain`` on the same inputs and tallies, in
+    stats[tag], the calls, the largest difference and the calls that
+    differ (bit for bit, or beyond ``close(out, want, args)``). Calls for
+    which ``when(args)`` is false are passed through untallied."""
+    st = stats.setdefault(tag, {"calls": 0, "max_abs_err": 0.0,
+                                "failed": 0})
+
+    def call(*args, **kw):
+        out = fn(*args, **kw)
+        if when is not None and not when(args):
+            return out
+        want = plain(*args, **kw)
+        st["calls"] += 1
+        st["max_abs_err"] = max(st["max_abs_err"], (
+            out.float() - want.float()).abs().max().item())
+        ok = (torch.equal(out, want) if close is None
+              else close(out, want, args))
+        st["failed"] += int(not ok)
+        return out
+    return call
 
 
 def phase_insitu(torch, gen):
@@ -957,29 +1361,13 @@ def phase_insitu(torch, gen):
     ep = random_engine_params(torch, cfg, seed=1)
     ids = torch.randint(0, cfg.lm.vocab_size, (BATCH, PREFILL),
                         device="cuda", generator=gen)
-    stats = {"K1": {"calls": 0, "max_abs_err": 0.0, "unequal": 0},
-             "K2": {"calls": 0, "max_abs_err": 0.0, "outside_tol": 0}}
-
-    def k1_checked(*args, **kw):
-        out = k1.stacked_quant_matmul(*args, **kw)
-        want = k1.stacked_quant_matmul_plain(*args, **kw)
-        st = stats["K1"]
-        st["calls"] += 1
-        st["max_abs_err"] = max(st["max_abs_err"],
-                                (out - want).abs().max().item())
-        st["unequal"] += int(not torch.equal(out, want))
-        return out
-
-    def k2_checked(*args, **kw):
-        out = k2.stacked_int8_kv_attention(*args, **kw)
-        want = k2.stacked_int8_kv_attention_plain(*args, **kw)
-        st = stats["K2"]
-        st["calls"] += 1
-        st["max_abs_err"] = max(st["max_abs_err"], (
-            out.float() - want.float()).abs().max().item())
-        st["outside_tol"] += int(not k2_close(torch, out, want, "bf16"))
-        return out
-
+    stats = {}
+    k1_checked = _checked(torch, stats, "K1", k1.stacked_quant_matmul,
+                          k1.stacked_quant_matmul_plain)
+    k2_checked = _checked(torch, stats, "K2", k2.stacked_int8_kv_attention,
+                          k2.stacked_int8_kv_attention_plain,
+                          lambda out, want, a: k2_close(torch, out, want,
+                                                        "bf16"))
     reset_counts()
     ta, la = _greedy(torch, eng, cfg, ep, ids, k1_checked, k2_checked)
     launched = tuple(read_counts()[k]["launches"] for k in ("K1", "K2"))
@@ -999,8 +1387,8 @@ def phase_insitu(torch, gen):
            "all_plain_logits_max_abs_err": (la - lc).abs().max().item(),
            "logits_finite": bool(torch.isfinite(la).all())}
     res["pass"] = (
-        stats["K1"]["calls"] > 0 and stats["K1"]["unequal"] == 0
-        and stats["K2"]["calls"] > 0 and stats["K2"]["outside_tol"] == 0
+        stats["K1"]["calls"] > 0 and stats["K1"]["failed"] == 0
+        and stats["K2"]["calls"] > 0 and stats["K2"]["failed"] == 0
         and all(launched) and res["k1_swap_tokens_identical"]
         and res["k1_swap_logits_identical"] and res["logits_finite"])
     emit(res)
@@ -1022,21 +1410,8 @@ def phase_insitu_olive(torch, gen):
     ep3 = ovp_weight_params(torch, cfg, ep)
     ids = torch.randint(0, cfg.lm.vocab_size, (BATCH, PREFILL),
                         device="cuda", generator=gen)
-    stats = {k: {"calls": 0, "max_abs_err": 0.0, "unequal": 0}
-             for k in ("K3", "K4")}
-
-    def checked(tag, fn, plain):
-        def call(*args, **kw):
-            out = fn(*args, **kw)
-            want = plain(*args, **kw)
-            st = stats[tag]
-            st["calls"] += 1
-            st["max_abs_err"] = max(st["max_abs_err"],
-                                    (out - want).abs().max().item())
-            st["unequal"] += int(not torch.equal(out, want))
-            return out
-        return call
-
+    stats = {}
+    checked = lambda tag, fn, plain: _checked(torch, stats, tag, fn, plain)
     k2fn = k2.stacked_int8_kv_attention
     reset_counts()
     ta, la = _greedy(torch, eng, cfg, ep, ids, ks.stacked_quant_matmul,
@@ -1060,7 +1435,7 @@ def phase_insitu_olive(torch, gen):
            "logits_finite": bool(torch.isfinite(la).all()
                                  and torch.isfinite(lc).all())}
     res["pass"] = (
-        all(st["calls"] == 6 * 2 * 8 and st["unequal"] == 0
+        all(st["calls"] == 6 * 2 * 8 and st["failed"] == 0
             for st in stats.values())
         and res["k4_swap_tokens_identical"]
         and res["k4_swap_logits_identical"]
@@ -1069,6 +1444,93 @@ def phase_insitu_olive(torch, gen):
     emit(res)
     if not res["pass"]:
         fail(f"OliVe in-situ check: {res}")
+
+
+def phase_insitu_w4pack(torch, gen):
+    """The "w4pack" engine at 2 layers and full width, prefill + 8 greedy
+    steps: every K6 call checked against its plain version (bit for bit)
+    and every K8 call against its plain version (within K8_RTOL of the
+    sum of term magnitudes), on the engine's own inputs; then a run with
+    K6's plain version, which must give identical greedy tokens and
+    logits."""
+    from ant_quantization_tpu_torch.kernels import attention as k2
+    from ant_quantization_tpu_torch.kernels import qmatmul as kq
+    from ant_quantization_tpu_torch.kernels import stacked as ks
+    from ant_quantization_tpu_torch.serve import engine as eng
+    cfg = opt_engine_config(2, torch.bfloat16, weight_mode="w4pack")
+    ep = w4pack_engine_params(torch, cfg, seed=5)
+    ids = torch.randint(0, cfg.lm.vocab_size, (BATCH, PREFILL),
+                        device="cuda", generator=gen)
+    stats = {}
+    k8_ok = lambda out, want, a: k8_close(torch, out, want,
+                                          _k8_size(torch, *a))
+    reset_counts()
+    ta, la = _greedy(torch, eng, cfg, ep, ids, ks.stacked_quant_matmul,
+                     k2.stacked_int8_kv_attention,
+                     k6fn=_checked(torch, stats, "K6",
+                                   ks.stacked_quant_matmul_p4,
+                                   ks.stacked_quant_matmul_p4_plain),
+                     k8fn=_checked(torch, stats, "K8", kq.quantized_matmul_w4,
+                                   kq.quantized_matmul_w4_plain, k8_ok))
+    tb, lb = _greedy(torch, eng, cfg, ep, ids, ks.stacked_quant_matmul,
+                     k2.stacked_int8_kv_attention,
+                     k6fn=ks.stacked_quant_matmul_p4_plain)
+    launched = {k: v["launches"] for k, v in read_counts().items()}
+    reset_counts()
+    res = {"phase": "in_situ_w4pack", "layers": 2, "dtype": "bfloat16",
+           "decode_steps": 8, "per_call": stats, "k8_rtol": K8_RTOL,
+           "launches": launched,
+           "k6_swap_tokens_identical": torch.equal(ta, tb),
+           "k6_swap_logits_identical": torch.equal(la, lb),
+           "logits_finite": bool(torch.isfinite(la).all())}
+    res["pass"] = (
+        stats["K6"]["calls"] == 6 * 2 * 8 and stats["K8"]["calls"] == 6 * 2
+        and not stats["K6"]["failed"] and not stats["K8"]["failed"]
+        and res["k6_swap_tokens_identical"]
+        and res["k6_swap_logits_identical"] and res["logits_finite"])
+    emit(res)
+    if not res["pass"]:
+        fail(f"w4pack in-situ check: {res}")
+
+
+def phase_insitu_stacked_prefill(torch, gen):
+    """The ANT main-path engine at 2 layers and full width with
+    ``stacked_prefill=True``, prefill + 8 greedy steps: every K5 call (the
+    prefill's, M = 2048) checked bit for bit against its plain version on
+    the engine's own inputs, then a run with the plain version of
+    ``stacked_quant_matmul`` (K5 and K1), which must give identical greedy
+    tokens and logits."""
+    from ant_quantization_tpu_torch.kernels import attention as k2
+    from ant_quantization_tpu_torch.kernels import stacked as ks
+    from ant_quantization_tpu_torch.serve import engine as eng
+    cfg = opt_engine_config(2, torch.bfloat16, stacked_prefill=True)
+    ep = random_engine_params(torch, cfg, seed=6)
+    ids = torch.randint(0, cfg.lm.vocab_size, (BATCH, PREFILL),
+                        device="cuda", generator=gen)
+    stats = {}
+    reset_counts()
+    ta, la = _greedy(torch, eng, cfg, ep, ids,
+                     _checked(torch, stats, "K5", ks.stacked_quant_matmul,
+                              ks.stacked_quant_matmul_plain,
+                              when=lambda a: a[1].shape[0] > ks.PREFILL_M),
+                     k2.stacked_int8_kv_attention)
+    tb, lb = _greedy(torch, eng, cfg, ep, ids, ks.stacked_quant_matmul_plain,
+                     k2.stacked_int8_kv_attention)
+    launched = {k: v["launches"] for k, v in read_counts().items()}
+    reset_counts()
+    res = {"phase": "in_situ_stacked_prefill", "layers": 2,
+           "dtype": "bfloat16", "decode_steps": 8, "per_call": stats,
+           "launches": launched,
+           "k5_swap_tokens_identical": torch.equal(ta, tb),
+           "k5_swap_logits_identical": torch.equal(la, lb),
+           "logits_finite": bool(torch.isfinite(la).all())}
+    res["pass"] = (
+        stats["K5"]["calls"] == 6 * 2 and not stats["K5"]["failed"]
+        and res["k5_swap_tokens_identical"]
+        and res["k5_swap_logits_identical"] and res["logits_finite"])
+    emit(res)
+    if not res["pass"]:
+        fail(f"stacked_prefill in-situ check: {res}")
 
 
 def main() -> int:
@@ -1097,19 +1559,34 @@ def main() -> int:
     gen.manual_seed(0)
     k1_err, k2_err = phase_checks(torch, gen)
     k34_err = phase_checks_ovp(torch, gen)
+    k568_err = phase_checks_w4pack(torch, gen)
     engine, counts, ids = phase_main(torch, gen)
     sites, k2_rows = phase_times(torch, engine)
     phase_profile(torch, engine, ids)
-    del engine
+    sp, sp_counts = phase_stacked_prefill(torch, engine, ids,
+                                          "stacked_prefill_ant")
+    phase_profile(torch, sp, ids, path="ANT stacked_prefill")
+    k5_rows = phase_times_k5(torch, engine)
+    del engine, sp
     torch.cuda.empty_cache()
     phase_insitu(torch, gen)
+    phase_insitu_stacked_prefill(torch, gen)
     olive, olive_ep, olive_counts, olive_ids = phase_olive(torch, gen)
     ovpw, ovpw_counts = phase_ovp_weights(torch, olive_ep, olive_ids)
     ovp_rows = phase_times_ovp(torch, olive, ovpw)
     phase_profile(torch, olive, olive_ids, path="OliVe")
-    del olive, ovpw, olive_ep
+    del olive, olive_ep
+    sp, _ = phase_stacked_prefill(torch, ovpw, olive_ids,
+                                  "stacked_prefill_ovp_weights")
+    del ovpw, sp
     torch.cuda.empty_cache()
     phase_insitu_olive(torch, gen)
+    w4, w4_counts, w4_ids = phase_w4pack(torch, gen)
+    w4_rows = phase_times_w4pack(torch, w4)
+    phase_profile(torch, w4, w4_ids, path="w4pack")
+    del w4
+    torch.cuda.empty_cache()
+    phase_insitu_w4pack(torch, gen)
 
     dec, pre = k2_rows
     kernels = [
@@ -1166,6 +1643,40 @@ def main() -> int:
             "int_mm_reference_ms": sum(x["int_mm_ms"] for x in rows),
             "int_mm_note": "torch._int_mm on the same weights and M: one "
                            "int8 dot, not the same function"})
+    decode_at = ("one decode layer: the 6 site launches at M=4 (q, k, v, out "
+                 "4096x4096; fc_in 4096x16384; fc_out 16384x4096)")
+    prefill_at = decode_at.replace("decode", "prefill").replace("M=4",
+                                                                "M=2048")
+    for tag, fname, src, line, launches, rows, at, lib in (
+            ("K5", "stacked_quant_matmul M>256 (K5)", "stacked_prefill.cu",
+             "ant_quantization_tpu/kernels/stacked.py:386",
+             sp_counts["K5"]["launches"], k5_rows, prefill_at,
+             "torch._int_mm on the snapped codes: the product without the "
+             "snap; plain_ms is the torch route K5 replaces"),
+            ("K6", "stacked_quant_matmul_p4 (K6)", "stacked_p4.cu",
+             "ant_quantization_tpu/kernels/stacked.py:136",
+             w4_counts["K6"]["launches"], w4_rows["K6"], decode_at,
+             "torch._int_mm (M padded to 32) on the unpacked int8 weights: "
+             "one int8 dot at twice the bytes, not the same function"),
+            ("K8", "quantized_matmul_w4 (K8)", "qmatmul_w4.cu",
+             "ant_quantization_tpu/kernels/qmatmul.py:116",
+             w4_counts["K8"]["launches"], w4_rows["K8"], prefill_at,
+             "cuBLAS SGEMM (torch.mm, TF32 off) on the dequantized f32 "
+             "weight: the same function")):
+        kernels.append({
+            "name": fname, "route": "cuda",
+            "source": f"ant_quantization_tpu_torch/csrc/{src}",
+            "replaces": line, "launches": launches,
+            "max_abs_err": k568_err[tag], "pass": True,
+            "ms_per_launch": {x["site"]: x["ms"] for x in rows}, "at": at,
+            "ms": sum(x["ms"] for x in rows),
+            "plain_ms": sum(x["plain_ms"] for x in rows),
+            "bound_ms": sum(x["bound_ms"] for x in rows),
+            "bound_by": "bytes" if all(x["bound_by"] == "bytes"
+                                       for x in rows) else "operations",
+            "library_ms": sum(x.get("library_ms", x.get("int_mm_ms"))
+                              for x in rows),
+            "library_note": lib})
     emit({"kernels": kernels, "card": smi, "hbm_copy_bytes_per_s": hbm,
           "seconds": time.perf_counter() - t_start})
     print(json.dumps({"ok": True, "device": {

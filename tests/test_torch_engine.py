@@ -173,7 +173,7 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
 
 def test_unported_features_raise():
     _, tcfg = _configs()
-    for change in (dict(weight_mode="w4pack"), dict(stacked_prefill=True),
+    for change in (dict(weight_mode="bf16"), dict(act_bits=0),
                    dict(kv_int8=False), dict(tp_size=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             teng._check_config(dataclasses.replace(tcfg, **change))

