@@ -9,7 +9,8 @@ module imports nothing of the reference package.
 
 Layouts that change:
 - weight stacks ``w_i8`` (L, K, N) -> the port's N-major (L, N, K), for
-  int8 codebook values and OVP bytes (``ovp``) alike;
+  int8 codebook values and OVP bytes (``ovp``) alike, at every site
+  (a fused ``qkv`` too);
 - "w4pack" stacks ``packed`` (L, K/2, N) -> (L, N, K/2), the same bytes
   (each still holds rows i and i + K/2 of one column); a per-layer
   ``scale`` or ``oscale`` given for the whole row (L, 1) is broadcast to
@@ -31,7 +32,7 @@ import torch
 
 from ._ext import resolve_device
 from .kernels.kv_cache import QuantKV
-from .serve.engine import SITES
+from .models.transformer_lm import ALL_SITES
 
 __all__ = ["from_jax_engine_params", "from_jax_kv"]
 
@@ -58,10 +59,8 @@ def from_jax_engine_params(tree: Dict, device=None) -> Dict:
         if name in ("ln_1", "ln_2"):
             layers[name] = {k: _tensor(v, dev) for k, v in site.items()}
             continue
-        if name not in SITES:
-            raise NotImplementedError(
-                f"site {name!r} (fused qkv) is not ported yet (ROADMAP "
-                "Queue 1 item 8.2)")
+        if name not in ALL_SITES:
+            raise ValueError(f"unknown site {name!r}")
         for key, item in _UNPORTED.items():
             if key in site:
                 raise NotImplementedError(
@@ -85,9 +84,6 @@ def from_jax_engine_params(tree: Dict, device=None) -> Dict:
         layers[name] = out
     top = {}
     for k, v in tree["top"].items():
-        if k == "embed_ln":
-            raise NotImplementedError(
-                "embed_ln is not ported yet (ROADMAP Queue 1 item 8.2)")
         top[k] = ({kk: _tensor(vv, dev) for kk, vv in v.items()}
                   if isinstance(v, dict) else _tensor(v, dev))
     return {"layers": layers, "top": top}

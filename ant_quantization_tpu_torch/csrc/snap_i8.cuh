@@ -1,6 +1,8 @@
 // The activation snap pre-kernel shared by K1/K3 (stacked_i8.cu), K5
-// (stacked_prefill.cu) and K6 (stacked_p4.cu): x / a_scale[l] (an IEEE
-// f32 division; no --use_fast_math), snapped onto the int8-domain
+// (stacked_prefill.cu), K6 (stacked_p4.cu) and K9 (w8a8_matmul.cu):
+// x / a_scale[l] (an IEEE f32 division; no --use_fast_math), or for K9
+// (`recip`) x * inv with inv = 1 / a_scale[l] divided once, as the
+// reference's fused_w8a8_matmul scales; snapped onto the int8-domain
 // codebook a_q[l] by `>=` against the f32 midpoints (aq[i] + aq[i+1]) *
 // 0.5, ties to the larger entry, written once into an int8 (M, K) scratch
 // that the matmul kernel then reads. Also the 16-byte int8 dot.
@@ -15,11 +17,12 @@ __global__ void snap_i8_kernel(const float* __restrict__ x,
                                int8_t* __restrict__ xq,
                                const float* __restrict__ aq,
                                const float* __restrict__ a_scale, int G,
-                               long total) {
+                               long total, bool recip) {
   const float sc = *a_scale;
+  const float inv = 1.0f / sc;
   for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += (long)gridDim.x * blockDim.x) {
-    const float xs = x[i] / sc;
+    const float xs = recip ? x[i] * inv : x[i] / sc;
     int idx = 0;
     for (int g = 0; g < G - 1; ++g) {
       const float mid = (aq[g] + aq[g + 1]) * 0.5f;
@@ -40,13 +43,13 @@ __device__ __forceinline__ int dot16(const int4& a, const int4& b, int acc) {
 // x (M, K) f32 -> xq (M, K) int8 with layer l's a_q (L, G) and a_scale (L,)
 cudaError_t launch_snap(const float* x, int8_t* xq, const float* a_q,
                         const float* a_scale, int l, int M, int K, int G,
-                        cudaStream_t s) {
+                        cudaStream_t s, bool recip = false) {
   const long total = (long)M * K;
   const int sthreads = 256;
   long sblocks = (total + sthreads - 1) / sthreads;
   if (sblocks > 4096) sblocks = 4096;
   snap_i8_kernel<<<(int)sblocks, sthreads, 0, s>>>(
-      x, xq, a_q + (long)l * G, a_scale + l, G, total);
+      x, xq, a_q + (long)l * G, a_scale + l, G, total, recip);
   return cudaGetLastError();
 }
 

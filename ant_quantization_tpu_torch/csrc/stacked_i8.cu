@@ -39,54 +39,13 @@
 // are one contiguous row of the N-major (L, N, K) stack, read once with
 // 16-byte loads; x codes are re-read from L1/L2. M rows are processed MT
 // at a time so each lane keeps MT int32 accumulators in registers; a warp
-// shuffle sums the lanes. The layer index only offsets the pointer: no
-// per-layer copy of the stack exists.
+// shuffle sums the lanes (K1's product is in i8_dot.cuh, shared with K9).
+// The layer index only offsets the pointer: no per-layer copy of the stack
+// exists.
 
-#include "snap_i8.cuh"
+#include "i8_dot.cuh"
 
 namespace {
-
-template <int MT>
-__global__ void i8_matmul_kernel(const int8_t* __restrict__ xq,
-                                 const int8_t* __restrict__ w,
-                                 const float* __restrict__ scales,
-                                 float* __restrict__ out, int M, int K,
-                                 int N) {
-  const int n = (int)(((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5);
-  const int lane = threadIdx.x & 31;
-  if (n >= N) return;  // whole warps leave together
-  const int4* wrow = reinterpret_cast<const int4*>(w + (long)n * K);
-  const int k16 = K / 16;
-  for (int m0 = 0; m0 < M; m0 += MT) {
-    int acc[MT];
-#pragma unroll
-    for (int r = 0; r < MT; ++r) acc[r] = 0;
-#pragma unroll 4
-    for (int i = lane; i < k16; i += 32) {
-      const int4 wv = __ldg(wrow + i);
-#pragma unroll
-      for (int r = 0; r < MT; ++r) {
-        if (m0 + r < M) {
-          const int4 xv = __ldg(
-              reinterpret_cast<const int4*>(xq + (long)(m0 + r) * K) + i);
-          acc[r] = dot16(xv, wv, acc[r]);
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < MT; ++r) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
-    }
-    if (lane == 0) {
-      const float sc = scales[n];
-#pragma unroll
-      for (int r = 0; r < MT; ++r)
-        if (m0 + r < M) out[(long)(m0 + r) * N + n] = (float)acc[r] * sc;
-    }
-  }
-}
 
 __device__ __forceinline__ int4 ovp_clip16(const int4& w) {
   // clip(c, -64, 64) on each signed byte
@@ -183,15 +142,6 @@ void launch_ovp_matmul(const int8_t* xq, const int8_t* w, const float* scales,
                                                       K, N, seg, fold);
 }
 
-template <int MT>
-void launch_matmul(const int8_t* xq, const int8_t* w, const float* scales,
-                   float* out, int M, int K, int N, cudaStream_t s) {
-  const int threads = 256;  // 8 warps, one output column each
-  const int blocks = (N + 7) / 8;
-  i8_matmul_kernel<MT><<<blocks, threads, 0, s>>>(xq, w, scales, out, M, K,
-                                                  N);
-}
-
 }  // namespace
 
 extern "C" {
@@ -213,14 +163,7 @@ int stacked_i8_matmul(const float* x, int8_t* xq, const int8_t* w,
   if (err != cudaSuccess) return (int)err;
   const int8_t* wl = w + (long)l * N * K;
   const float* sl = scales + (long)l * N;
-  if (M <= 1)
-    launch_matmul<1>(xq, wl, sl, out, M, K, N, s);
-  else if (M <= 2)
-    launch_matmul<2>(xq, wl, sl, out, M, K, N, s);
-  else if (M <= 4)
-    launch_matmul<4>(xq, wl, sl, out, M, K, N, s);
-  else
-    launch_matmul<8>(xq, wl, sl, out, M, K, N, s);
+  launch_i8_dot(xq, wl, sl, out, M, K, N, s);
   return (int)cudaGetLastError();
 }
 

@@ -52,24 +52,38 @@ def quantize_kv(x: torch.Tensor):
 
 
 def append_kv_stacked(cache: QuantKV, k: torch.Tensor, v: torch.Tensor,
-                      layer: int, index: int) -> QuantKV:
-    """Write new (B, T, H, D) f32 keys/values for one layer at positions
-    ``index .. index+T-1`` (a scalar position shared by the batch), in
-    place. Returns the same cache."""
-    if not isinstance(index, int):
-        raise NotImplementedError(
-            "per-sequence write positions are not ported yet (ROADMAP "
-            "Queue 1 item 8.1)")
-    T = k.shape[1]
+                      layer: int, index) -> QuantKV:
+    """Write new (B, T, H, D) f32 keys/values for one layer, in place, at
+    positions ``index .. index+T-1``: ``index`` is an int shared by the
+    batch, or per sequence a (B,) int tensor or a sequence of B ints
+    (sequence b's rows go to ``index[b] .. index[b]+T-1``). A write past
+    the end of the cache raises. Returns the same cache."""
+    B, T = k.shape[:2]
     S = cache.k.shape[3]
-    if index < 0 or index + T > S:
-        raise ValueError(f"write of {T} positions at {index} exceeds the "
-                         f"cache length {S}")
+    if isinstance(index, int):
+        starts = None
+        checked = [index]
+    else:
+        starts = [int(i) for i in (index.tolist() if isinstance(
+            index, torch.Tensor) else index)]
+        if len(starts) != B:
+            raise ValueError(f"{len(starts)} write positions for a batch "
+                             f"of {B}")
+        checked = starts
+    for i in checked:
+        if i < 0 or i + T > S:
+            raise ValueError(f"write of {T} positions at {i} exceeds the "
+                             f"cache length {S}")
     for codes, scales, x in ((cache.k, cache.k_scale, k),
                              (cache.v, cache.v_scale, v)):
         q, s = quantize_kv(x.to(torch.float32).transpose(1, 2))
-        codes[layer, :, :, index:index + T] = q
-        scales[layer, :, :, index:index + T] = s
+        if starts is None:
+            codes[layer, :, :, index:index + T] = q
+            scales[layer, :, :, index:index + T] = s
+            continue
+        for b, i in enumerate(starts):
+            codes[layer, b, :, i:i + T] = q[b]
+            scales[layer, b, :, i:i + T] = s[b]
     return cache
 
 

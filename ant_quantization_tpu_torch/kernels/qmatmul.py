@@ -1,4 +1,5 @@
-"""Weight packing, and K8, the packed-4-bit f32 matmul.
+"""Weight packing; K8, the packed-4-bit f32 matmul; K9, the fused W8A8
+matmul.
 
 Counterpart of the reference's ``kernels/qmatmul.py``:
 
@@ -10,7 +11,11 @@ Counterpart of the reference's ``kernels/qmatmul.py``:
   (outlier-victim pairs), whose abfloat outliers do not fit an int8
   codebook;
 - the packed mode ("w4pack"): ``pack_w4``, ``quantize_weights_w4``,
-  ``dequant_w4_reference`` and K8, :func:`quantized_matmul_w4`.
+  ``dequant_w4_reference`` and K8, :func:`quantized_matmul_w4`;
+- K9, :func:`fused_w8a8_matmul`: the snap of ``x * (1 / a_scale)`` onto
+  an int8-domain codebook and an int8 product against one standalone
+  int8 weight (no engine path calls it; the reference keeps it for
+  weights outside the layer stacks).
 
 Packed layout. The reference packs a (K, N) code matrix into (K/2, N)
 bytes in split-K halves: the byte at (i, n) holds code(i, n) in the low
@@ -26,10 +31,16 @@ tensor it launches ``csrc/qmatmul_w4.cu`` (f32 FMAs on the CUDA cores,
 no TF32, no tensor cores), on a CPU tensor its plain version. The f32
 sum order differs between the two and from the reference's, so they
 agree within the rounding of an f32 dot, not bit for bit.
+
+K9 launches ``csrc/w8a8_matmul.cu`` on a CUDA tensor and runs its plain
+version on a CPU tensor; both are bit-equal to the reference (exact
+int32 sums, the same f32 steps). Its weight is N-major ``(N, K)``, as
+the port stores every int8 weight (the reference's is ``(K, N)``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import numpy as np
@@ -43,13 +54,33 @@ __all__ = ["int8_codebook", "quantize_weights_w4_i8", "OVP_OFFSET",
            "OVP_SHIFT", "ovp_unit", "quantize_weights_ovp_i8",
            "ovp_encode_scalar", "ovp_clip", "ovp_decode_values",
            "pack_w4", "unpack_w4", "quantize_weights_w4",
-           "dequant_w4_reference", "f32_product", "quantized_matmul_w4",
-           "quantized_matmul_w4_plain", "K8_COUNTS"]
+           "dequant_w4_reference", "tf32_off", "f32_product",
+           "quantized_matmul_w4",
+           "quantized_matmul_w4_plain", "int8_matmul", "w8a8_snap",
+           "fused_w8a8_matmul", "fused_w8a8_matmul_plain", "K8_COUNTS",
+           "K9_COUNTS"]
 
-# launches of K8's CUDA kernel, and calls of its plain version
+# launches of each CUDA kernel, and calls of its plain version
 K8_COUNTS = {"launches": 0, "plain_calls": 0}
+K9_COUNTS = {"launches": 0, "plain_calls": 0}
 
 _SOURCE = "qmatmul_w4.cu"
+_W8A8_SOURCE = "w8a8_matmul.cu"
+_W8A8_MAX_G = 16        # the reference's fused path takes <= 4-bit codebooks
+
+
+def int8_matmul(a: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
+    """Exact int8 x int8 -> int32 product ``a (M, K) @ w_nk (N, K).T``.
+
+    A library call (``torch._int_mm``), used outside any kernel: for the
+    prefill-size matmuls and the int8 lm_head, as the reference leaves
+    those dots to XLA. On CUDA ``_int_mm`` needs M > 16 and K, N multiples
+    of 8, so M is padded with zero rows."""
+    M = a.shape[0]
+    if a.is_cuda and (M <= 16 or M % 8):
+        Mp = max(32, -(-M // 8) * 8)
+        a = torch.cat([a, a.new_zeros((Mp - M, a.shape[1]))])
+    return torch._int_mm(a, w_nk.t())[:M]
 
 
 def int8_codebook(grid16) -> tuple[np.ndarray, float, bool]:
@@ -272,20 +303,25 @@ def dequant_w4_reference(packed: torch.Tensor, scale: torch.Tensor,
     return w * scale.reshape(-1).to(torch.float32).expand(w.shape[1])[None]
 
 
+@contextlib.contextmanager
+def tf32_off():
+    """CUDA f32 matrix products in full f32 (no TF32) inside the block."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def f32_product(a: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
     """a (M, K) @ w_nk (N, K).T with products and sums in f32, as the
     reference's ``dot(.., preferred_element_type=f32)``: the operands are
     taken to f32 (exact from bf16) and TF32 is held off for the call, so
     the result is never rounded to bf16 or TF32."""
     a, w = a.to(torch.float32), w_nk.to(torch.float32)
-    if not a.is_cuda:
+    with tf32_off():
         return a @ w.t()
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        return a @ w.t()
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def quantized_matmul_w4_plain(x: torch.Tensor, packed: torch.Tensor,
@@ -347,3 +383,95 @@ def quantized_matmul_w4(x: torch.Tensor, packed: torch.Tensor,
                           scale.to(torch.float32).contiguous(),
                           grid.to(torch.float32).contiguous())
     return quantized_matmul_w4_plain(x, packed, scale, grid)
+
+
+# K9: the fused W8A8 matmul for a standalone weight.
+
+def w8a8_snap(x: torch.Tensor, a_q: torch.Tensor,
+              a_scale: torch.Tensor) -> torch.Tensor:
+    """K9's activation codes: ``inv = 1 / a_scale`` (a tensor division,
+    as the reference divides once), ``x * inv``, the count of f32
+    midpoints at or below it, that entry of a_q as int8."""
+    aq = a_q.to(torch.float32).reshape(-1)
+    if aq.shape[0] > _W8A8_MAX_G:
+        raise ValueError(f"K9 takes at most {_W8A8_MAX_G} codebook "
+                         f"entries, got {aq.shape[0]}")
+    sc = a_scale.to(torch.float32).reshape(())
+    inv = torch.ones_like(sc) / sc
+    xs = x.to(torch.float32) * inv
+    idx = torch.zeros(xs.shape, dtype=torch.int64, device=xs.device)
+    for i in range(aq.shape[0] - 1):
+        idx += (xs >= (aq[i] + aq[i + 1]) * 0.5).to(torch.int64)
+    return aq[idx].to(torch.int8)
+
+
+def fused_w8a8_matmul_plain(x: torch.Tensor, w_i8: torch.Tensor,
+                            a_q: torch.Tensor, a_scale: torch.Tensor,
+                            out_scale: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_w8a8_matmul`, the reference
+    kernel's arithmetic: :func:`w8a8_snap`, an exact int8 product, one
+    f32 multiply."""
+    K9_COUNTS["plain_calls"] += 1
+    acc = int8_matmul(w8a8_snap(x, a_q, a_scale), w_i8)
+    return acc.to(torch.float32) * out_scale.to(torch.float32)[None, :]
+
+
+def _launch_w8a8(x, w_i8, a_q, a_scale, out_scale):
+    M, K = x.shape
+    N = w_i8.shape[0]
+    G = a_q.shape[0]
+    dev = x.device
+    if K % 16 or (M > 64 and K % 64) or M == 0:
+        raise ValueError(f"K9 needs K a multiple of 16 (of 64 above 64 "
+                         f"rows) and M > 0, got M {M}, K {K}")
+    if G > _W8A8_MAX_G:
+        raise ValueError(f"K9 takes at most {_W8A8_MAX_G} codebook "
+                         f"entries, got {G}")
+    for name, t, dt, shape in (("x", x, torch.float32, (M, K)),
+                               ("w_i8", w_i8, torch.int8, (N, K)),
+                               ("a_q", a_q, torch.float32, (G,)),
+                               ("a_scale", a_scale, torch.float32, (1,)),
+                               ("out_scale", out_scale, torch.float32,
+                                (N,))):
+        if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {dt} tensor of "
+                             f"shape {shape} on {dev}")
+    if x.data_ptr() % 16 or w_i8.data_ptr() % 16:
+        raise ValueError("x and w_i8 must be 16-byte aligned")
+    lib = _ext.load(_W8A8_SOURCE)
+    fn = lib.w8a8_matmul
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    xq = torch.empty((M, K), dtype=torch.int8, device=dev)
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    code = fn(x.data_ptr(), xq.data_ptr(), w_i8.data_ptr(), a_q.data_ptr(),
+              a_scale.data_ptr(), out_scale.data_ptr(), out.data_ptr(), M, K,
+              N, G, _ext.stream_ptr(dev))
+    _ext.check(lib, code, "w8a8_matmul")
+    K9_COUNTS["launches"] += 1
+    return out
+
+
+def fused_w8a8_matmul(x: torch.Tensor, w_i8: torch.Tensor,
+                      a_q: torch.Tensor, a_scale: torch.Tensor,
+                      out_scale: torch.Tensor) -> torch.Tensor:
+    """K9: ``snap(x * (1 / a_scale); a_q) @ w_i8.T * out_scale`` -> (M, N)
+    f32.
+
+    x:         (M, K) activations (taken to f32)
+    w_i8:      (N, K) int8 codebook values, N-major (the reference's
+               (K, N) weight transposed)
+    a_q:       (G <= 16,) sorted int8-domain activation codebook
+    a_scale:   scalar activation scale: x is multiplied by its
+               reciprocal, unlike K1, which divides
+    out_scale: (N,) f32, a_scale times the per-channel weight scale
+    """
+    if x.is_cuda:
+        return _launch_w8a8(x.to(torch.float32).contiguous(), w_i8,
+                            a_q.to(torch.float32).reshape(-1).contiguous(),
+                            a_scale.to(torch.float32).reshape(1).contiguous(),
+                            out_scale.to(torch.float32).contiguous())
+    return fused_w8a8_matmul_plain(x, w_i8, a_q, a_scale, out_scale)

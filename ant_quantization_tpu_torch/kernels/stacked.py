@@ -59,7 +59,7 @@ import torch
 from .. import _ext
 from ..ops.ovp import victim_mask
 from ..ops.snap import snap_value
-from .qmatmul import OVP_OFFSET, ovp_clip, unpack_w4
+from .qmatmul import OVP_OFFSET, int8_matmul, ovp_clip, unpack_w4
 
 __all__ = ["stacked_quant_matmul", "stacked_quant_matmul_plain",
            "stacked_quant_matmul_aovp", "stacked_quant_matmul_aovp_plain",
@@ -82,20 +82,6 @@ _P4_SOURCE = "stacked_p4.cu"
 _SUB = 256          # K3's int32 sub-chunk rows (the reference's `sub`)
 PREFILL_M = 256     # larger M takes K5 (the reference's M-blocked route)
 _K5_BK = 64         # K5's K tile: K and the OVP segments are multiples
-
-
-def int8_matmul(a: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
-    """Exact int8 x int8 -> int32 product ``a (M, K) @ w_nk (N, K).T``.
-
-    A library call (``torch._int_mm``), used outside any kernel: for the
-    prefill-size matmuls and the int8 lm_head, as the reference leaves
-    those dots to XLA. On CUDA ``_int_mm`` needs M > 16 and K, N multiples
-    of 8, so M is padded with zero rows."""
-    M = a.shape[0]
-    if a.is_cuda and (M <= 16 or M % 8):
-        Mp = max(32, -(-M // 8) * 8)
-        a = torch.cat([a, a.new_zeros((Mp - M, a.shape[1]))])
-    return torch._int_mm(a, w_nk.t())[:M]
 
 
 def _fit(n: int, want: int, quantum: int = 128) -> int:

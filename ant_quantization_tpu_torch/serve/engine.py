@@ -3,8 +3,11 @@
 Counterpart of the reference's ``serve/engine.py`` for the weight modes
 "w4" (4-bit weights stored as int8 bytes) and "w4pack" (4-bit codes
 packed two to a byte), the INT8 KV cache and the int8 lm_head: prefill
-and greedy decode with one scalar write position per call. Both halves
-of the system are served:
+and greedy decode, with a write position shared by the batch or one per
+sequence (a bucket-padded batch of ragged prompts). The OPT geometry
+(split q/k/v, learned positions) and the BLOOM geometry (fused qkv, the
+embedding LayerNorm, ALiBi) are served. Both halves of the system are
+served:
 
 - ANT: weights as int8 codebook values ("w4") or packed codes
   ("w4pack"), activations snapped onto an int8-exact codebook (``a_q``);
@@ -35,8 +38,11 @@ Routing follows the reference (``_prepare_stacked``):
 - the unfused "w4pack" route (prefill, and decode when the rule above
   fails) fake-quantizes the activation in ``cfg.dtype`` and runs K8
   (``kernels/qmatmul.py``), an f32 product against the grid values;
-- attention runs K2 (``kernels/attention.py``) for decode and prefill
-  alike, one launch per layer.
+- attention takes the reference's route at every shape
+  (:func:`attention_route`): K2 (``kernels/attention.py``, one launch per
+  layer for any T) while one head's tile fits the reference's budget;
+  past it (a long cache) K7 for up to 16 queries on a flat cache, else
+  the reference's dequantizing fallback as torch ops.
 
 On a CUDA device the kernels run and nothing else; on the CPU their plain
 versions run. Features of the reference engine that this slice does not
@@ -54,27 +60,34 @@ import torch
 from torch import nn
 
 from .._ext import resolve_device
-from ..kernels.attention import stacked_int8_kv_attention
-from ..kernels.kv_cache import QuantKV, append_kv_stacked, init_kv
-from ..kernels.qmatmul import (f32_product, int8_codebook, ovp_clip,
-                               ovp_decode_values, ovp_encode_scalar,
-                               ovp_unit, quantize_weights_ovp_i8,
-                               quantize_weights_w4,
-                               quantize_weights_w4_i8, quantized_matmul_w4)
-from ..kernels.stacked import (int8_matmul, stacked_quant_matmul,
+from ..kernels.attention import (K7_MAX_T, _rel, int8_kv_attention,
+                                 stacked_int8_kv_attention)
+from ..kernels.kv_cache import (QuantKV, append_kv_stacked, dequant_kv,
+                                init_kv)
+from ..kernels.qmatmul import (f32_product, int8_codebook, int8_matmul,
+                               ovp_clip, ovp_decode_values,
+                               ovp_encode_scalar, ovp_unit,
+                               quantize_weights_ovp_i8, quantize_weights_w4,
+                               quantize_weights_w4_i8, quantized_matmul_w4,
+                               tf32_off)
+from ..kernels.stacked import (stacked_quant_matmul,
                                stacked_quant_matmul_aovp,
                                stacked_quant_matmul_p4)
-from ..models.transformer_lm import LMConfig, conv1d_site_names
+from ..models.transformer_lm import (ALL_SITES, LMConfig, alibi_slopes,
+                                     conv1d_site_names)
 from ..ops.ovp import apply_ovp
 from ..ops.snap import snap_concat, snap_value
 
 __all__ = ["EngineConfig", "quantize_lm_head", "quantize_activation",
            "quantize_activation_ovp", "weight_entry", "packed_weight_entry",
            "act_entry", "stack_entries", "build_engine_params", "forward",
-           "init_cache", "Engine", "SITES"]
+           "init_cache", "Engine", "attention_route"]
 
-SITES = ("q", "k", "v", "out", "fc_in", "fc_out")
-_ATTN_SITES = ("q", "k", "v", "out")
+_ATTN_SITES = ("qkv", "q", "k", "v", "out")
+# the reference's VMEM budget for one head's tile of its stacked attention
+# kernel (engine.py:_attention_stacked): a TPU rule, kept so that the port
+# routes attention exactly as the reference does (ROADMAP Queue 2, K2)
+_TILE_BUDGET = 6 * 2 ** 20
 _AOVP_KEYS = ("aovp_mids", "aovp_ties", "aovp_enc", "aovp_unit")
 
 
@@ -125,10 +138,14 @@ def _check_config(cfg: EngineConfig) -> None:
         raise _not_ported("the bf16 KV cache", "8.7")
     if cfg.tp_axis is not None or cfg.tp_size != 1:
         raise _not_ported("tensor parallelism", "14")
-    if c.fused_qkv or c.embed_ln or c.positions == "alibi":
-        raise _not_ported("fused qkv, embed_ln and ALiBi", "8.2")
     if c.activation not in ("relu", "gelu", "gelu_new"):
         raise ValueError(f"unknown activation {c.activation!r}")
+
+
+def _site_names(c: LMConfig) -> tuple:
+    """The matmul sites of one layer, as the reference names them."""
+    return (("qkv",) if c.fused_qkv else ("q", "k", "v")) + (
+        "out", "fc_in", "fc_out")
 
 
 def _field(state, name: str) -> np.ndarray:
@@ -289,9 +306,11 @@ def build_engine_params(cfg: EngineConfig, params: Dict, quant: Dict,
     engine params on ``device`` (default "cuda").
 
     ``params`` mirrors the reference model's tree with numpy leaves
-    (``h_{i}/attn/{q,k,v,out}/{kernel,bias}``, ``h_{i}/{fc_in,fc_out}``,
-    ``h_{i}/{ln_1,ln_2}``, ``wte/embedding``, ``wpe/embedding``,
-    ``ln_f``); ``quant`` holds, per site, ``weight_q`` and ``input_q``
+    (``h_{i}/attn/{q,k,v,out}/{kernel,bias}``, or ``h_{i}/attn/qkv`` for
+    a fused qkv, ``h_{i}/{fc_in,fc_out}``, ``h_{i}/{ln_1,ln_2}``,
+    ``wte/embedding``, ``wpe/embedding`` for learned positions,
+    ``embed_ln`` for BLOOM, ``ln_f``); ``quant`` holds, per site,
+    ``weight_q`` and ``input_q``
     states with numpy ``grid``, ``alpha`` and ``outliers``. The result's
     site leaves equal the reference's bit for bit (``w_i8`` transposed to
     the port's (L, N, K) layout, ``a_q`` as f32).
@@ -311,17 +330,18 @@ def build_engine_params(cfg: EngineConfig, params: Dict, quant: Dict,
     dev = resolve_device(device)
     _check_config(cfg)
     c = cfg.lm
+    sites = _site_names(c)
     conv1d = conv1d_site_names(c)
-    site_ovp = dict.fromkeys(SITES, False)
-    site_act_ovp = dict.fromkeys(SITES, False)
+    site_ovp = dict.fromkeys(sites, False)
+    site_act_ovp = dict.fromkeys(sites, False)
     for i in range(c.n_layers):
-        for site in SITES:
+        for site in sites:
             qn = _site_node(quant[f"h_{i}"], site)
             site_ovp[site] |= bool(np.any(_field(qn["weight_q"], "outliers")))
             site_act_ovp[site] |= bool(
                 np.any(_field(qn["input_q"], "outliers")))
     packed = cfg.weight_mode == "w4pack"
-    entries: Dict[str, list] = {s: [] for s in SITES}
+    entries: Dict[str, list] = {s: [] for s in sites}
     lns: Dict[str, Dict[str, list]] = {
         n: {"scale": [], "bias": []} for n in ("ln_1", "ln_2")}
     for i in range(c.n_layers):
@@ -329,7 +349,7 @@ def build_engine_params(cfg: EngineConfig, params: Dict, quant: Dict,
         for n in lns:
             for k in ("scale", "bias"):
                 lns[n][k].append(np.asarray(p[n][k], np.float32))
-        for site in SITES:
+        for site in sites:
             if site in conv1d:
                 if packed:
                     raise ValueError(
@@ -363,12 +383,15 @@ def build_engine_params(cfg: EngineConfig, params: Dict, quant: Dict,
                        device=dev)
     top = quantize_lm_head(wte) if cfg.lm_head_int8 else {
         "wte": wte.to(cfg.dtype)}
-    top["ln_f"] = {k: torch.tensor(np.asarray(params["ln_f"][k],
-                                              np.float32), device=dev)
-                   for k in ("scale", "bias")}
-    top["wpe"] = torch.tensor(np.asarray(params["wpe"]["embedding"],
-                                         np.float32),
-                              device=dev).to(cfg.dtype)
+    for name in ("ln_f", "embed_ln"):
+        if name in params:
+            top[name] = {k: torch.tensor(np.asarray(params[name][k],
+                                                    np.float32), device=dev)
+                         for k in ("scale", "bias")}
+    if "wpe" in params:
+        top["wpe"] = torch.tensor(np.asarray(params["wpe"]["embedding"],
+                                             np.float32),
+                                  device=dev).to(cfg.dtype)
     return {"layers": out_layers, "top": top}
 
 
@@ -434,7 +457,7 @@ def _prepare_stacked(cfg: EngineConfig, ep: Dict,
         return None
     stk = {}
     for name, s in ep["layers"].items():
-        if name not in SITES:
+        if name not in ALL_SITES:
             continue
         if "aovp_enc" in s:
             if prefill:
@@ -529,13 +552,81 @@ def _site_matmul(cfg: EngineConfig, ep: Dict, name: str,
     return (y + ep["layers"][name]["bias"][l]).to(cfg.dtype)
 
 
-def _attention_stacked(cfg: EngineConfig, q: torch.Tensor, kv: QuantKV,
-                       l: int, pos0: torch.Tensor) -> torch.Tensor:
-    """q (B, T, H, D) against layer l of the cache -> (B, T, H, D), one
-    K2 launch for any T."""
-    out = stacked_int8_kv_attention(
-        l, q.transpose(1, 2), kv.k, kv.v, kv.k_scale, kv.v_scale, pos0,
-        None, out_dtype=cfg.dtype)
+def _kv_fold(head_dim: int) -> int:
+    """The reference's lane-fold factor of its int8 cache
+    (``kernels/kv_cache.py:kv_fold``): 1 means a flat cache. The port's
+    cache is always flat; the fold only decides the route."""
+    if head_dim >= 128 or 128 % head_dim or head_dim < 32:
+        return 1
+    return 128 // head_dim
+
+
+def attention_route(c: LMConfig, T: int, S: int) -> str:
+    """The reference's attention route for T queries against a cache of S
+    positions (``_attention_stacked`` and ``_attention``): "K2" while one
+    head's tile (k + v codes, q and out, the scores) leaves room in the
+    reference's 6 MiB budget for min(T, 8) queries; past that "K7" for up
+    to 16 queries on a cache the reference keeps flat (head_dim >= 128),
+    else "einsum", the dequantizing fallback. At head_dim 128 K2 stops at
+    S = 12,191 (a long ALiBi context: learned positions end at 2,050).
+    Where the reference cuts a prefill into query chunks of K2, the port
+    launches K2 once: the chunks are exact, so the results are the same."""
+    f = _kv_fold(c.head_dim)
+    s_tot = -(-S // f) * f
+    fixed = 2 * 2 * s_tot * c.head_dim
+    per_t = 8 * c.head_dim + 4 * s_tot
+    if (_TILE_BUDGET - fixed) // per_t >= min(T, 8):
+        return "K2"
+    if T <= K7_MAX_T and f == 1:
+        return "K7"
+    return "einsum"
+
+
+def _attention_einsum(cfg: EngineConfig, q: torch.Tensor, kv: QuantKV,
+                      l: int, pos0: torch.Tensor,
+                      slopes: Optional[torch.Tensor]) -> torch.Tensor:
+    """The reference's dequantizing fallback (``_attention``) on layer l,
+    with its cast points: the cache dequantized in ``cfg.dtype``, f32
+    scores divided by f32(sqrt(D)), the ALiBi term, the f32-min mask, an
+    f32 softmax cast to ``cfg.dtype``, the product with v in
+    ``cfg.dtype``. TF32 is held off. q (B, T, H, D) -> (B, T, H, D)."""
+    B, T, H, D = q.shape
+    k, v = dequant_kv(QuantKV(*(a[l] for a in kv)), cfg.dtype)
+    S = k.shape[2]
+    # the f32 scores are B x H x T x S (4.3 GB at BLOOM-7b1, bs 4, a
+    # 512-query chunk of a 16,384-position cache): updated in place, and
+    # each transient freed as soon as it is used
+    with tf32_off():
+        s = torch.matmul(q.transpose(1, 2).to(torch.float32),
+                         k.to(torch.float32).transpose(-1, -2))
+        del k
+        s /= torch.tensor(np.float32(np.sqrt(D)), device=q.device)
+        rel = _rel(pos0, T, S)                                   # (B, T, S)
+        if slopes is not None:
+            s += slopes[None, :, None, None] * rel[:, None].to(torch.float32)
+        s.masked_fill_((rel > 0)[:, None], float(np.finfo(np.float32).min))
+        attn = torch.softmax(s, dim=-1).to(cfg.dtype)
+        del s
+        out = torch.matmul(attn, v.to(cfg.dtype))              # (B, H, T, D)
+    return out.transpose(1, 2)
+
+
+def _attention(cfg: EngineConfig, route: str, q: torch.Tensor, kv: QuantKV,
+               l: int, pos0: torch.Tensor,
+               slopes: Optional[torch.Tensor]) -> torch.Tensor:
+    """q (B, T, H, D) against layer l of the cache -> (B, T, H, D), by
+    ``route`` (:func:`attention_route`): K2 on the stacked cache, K7 on
+    layer l's views, or the einsum fallback."""
+    if route == "K2":
+        out = stacked_int8_kv_attention(
+            l, q.transpose(1, 2), kv.k, kv.v, kv.k_scale, kv.v_scale, pos0,
+            slopes, out_dtype=cfg.dtype)
+    elif route == "K7":
+        out = int8_kv_attention(
+            q.transpose(1, 2), kv.k[l], kv.v[l], kv.k_scale[l],
+            kv.v_scale[l], pos0, slopes, out_dtype=cfg.dtype)
+    else:
+        return _attention_einsum(cfg, q, kv, l, pos0, slopes)
     return out.transpose(1, 2)
 
 
@@ -544,36 +635,55 @@ def forward(cfg: EngineConfig, ep: Dict, ids: torch.Tensor, kv: QuantKV,
     """Shared prefill/decode forward: writes the new K/V at ``pos0`` (in
     place) and attends over the cache.
 
-    ``pos0``: the scalar write position shared by the batch.
+    ``pos0``: the write position of the batch (an int), or a (B,) int
+    tensor of per-sequence positions (a bucket-padded ragged batch).
     ``last_index``: scalar or (B,) prompt position whose logits a serving
     prefill needs; logits then come back (B, 1, V) and ln_f / lm_head run
     on those rows only (exact: both are per-position).
     """
     _check_config(cfg)
-    if isinstance(pos0, torch.Tensor) and pos0.ndim:
-        raise _not_ported("per-sequence pos0", "8.1")
-    pos0 = operator.index(pos0)
     c = cfg.lm
     top, lay = ep["top"], ep["layers"]
     B, T = ids.shape
     dev = ids.device
-    positions = pos0 + torch.arange(T, device=dev)
+    if isinstance(pos0, torch.Tensor) and pos0.ndim:
+        write_at = [int(p) for p in pos0.tolist()]      # one host read
+        if len(write_at) != B:
+            raise ValueError(f"{len(write_at)} positions for a batch of {B}")
+        pos_vec = torch.tensor(write_at, dtype=torch.int32, device=dev)
+    else:
+        write_at = operator.index(pos0)
+        pos_vec = torch.full((B,), write_at, dtype=torch.int32, device=dev)
     x = _embed(top, ids, cfg.dtype)
-    x = x + top["wpe"][positions + (2 if c.positions == "learned_offset2"
-                                    else 0)][None]
+    if c.positions in ("learned", "learned_offset2"):
+        positions = pos_vec.to(torch.int64)[:, None] + torch.arange(
+            T, device=dev)                                          # (B, T)
+        x = x + top["wpe"][positions + (2 if c.positions == "learned_offset2"
+                                        else 0)]
+    if "embed_ln" in top:
+        x = _ln(x, top["embed_ln"]["scale"], top["embed_ln"]["bias"],
+                c.ln_eps)
+    slopes = (torch.tensor(alibi_slopes(c.n_heads), dtype=torch.float32,
+                           device=dev) if c.positions == "alibi" else None)
     heads, hd = c.n_heads, c.head_dim
     d_attn = heads * hd
     M = B * T
     stk = _prepare_stacked(cfg, ep, M)
-    pos_vec = torch.full((B,), pos0, dtype=torch.int32, device=dev)
+    route = attention_route(c, T, kv.k.shape[3])
     for l in range(c.n_layers):
         h = _ln(x, lay["ln_1"]["scale"][l], lay["ln_1"]["bias"][l],
                 c.ln_eps)
         x2 = h.reshape(M, c.d_model)
-        qh, kh, vh = (_site_matmul(cfg, ep, n, x2, l, stk).reshape(
-            B, T, heads, hd) for n in ("q", "k", "v"))
-        append_kv_stacked(kv, kh, vh, l, pos0)
-        a = _attention_stacked(cfg, qh, kv, l, pos_vec).reshape(M, d_attn)
+        if c.fused_qkv:
+            qkv = _site_matmul(cfg, ep, "qkv", x2, l, stk)
+            qh, kh, vh = (t.reshape(B, T, heads, hd)
+                          for t in qkv.split(d_attn, dim=-1))
+        else:
+            qh, kh, vh = (_site_matmul(cfg, ep, n, x2, l, stk).reshape(
+                B, T, heads, hd) for n in ("q", "k", "v"))
+        append_kv_stacked(kv, kh, vh, l, write_at)
+        a = _attention(cfg, route, qh, kv, l, pos_vec, slopes).reshape(
+            M, d_attn)
         x = x + _site_matmul(cfg, ep, "out", a, l, stk).reshape(
             B, T, c.d_model)
         h = _ln(x, lay["ln_2"]["scale"][l], lay["ln_2"]["bias"][l],
@@ -649,28 +759,55 @@ class Engine(nn.Module):
         return ids.long()
 
     @torch.no_grad()
-    def prefill(self, ids) -> torch.Tensor:
-        """Prompt (B, T) at position 0 -> next-token logits (B, 1, V)."""
+    def prefill(self, ids, lengths=None,
+                chunk: Optional[int] = None) -> torch.Tensor:
+        """Prompt (B, T) at position 0 -> next-token logits (B, 1, V).
+
+        ``lengths``: (B,) real prompt lengths of a bucket-padded batch;
+        sequence b's logits come from position lengths[b] - 1 and it
+        decodes on from position lengths[b] (the padding's cache rows
+        are overwritten or masked). ``chunk``: feed the prompt in forward
+        calls of at most ``chunk`` positions, each at its own pos0, as a
+        long prompt needs (one call's attention scores are chunk x S per
+        head on the fallback route)."""
         ids = self._ids(ids)
-        T = ids.shape[1]
-        logits, _ = forward(self.cfg, self.engine_params(), ids,
-                            self.cache(), 0, last_index=T - 1)
-        self.pos = T
+        B, T = ids.shape
+        if lengths is None:
+            last = torch.full((B,), T - 1, device=ids.device)
+        else:
+            last = torch.as_tensor(lengths, device=ids.device).reshape(
+                -1).long() - 1
+            if last.shape[0] != B or not bool(
+                    ((last >= 0) & (last < T)).all()):
+                raise ValueError(f"lengths must be {B} values in 1..{T}")
+        step = T if chunk is None else chunk
+        ep, kv = self.engine_params(), self.cache()
+        logits = None
+        for t0 in range(0, T, step):
+            n = min(step, T - t0)
+            out, _ = forward(self.cfg, ep, ids[:, t0:t0 + n], kv, t0,
+                             last_index=(last - t0).clamp(0, n - 1))
+            take = ((last >= t0) & (last < t0 + n))[:, None, None]
+            logits = out if logits is None else torch.where(take, out,
+                                                            logits)
+        self.pos = T if lengths is None else last + 1
         return logits
 
     @torch.no_grad()
     def decode(self, tok) -> torch.Tensor:
-        """Tokens (B, 1) at the current position -> logits (B, 1, V)."""
+        """Tokens (B, 1) at the current position (one per sequence after
+        a prefill with ``lengths``) -> logits (B, 1, V)."""
         tok = self._ids(tok)
         logits, _ = forward(self.cfg, self.engine_params(), tok,
                             self.cache(), self.pos)
-        self.pos += tok.shape[1]
+        self.pos = self.pos + tok.shape[1]
         return logits
 
     @torch.no_grad()
-    def generate(self, ids, max_new_tokens: int) -> torch.Tensor:
+    def generate(self, ids, max_new_tokens: int,
+                 lengths=None) -> torch.Tensor:
         """Greedy decoding: (B, T) prompt -> (B, max_new_tokens) tokens."""
-        logits = self.prefill(ids)
+        logits = self.prefill(ids, lengths)
         toks = []
         for i in range(max_new_tokens):
             tok = logits[:, -1].argmax(dim=-1, keepdim=True)

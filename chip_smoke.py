@@ -60,7 +60,26 @@ Phases, each printing one JSON line (numbers unrounded):
    K8 times at one prefill layer beside their bounds, plain versions
    and library calls; a profile; and in situ at 2 layers (every K6 call
    bit-equal, every K8 call within K8_RTOL, a K6 swap with identical
-   tokens and logits).
+   tokens and logits);
+15. bloom_main: BLOOM-7b1 at full width and depth (30 layers, fused qkv
+   at N = 12,288, embed_ln, ALiBi, GELU, vocab 250,880), ANT W4A4 + INT8
+   KV + int8 head, max_seq 2048, served as in 5: decode runs K1 (7,680),
+   attention K2 (1,950); a profile;
+16. bloom_ragged: the same engine on prompts of 512/384/256/128 tokens,
+   bucket-padded, ``Engine.prefill(ids, lengths)`` and 16 greedy steps at
+   per-sequence positions (K1 1,920, K2 510); each sequence's largest
+   logit difference against serving it alone at B = 1; a forward with a
+   (B,) pos0 of equal entries bit-equal to the scalar one;
+17. bloom_long: the same params at max_seq 16,384, where the reference
+   leaves its stacked attention kernel: a 4 x 15,872-token prompt in 31
+   forward calls of 512 (the einsum fallback), then 64 greedy steps with
+   attention on K7 (1,920; K2 0); a decode profile; K7 times per decode
+   layer beside its bound, its plain version and SDPA;
+18. K9 times at OPT-6.7B fc_in and fc_out, M 4 and 2048, beside its
+   bound, its plain version and ``torch._int_mm``;
+19. in situ, BLOOM: 2 layers on the long cache, every K7 call checked
+   against its plain version, and K9 run and checked bit for bit at every
+   site matmul on the engine's own activations (no engine path calls K9).
 
 The kernel checks (4) include K3 and K4 against their plain versions,
 bit for bit, at the three site shapes and M 4 and 64, on exact concat
@@ -68,7 +87,10 @@ midpoints, padded duplicates and outlier pairs, and on adversarial
 inputs at K = 16384 whose partial sums pass 2^24; and K6 (M 1, 4, 64,
 affine and table decode) and K5 (M 300 and 2048, int8 values and OVP,
 and K3's adversarial case) bit for bit, K8 (M 4 and 2048) within
-K8_RTOL of each output's sum of term magnitudes.
+K8_RTOL of each output's sum of term magnitudes; K7 (S 2048 and 16,384,
+T 1, 4 and 16, ragged pos0, ALiBi on and off) within K2's tolerance; K9
+(fc_in and fc_out, M 1, 4, 64, 300 and 2048, exact midpoint ties after
+the multiply by 1 / a_scale) bit for bit.
 
 Then the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -519,9 +541,13 @@ def phase_checks_w4pack(torch, gen):
 
 
 def engine_layer_shapes(c) -> dict:
+    """(K, N) of each matmul site of one layer: a fused qkv (BLOOM) or
+    separate q, k, v (OPT)."""
     d = c.d_model
-    return {"q": (d, d), "k": (d, d), "v": (d, d), "out": (d, d),
-            "fc_in": (d, c.d_ff), "fc_out": (c.d_ff, d)}
+    qkv = ({"qkv": (d, 3 * d)} if c.fused_qkv else
+           {"q": (d, d), "k": (d, d), "v": (d, d)})
+    return {**qkv, "out": (d, d), "fc_in": (d, c.d_ff),
+            "fc_out": (c.d_ff, d)}
 
 
 # alpha of each site's OliVe A4 input state, about 2.5 times the input's
@@ -599,8 +625,11 @@ def ovp_weight_params(torch, cfg, olive_ep):
 def random_engine_params(torch, cfg, seed: int, sites: bool = True):
     """Random W4A4 engine params built on the card, one site at a time,
     from a seeded generator (the construction bench.py uses: int8
-    codebook values in [-64, 64), flint grids, alpha 3). ``sites=False``
-    leaves out the six sites (LayerNorms and the top only)."""
+    codebook values in [-64, 64), flint grids, alpha 3), for the sites of
+    ``cfg``'s geometry; the top has a position table for learned
+    positions and an embedding LayerNorm where the model has one.
+    ``sites=False`` leaves out the matmul sites (LayerNorms and the top
+    only)."""
     import numpy as np
     from ant_quantization_tpu_torch.kernels.qmatmul import int8_codebook
     from ant_quantization_tpu_torch.numerics import codebooks as cb
@@ -612,10 +641,8 @@ def random_engine_params(torch, cfg, seed: int, sites: bool = True):
     agrid = cb.ant_grid("flint", 4, False)
     aq16, a_unit, _ = int8_codebook(agrid)
     a_scale = np.float32(3.0) / np.float32(np.max(agrid)) * np.float32(a_unit)
-    shapes = {"q": (d, d), "k": (d, d), "v": (d, d), "out": (d, d),
-              "fc_in": (d, c.d_ff), "fc_out": (c.d_ff, d)}
     layers = {}
-    for name, (K, N) in (shapes.items() if sites else ()):
+    for name, (K, N) in (engine_layer_shapes(c).items() if sites else ()):
         layers[name] = {
             "w_i8": torch.randint(-64, 64, (L, N, K), dtype=torch.int8,
                                   device="cuda", generator=gen),
@@ -628,17 +655,20 @@ def random_engine_params(torch, cfg, seed: int, sites: bool = True):
     for name in ("ln_1", "ln_2"):
         layers[name] = {"scale": torch.ones((L, d), device="cuda"),
                         "bias": torch.zeros((L, d), device="cuda")}
-    top = {
-        "wpe": (torch.randn((cfg.max_seq + 2, d), device="cuda",
-                            generator=gen) * 0.02).to(cfg.dtype),
-        "wte_i8": torch.randint(-127, 128, (c.vocab_size, d),
-                                dtype=torch.int8, device="cuda",
-                                generator=gen),
-        "wte_scale": torch.full((c.vocab_size,), 0.02 / 127.0,
-                                device="cuda"),
-        "ln_f": {"scale": torch.ones((d,), device="cuda"),
-                 "bias": torch.zeros((d,), device="cuda")},
-    }
+    ln = lambda: {"scale": torch.ones((d,), device="cuda"),
+                  "bias": torch.zeros((d,), device="cuda")}
+    top = {}
+    if c.positions != "alibi":
+        top["wpe"] = (torch.randn((cfg.max_seq + 2, d), device="cuda",
+                                  generator=gen) * 0.02).to(cfg.dtype)
+    top["wte_i8"] = torch.randint(-127, 128, (c.vocab_size, d),
+                                  dtype=torch.int8, device="cuda",
+                                  generator=gen)
+    top["wte_scale"] = torch.full((c.vocab_size,), 0.02 / 127.0,
+                                  device="cuda")
+    top["ln_f"] = ln()
+    if c.embed_ln:
+        top["embed_ln"] = ln()
     return {"layers": layers, "top": top}
 
 
@@ -660,7 +690,7 @@ def all_counts():
     from ant_quantization_tpu_torch.kernels import stacked as ks
     return {"K1": ks.COUNTS, "K2": k2.COUNTS, "K3": ks.K3_COUNTS,
             "K4": ks.K4_COUNTS, "K5": ks.K5_COUNTS, "K6": ks.K6_COUNTS,
-            "K8": kq.K8_COUNTS}
+            "K7": k2.K7_COUNTS, "K8": kq.K8_COUNTS, "K9": kq.K9_COUNTS}
 
 
 def reset_counts():
@@ -673,22 +703,23 @@ def read_counts() -> dict:
     return {k: dict(v) for k, v in all_counts().items()}
 
 
-def serve_path(torch, engine, ids, phase: str, want: dict, extra=None):
+def serve_path(torch, engine, ids, phase: str, want: dict, extra=None,
+               model: str = "OPT-6.7B", chunk=None):
     """The measured run of one serving path: a short warm-up (library
     handles, allocator; its cache writes are overwritten), then every
-    count set to 0, one fenced ``Engine.prefill`` of ``ids`` and DECODE
-    greedy ``Engine.decode`` steps in fenced blocks of 8, and the counts
-    read. Fails unless the logits are finite (B, 1, V), the tokens in
-    range, each kernel's launches equal ``want`` (0 for a kernel it does
-    not name) and no plain version ran. Emits and returns the phase's
-    line."""
+    count set to 0, one fenced ``Engine.prefill`` of ``ids`` (in forward
+    calls of ``chunk`` positions if given) and DECODE greedy
+    ``Engine.decode`` steps in fenced blocks of 8, and the counts read.
+    Fails unless the logits are finite (B, 1, V), the tokens in range,
+    each kernel's launches equal ``want`` (0 for a kernel it does not
+    name) and no plain version ran. Emits and returns the phase's line."""
     c = engine.cfg.lm
     want = {k: want.get(k, 0) for k in all_counts()}
     engine.decode(engine.prefill(ids[:, :32])[:, -1].argmax(-1, True))
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    logits = engine.prefill(ids)
+    logits = engine.prefill(ids, chunk=chunk)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     tokens = [logits[:, -1].argmax(-1, keepdim=True)]
@@ -706,8 +737,9 @@ def serve_path(torch, engine, ids, phase: str, want: dict, extra=None):
     toks = torch.cat(tokens, 1)
     finite = bool(torch.isfinite(logits).all())
     step_ms = statistics.median(block_ms)
-    res = {"phase": phase, "model": "OPT-6.7B", "layers": c.n_layers,
-           "d_model": c.d_model, "batch": BATCH, "prefill_tokens": PREFILL,
+    res = {"phase": phase, "model": model, "layers": c.n_layers,
+           "d_model": c.d_model, "batch": BATCH,
+           "prefill_tokens": ids.shape[1], "max_seq": engine.cfg.max_seq,
            "decode_steps": DECODE, **(extra or {}),
            "prefill_ms": prefill_ms, "decode_ms_per_step": step_ms,
            "decode_block_ms_per_step": block_ms,
@@ -1269,8 +1301,10 @@ def _profiled(torch, fn):
     return wall_us, sorted(rows, reverse=True)
 
 
-def phase_profile(torch, engine, ids, steps: int = 4, path: str = "ANT"):
-    """Device time by kernel for one prefill and for ``steps`` decode
+def phase_profile(torch, engine, ids, steps: int = 4, path: str = "ANT",
+                  prefill=None):
+    """Device time by kernel for one prefill (``prefill``: a (name, call)
+    pair in place of ``engine.prefill(ids)``) and for ``steps`` decode
     steps of a main-path engine, and the device's busy share of their
     wall time (one stream, so the kernel times add up to busy time)."""
     out = {"phase": "profile", "path": path}
@@ -1281,8 +1315,8 @@ def phase_profile(torch, engine, ids, steps: int = 4, path: str = "ANT"):
         for _ in range(steps):
             tok = engine.decode(tok)[:, -1].argmax(-1, keepdim=True)
 
-    for tag, fn, n in (("prefill", lambda: engine.prefill(ids), 1),
-                       ("decode", decode, steps)):
+    name, call = prefill or ("prefill", lambda: engine.prefill(ids))
+    for tag, fn, n in ((name, call, 1), ("decode", decode, steps)):
         wall_us, rows = _profiled(torch, fn)
         busy = sum(r[0] for r in rows)
         out[tag] = {"calls": n, "wall_us_per_call": wall_us / n,
@@ -1533,6 +1567,438 @@ def phase_insitu_stacked_prefill(torch, gen):
         fail(f"stacked_prefill in-situ check: {res}")
 
 
+# BLOOM-7b1 (bloom_config("7b1")): vocab 250,880, d_model 4096, 30 layers,
+# 32 heads of 128, d_ff 16384, fused qkv, embed_ln, ALiBi, GELU
+BLOOM_MAX_SEQ = 2048
+BLOOM_LONG_SEQ = 16384
+BLOOM_LONG_PROMPT = 31 * PREFILL        # 15,872 positions in 512-chunks
+RAGGED_LENGTHS = (512, 384, 256, 128)
+RAGGED_STEPS = 16
+K9_A_SCALE = 0.19      # not a power of two: x * (1 / a) and x / a differ
+
+
+def bloom_engine_config(n_layers: int, max_seq: int, dtype):
+    import dataclasses
+    from ant_quantization_tpu_torch.models.transformer_lm import bloom_config
+    from ant_quantization_tpu_torch.serve.engine import EngineConfig
+    lm = dataclasses.replace(bloom_config("7b1"), n_layers=n_layers,
+                             max_seq=max_seq)
+    return EngineConfig(lm=lm, weight_mode="w4", act_bits=4, kv_int8=True,
+                        lm_head_int8=True, max_seq=max_seq, dtype=dtype)
+
+
+def phase_checks_k7(torch, gen):
+    """K7 against its plain version on the card: one layer's cache at
+    S 2048 and 16384 (B 4, H 32, D 128), T 1, 4 and 16, ragged pos0, with
+    and without ALiBi, bf16 and f32 output; K2's tolerance."""
+    from ant_quantization_tpu_torch.kernels import attention as k2
+    from ant_quantization_tpu_torch.models.transformer_lm import alibi_slopes
+    B, H, D = BATCH, 32, 128
+    slopes = torch.tensor(alibi_slopes(H), dtype=torch.float32,
+                          device="cuda")
+    errs = {"bf16": 0.0, "f32": 0.0}
+    for S in (BLOOM_MAX_SEQ, BLOOM_LONG_SEQ):
+        k = torch.randint(-127, 128, (B, H, S, D), dtype=torch.int8,
+                          device="cuda", generator=gen)
+        v = torch.randint(-127, 128, (B, H, S, D), dtype=torch.int8,
+                          device="cuda", generator=gen)
+        ks = torch.rand((B, H, S), device="cuda", generator=gen) * 0.02
+        vs = torch.rand((B, H, S), device="cuda", generator=gen) * 0.02
+        p0 = [0, 77, S // 2 + 5, S - 16][:B]
+        pos0 = torch.tensor(p0, dtype=torch.int32, device="cuda")
+        for T in (1, 4, 16):
+            q = torch.randn((B, H, T, D), device="cuda", generator=gen)
+            for sl in (None, slopes):
+                for tag, dt in (("bf16", torch.bfloat16),
+                                ("f32", torch.float32)):
+                    got = k2.int8_kv_attention(q, k, v, ks, vs, pos0, sl,
+                                               out_dtype=dt)
+                    want = k2.int8_kv_attention_plain(q, k, v, ks, vs, pos0,
+                                                      sl, out_dtype=dt)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    ok = k2_close(torch, got, want, tag)
+                    emit({"phase": "check", "kernel": "K7", "S": S, "T": T,
+                          "pos0": p0, "alibi": sl is not None, "out": tag,
+                          "max_abs_err": err, "atol_rtol": K2_TOL[tag],
+                          "pass": ok})
+                    if not ok:
+                        fail(f"K7 differs from its plain version: S={S} "
+                             f"T={T} {tag} err {err}")
+                    errs[tag] = max(errs[tag], err)
+        del k, v, ks, vs
+    return errs
+
+
+def k9_ties(a_q, a_scale: float):
+    """One f32 input per midpoint m of the sorted codebook ``a_q`` (numpy)
+    with f32(x * f32(1 / a_scale)) == m where such an x exists, preferring
+    one whose division x / a_scale misses m (K1's rule would snap it the
+    other way)."""
+    import numpy as np
+    a = np.float32(a_scale)
+    inv = np.float32(1) / a
+    xs = []
+    for m in (a_q[1:] + a_q[:-1]) * np.float32(0.5):
+        x0 = np.float32(m * a)
+        cands, lo, hi = [x0], x0, x0
+        for _ in range(16):
+            lo = np.nextafter(lo, np.float32(-np.inf))
+            hi = np.nextafter(hi, np.float32(np.inf))
+            cands += [lo, hi]
+        hits = [x for x in cands if np.float32(x * inv) == m]
+        off = [x for x in hits if np.float32(x / a) != m]
+        xs.append((off or hits or [x0])[0])
+    return np.float32(xs)
+
+
+def _k9_operands(torch):
+    """K9's codebook (the signed ANT flint grid as int8 values, sorted),
+    its a_scale, and a row of exact midpoint ties after x * (1 / a)."""
+    import numpy as np
+    from ant_quantization_tpu_torch.kernels.qmatmul import int8_codebook
+    from ant_quantization_tpu_torch.numerics import codebooks as cb
+    aq = int8_codebook(cb.ant_grid("flint", 4, True))[0].astype(np.float32)
+    ties = torch.tensor(k9_ties(aq, K9_A_SCALE), device="cuda")
+    return (torch.tensor(aq, device="cuda"),
+            torch.tensor([K9_A_SCALE], dtype=torch.float32, device="cuda"),
+            ties)
+
+
+def phase_checks_k9(torch, gen):
+    """K9 against its plain version on the card, bit for bit, at OPT-6.7B's
+    fc_in (4096 -> 16384) and fc_out (16384 -> 4096), M 1, 4, 64 (the
+    __dp4a route), 300 and 2048 (the tensor-core route); row 0 starts
+    with an exact midpoint tie per codebook gap."""
+    from ant_quantization_tpu_torch.kernels import qmatmul as kq
+    a_q, a_scale, ties = _k9_operands(torch)
+    err = 0.0
+    for K, N in ((4096, 16384), (16384, 4096)):
+        w = torch.randint(-64, 64, (N, K), dtype=torch.int8, device="cuda",
+                          generator=gen)
+        osc = torch.rand((N,), device="cuda", generator=gen) * 2e-3 + 1e-3
+        for M in (1, 4, 64, 300, 2048):
+            x = torch.randn((M, K), device="cuda", generator=gen) * 8 * \
+                K9_A_SCALE
+            x[0, :ties.shape[0]] = ties
+            before = kq.K9_COUNTS["launches"]
+            got = kq.fused_w8a8_matmul(x, w, a_q, a_scale, osc)
+            if kq.K9_COUNTS["launches"] != before + 1:
+                fail(f"K9 did not launch at M={M}")
+            want = kq.fused_w8a8_matmul_plain(x, w, a_q, a_scale, osc)
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            equal = torch.equal(got, want)
+            emit({"phase": "check", "kernel": "K9", "M": M, "K": K, "N": N,
+                  "a_scale": K9_A_SCALE, "max_abs_err": e,
+                  "bit_equal": equal})
+            if not equal:
+                fail(f"K9 differs from its plain version at M={M} K={K} "
+                     f"N={N} (max abs err {e})")
+            err = max(err, e)
+        del w
+    return err
+
+
+def phase_bloom_main(torch, gen, n_layers: int = 30):
+    """BLOOM-7b1 at full width and depth (fused qkv at N = 12,288, embed_ln,
+    ALiBi, GELU), ANT W4A4 + INT8 KV + int8 head, max_seq 2048, random
+    weights from a seeded generator: ``Engine.prefill`` of bs 4 x 512 and
+    64 greedy decode steps. Attention runs K2 at this cache length (the
+    reference's route)."""
+    from ant_quantization_tpu_torch.serve.engine import Engine, attention_route
+    cfg = bloom_engine_config(n_layers, BLOOM_MAX_SEQ, torch.bfloat16)
+    c = cfg.lm
+    routes = {T: attention_route(c, T, cfg.max_seq) for T in (1, PREFILL)}
+    if set(routes.values()) != {"K2"}:
+        fail(f"bloom_main: attention routes {routes}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ep = random_engine_params(torch, cfg, seed=8)
+    engine = Engine(cfg, ep, BATCH)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ids = torch.randint(0, c.vocab_size, (BATCH, PREFILL), device="cuda",
+                        generator=gen)
+    L = c.n_layers
+    want = {"K1": 4 * L * DECODE, "K2": L * (1 + DECODE)}
+    serve_path(torch, engine, ids, "bloom_main", want,
+               {"param_build_s": build_s}, model="BLOOM-7b1")
+    return engine, ep, ids
+
+
+def phase_bloom_ragged(torch, engine, gen):
+    """Ragged prompts on the bloom_main engine: lengths 512/384/256/128,
+    bucket-padded to 512, through ``Engine.prefill(ids, lengths)`` (logits
+    at lengths - 1), then RAGGED_STEPS greedy steps at pos0 = length +
+    step. Launches counted around exactly that run. Then each sequence
+    served alone at B = 1 on the batched run's tokens (its largest logit
+    difference is reported), and a forward with a (B,) pos0 of equal
+    entries, which must be bit-equal to the same forward with the scalar
+    pos0 (a decode step and a 64-position chunk)."""
+    from ant_quantization_tpu_torch.serve import engine as eng
+    cfg, ep = engine.cfg, engine.engine_params()
+    L, V = cfg.lm.n_layers, cfg.lm.vocab_size
+    lengths = torch.tensor(RAGGED_LENGTHS, device="cuda")
+    ids = torch.randint(0, V, (BATCH, max(RAGGED_LENGTHS)), device="cuda",
+                        generator=gen)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits = [engine.prefill(ids, lengths=lengths)]
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    toks = [logits[0][:, -1].argmax(-1, keepdim=True)]
+    t0 = time.perf_counter()
+    for _ in range(RAGGED_STEPS):
+        logits.append(engine.decode(toks[-1]))
+        toks.append(logits[-1][:, -1].argmax(-1, keepdim=True))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / RAGGED_STEPS
+    counts = read_counts()
+    reset_counts()
+    pos_after = engine.pos.tolist()
+    lg = torch.cat(logits, 1).float()                      # (B, 17, V)
+    toks = torch.cat(toks, 1)
+    alone_err, alone_same = [], []
+    for b, n in enumerate(RAGGED_LENGTHS):
+        one = eng.Engine(cfg, ep, 1)
+        la = [one.prefill(ids[b:b + 1, :n])]
+        for i in range(RAGGED_STEPS):
+            la.append(one.decode(toks[b:b + 1, i:i + 1]))
+        la = torch.cat(la, 1).float()
+        alone_err.append((la - lg[b:b + 1]).abs().max().item())
+        alone_same.append(torch.equal(la[0].argmax(-1), toks[b]))
+        del one, la
+    kv = engine.cache()
+    bit_equal = {}
+    top = cfg.max_seq - 64               # positions the run did not reach
+    for tag, T, p in (("decode", 1, top - 1), ("chunk_64", 64, top)):
+        x = torch.randint(0, V, (BATCH, T), device="cuda", generator=gen)
+        a, _ = eng.forward(cfg, ep, x, kv, p)
+        b_, _ = eng.forward(cfg, ep, x, kv, torch.full(
+            (BATCH,), p, dtype=torch.int32, device="cuda"))
+        bit_equal[tag] = torch.equal(a, b_)
+    torch.cuda.synchronize()
+    reset_counts()
+    launches = {k: v["launches"] for k, v in counts.items()}
+    want = {k: {"K1": 4 * L * RAGGED_STEPS,
+                "K2": L * (1 + RAGGED_STEPS)}.get(k, 0) for k in launches}
+    res = {"phase": "bloom_ragged", "model": "BLOOM-7b1", "layers": L,
+           "lengths": list(RAGGED_LENGTHS), "bucket": ids.shape[1],
+           "decode_steps": RAGGED_STEPS, "prefill_ms": prefill_ms,
+           "decode_ms_per_step": step_ms,
+           "positions_after": pos_after,
+           "alone_b1_max_abs_logit_diff": alone_err,
+           "alone_b1_greedy_tokens_identical": alone_same,
+           "logits_max_abs": lg.abs().max().item(),
+           "equal_entries_pos0_bit_equal_to_scalar": bit_equal,
+           "launches": launches, "want_launches": want,
+           "plain_calls": {k: v["plain_calls"] for k, v in counts.items()},
+           "logits_finite": bool(torch.isfinite(lg).all())}
+    res["pass"] = (launches == want and not any(res["plain_calls"].values())
+                   and res["logits_finite"] and all(bit_equal.values())
+                   and pos_after == [n + RAGGED_STEPS
+                                     for n in RAGGED_LENGTHS])
+    emit(res)
+    if not res["pass"]:
+        fail(f"bloom_ragged: {res}")
+    return res
+
+
+def phase_bloom_long(torch, ep, gen, n_layers: int = 30):
+    """The long-context path: the bloom_main params (shared, not copied)
+    served at max_seq 16,384, where one head's cache passes the
+    reference's tile budget: a 4 x 15,872-token prompt fed by
+    ``Engine.prefill(ids, chunk=512)`` as 31 forward calls at pos0 = 512 i
+    (the einsum route: T > 16), then 64 greedy decode steps on K7."""
+    from ant_quantization_tpu_torch.serve.engine import Engine, attention_route
+    cfg = bloom_engine_config(n_layers, BLOOM_LONG_SEQ, torch.bfloat16)
+    c = cfg.lm
+    routes = {"prefill_chunk": attention_route(c, PREFILL, cfg.max_seq),
+              "decode": attention_route(c, 1, cfg.max_seq)}
+    if routes != {"prefill_chunk": "einsum", "decode": "K7"}:
+        fail(f"bloom_long: attention routes {routes}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine = Engine(cfg, ep, BATCH)
+    ids = torch.randint(0, c.vocab_size, (BATCH, BLOOM_LONG_PROMPT),
+                        device="cuda", generator=gen)
+    L = c.n_layers
+    want = {"K1": 4 * L * DECODE, "K7": L * DECODE}
+    res = serve_path(torch, engine, ids, "bloom_long", want,
+                     {"routes": routes, "prefill_chunk": PREFILL,
+                      "kv_cache_bytes": sum(t.numel() * t.element_size()
+                                            for t in engine.cache())},
+                     model="BLOOM-7b1", chunk=PREFILL)
+    return engine, res["launches"], ids
+
+
+def long_chunk(engine, ids):
+    """The long prompt's last 512-position chunk once more, at its own
+    pos0 (it rewrites the same cache rows with the same values): one
+    forward call of the long prefill, for the profile."""
+    from ant_quantization_tpu_torch.serve.engine import forward
+    t0 = ids.shape[1] - PREFILL
+    return forward(engine.cfg, engine.engine_params(), ids[:, t0:],
+                   engine.cache(), t0, last_index=PREFILL - 1)
+
+
+def phase_times_k7(torch, engine):
+    """K7 per decode layer (one launch, T = 1) on the bloom_long engine's
+    own 30-layer cache at S = 16,384, layers rotated, pos0 at its last
+    written position: beside its byte bound, its plain version, and SDPA
+    on the layer's dequantized bf16 cache with the ALiBi bias as its mask
+    (the same function)."""
+    import torch.nn.functional as F
+    from ant_quantization_tpu_torch.kernels import attention as k2
+    from ant_quantization_tpu_torch.kernels.kv_cache import dequant_kv
+    from ant_quantization_tpu_torch.models.transformer_lm import alibi_slopes
+    kv = engine.cache()
+    L, B, H, S, D = kv.k.shape
+    p = int(engine.pos) - 1
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    pos0 = torch.full((B,), p, dtype=torch.int32, device="cuda")
+    slopes = torch.tensor(alibi_slopes(H), dtype=torch.float32,
+                          device="cuda")
+    q = torch.randn((B, H, 1, D), device="cuda", generator=gen)
+    lay = lambda i: (kv.k[i % L], kv.v[i % L], kv.k_scale[i % L],
+                     kv.v_scale[i % L])
+    t_k = cuda_ms(torch, lambda i: k2.int8_kv_attention(
+        q, *lay(i), pos0, slopes), 2 * L)
+    t_p = cuda_ms(torch, lambda i: k2.int8_kv_attention_plain(
+        q, *lay(i), pos0, slopes), 8)
+    n_l = min(4, L)
+    kd, vd = [], []
+    for l in range(n_l):
+        kl, vl = dequant_kv(type(kv)(*(a[l] for a in kv)), torch.bfloat16)
+        kd.append(kl[:, :, :p + 1])
+        vd.append(vl[:, :, :p + 1])
+    rel = (torch.arange(p + 1, device="cuda") - p).to(torch.float32)
+    bias = (slopes[:, None] * rel[None, :]).to(torch.bfloat16)[None, :, None]
+    qb = q.to(torch.bfloat16)
+    t_l = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
+        qb, kd[i % n_l], vd[i % n_l], attn_mask=bias), 2 * n_l)
+    del kd, vd
+    byts, ops, bound, by = k2_bound(B, H, 1, D, S, [p] * B)
+    row = {"T": 1, "pos0": p, "B": B, "H": H, "S": S, "ms": t_k,
+           "plain_ms": t_p, "library_ms": t_l, "bound_ms": bound,
+           "bound_by": by, "bytes": byts, "ops": ops}
+    emit({"phase": "kernel_times_k7", "graphed": True,
+          "library_note": "SDPA on the layer's dequantized bf16 cache, the "
+                          "ALiBi bias as attn_mask", "K7": row})
+    return row
+
+
+def phase_times_k9(torch, gen):
+    """K9 at OPT-6.7B's fc_in and fc_out, M = 4 and M = 2048, on four
+    weight copies rotated (each 67 MB, beyond L2): beside its bound, its
+    plain version, and torch._int_mm on the snapped codes (M padded to
+    32), the product without the snap."""
+    from ant_quantization_tpu_torch.kernels import qmatmul as kq
+    a_q, a_scale, _ = _k9_operands(torch)
+    rows = []
+    for site, (K, N) in (("fc_in", (4096, 16384)), ("fc_out", (16384, 4096))):
+        ws = [torch.randint(-64, 64, (N, K), dtype=torch.int8, device="cuda",
+                            generator=gen) for _ in range(4)]
+        osc = torch.rand((N,), device="cuda", generator=gen) * 2e-3 + 1e-3
+        for M in (BATCH, BATCH * PREFILL):
+            x = torch.randn((M, K), device="cuda", generator=gen) * 8 * \
+                K9_A_SCALE
+            t_k = cuda_ms(torch, lambda i: kq.fused_w8a8_matmul(
+                x, ws[i % 4], a_q, a_scale, osc), 8)
+            t_p = cuda_ms(torch, lambda i: kq.fused_w8a8_matmul_plain(
+                x, ws[i % 4], a_q, a_scale, osc), 8)
+            xq = kq.w8a8_snap(x, a_q, a_scale)
+            if M < 32:
+                xq = torch.cat([xq, xq.new_zeros((32 - M, K))])
+            t_l = cuda_ms(torch, lambda i: torch._int_mm(xq, ws[i % 4].t()),
+                          8)
+            byts = 4 * M * K + K * N + 4 * M * N + 4 * N + 4 * 17
+            ops = 2 * M * K * N
+            bound, by = _bound(byts, ops, INT8_OPS)
+            rows.append({"site": site, "M": M, "K": K, "N": N, "ms": t_k,
+                         "plain_ms": t_p, "library_ms": t_l,
+                         "bound_ms": bound, "bound_by": by, "bytes": byts,
+                         "ops": ops})
+        del ws
+    emit({"phase": "kernel_times_k9", "graphed": True,
+          "library_note": "torch._int_mm on the snapped codes: the product "
+                          "without the snap", "K9": rows})
+    return rows
+
+
+def phase_insitu_bloom(torch, gen):
+    """The BLOOM engine at 2 layers and full width on the long cache
+    (max_seq 16,384): a 1,024-token prompt in two 512-chunks (einsum
+    route), then 8 greedy steps (K7). Every K7 call checked against its
+    plain version (K2's bf16 tolerance), and at every site matmul of the
+    run (the prefill's M = 2048 and the decode's M = 4) K9 is called on
+    the engine's own activations with the site's weights and checked bit
+    for bit against its plain version (no engine path calls K9). Then a
+    run with K7's plain version, whose tokens are reported (not required
+    equal: K7's other summation order can move an A4 snap downstream)."""
+    from ant_quantization_tpu_torch.kernels import attention as k2
+    from ant_quantization_tpu_torch.kernels import qmatmul as kq
+    from ant_quantization_tpu_torch.serve import engine as eng
+    cfg = bloom_engine_config(2, BLOOM_LONG_SEQ, torch.bfloat16)
+    ep = random_engine_params(torch, cfg, seed=9)
+    ids = torch.randint(0, cfg.lm.vocab_size, (BATCH, 2 * PREFILL),
+                        device="cuda", generator=gen)
+    stats = {}
+    k7_checked = _checked(torch, stats, "K7", k2.int8_kv_attention,
+                          k2.int8_kv_attention_plain,
+                          lambda out, want, a: k2_close(torch, out, want,
+                                                        "bf16"))
+    k9 = _checked(torch, stats, "K9", kq.fused_w8a8_matmul,
+                  kq.fused_w8a8_matmul_plain)
+    real = eng._site_matmul_nobias
+
+    def with_k9(cfg_, ep_, name, x2d, l, stk):
+        s = ep_["layers"][name]
+        k9(x2d, s["w_i8"][l], s["a_q"][l], s["a_scale"][l],
+           s["a_scale"][l] * s["oscale"][l])
+        return real(cfg_, ep_, name, x2d, l, stk)
+
+    def run(k7fn, site_fn):
+        with mock.patch.object(eng, "int8_kv_attention", k7fn), \
+                mock.patch.object(eng, "_site_matmul_nobias", site_fn):
+            engine = eng.Engine(cfg, ep, BATCH)
+            logits = [engine.prefill(ids, chunk=PREFILL)]
+            toks = [logits[-1][:, -1].argmax(-1, keepdim=True)]
+            for _ in range(8):
+                logits.append(engine.decode(toks[-1]))
+                toks.append(logits[-1][:, -1].argmax(-1, keepdim=True))
+        torch.cuda.synchronize()
+        return torch.cat(toks, 1), torch.cat(logits, 1).float()
+
+    reset_counts()
+    ta, la = run(k7_checked, with_k9)
+    launched = {k: v["launches"] for k, v in read_counts().items()}
+    reset_counts()
+    tb, lb = run(k2.int8_kv_attention_plain, real)
+    reset_counts()
+    res = {"phase": "in_situ_bloom", "layers": 2, "dtype": "bfloat16",
+           "max_seq": BLOOM_LONG_SEQ, "prompt": 2 * PREFILL,
+           "decode_steps": 8, "per_call": stats,
+           "k7_atol_rtol": K2_TOL["bf16"], "launches": launched,
+           "k7_plain_tokens_identical": torch.equal(ta, tb),
+           "k7_plain_logits_max_abs_err": (la - lb).abs().max().item(),
+           "logits_finite": bool(torch.isfinite(la).all())}
+    res["pass"] = (
+        stats["K7"]["calls"] == 2 * 8 and not stats["K7"]["failed"]
+        and stats["K9"]["calls"] == 4 * 2 * (2 + 8)
+        and not stats["K9"]["failed"]
+        and launched["K7"] == 2 * 8 and launched["K9"] == 4 * 2 * (2 + 8)
+        and res["logits_finite"])
+    emit(res)
+    if not res["pass"]:
+        fail(f"BLOOM in-situ check: {res}")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -1560,6 +2026,8 @@ def main() -> int:
     k1_err, k2_err = phase_checks(torch, gen)
     k34_err = phase_checks_ovp(torch, gen)
     k568_err = phase_checks_w4pack(torch, gen)
+    k7_err = phase_checks_k7(torch, gen)
+    k9_err = phase_checks_k9(torch, gen)
     engine, counts, ids = phase_main(torch, gen)
     sites, k2_rows = phase_times(torch, engine)
     phase_profile(torch, engine, ids)
@@ -1587,6 +2055,21 @@ def main() -> int:
     del w4
     torch.cuda.empty_cache()
     phase_insitu_w4pack(torch, gen)
+    bloom, bloom_ep, bloom_ids = phase_bloom_main(torch, gen)
+    phase_profile(torch, bloom, bloom_ids, path="BLOOM")
+    phase_bloom_ragged(torch, bloom, gen)
+    del bloom
+    torch.cuda.empty_cache()
+    long_engine, long_counts, long_ids = phase_bloom_long(torch, bloom_ep,
+                                                          gen)
+    phase_profile(torch, long_engine, long_ids, path="BLOOM long context",
+                  prefill=("prefill_last_chunk",
+                           lambda: long_chunk(long_engine, long_ids)))
+    k7_row = phase_times_k7(torch, long_engine)
+    del long_engine, bloom_ep
+    torch.cuda.empty_cache()
+    k9_rows = phase_times_k9(torch, gen)
+    insitu_bloom = phase_insitu_bloom(torch, gen)
 
     dec, pre = k2_rows
     kernels = [
@@ -1677,6 +2160,39 @@ def main() -> int:
             "library_ms": sum(x.get("library_ms", x.get("int_mm_ms"))
                               for x in rows),
             "library_note": lib})
+    kernels.append({
+        "name": "int8_kv_attention (K7)", "route": "cuda",
+        "source": "ant_quantization_tpu_torch/csrc/int8_kv_attention_split.cu",
+        "replaces": "ant_quantization_tpu/kernels/attention.py:102",
+        "launches": long_counts["K7"]["launches"],
+        "max_abs_err": max(k7_err.values()), "max_abs_err_by_out": k7_err,
+        "pass": True,
+        "at": f"one decode layer of bloom_long: B={k7_row['B']} "
+              f"H={k7_row['H']} T=1 D=128 at position {k7_row['pos0']}, "
+              f"cache S={k7_row['S']}, ALiBi",
+        "ms": k7_row["ms"], "plain_ms": k7_row["plain_ms"],
+        "bound_ms": k7_row["bound_ms"], "bound_by": k7_row["bound_by"],
+        "library_ms": k7_row["library_ms"],
+        "library_note": "SDPA on the dequantized bf16 cache, ALiBi as its "
+                        "mask"})
+    k9_at = {f"{x['site']} M={x['M']}": x for x in k9_rows}
+    k9_main = k9_at["fc_in M=4"]
+    kernels.append({
+        "name": "fused_w8a8_matmul (K9)", "route": "cuda",
+        "source": "ant_quantization_tpu_torch/csrc/w8a8_matmul.cu",
+        "replaces": "ant_quantization_tpu/kernels/qmatmul.py:199",
+        "launches": insitu_bloom["launches"]["K9"],
+        "launches_note": "no engine path calls K9 (as in the reference): "
+                         "the count is in_situ_bloom's, where K9 ran at "
+                         "every site matmul on the engine's activations",
+        "max_abs_err": k9_err, "pass": True,
+        "ms_per_launch": {k: x["ms"] for k, x in k9_at.items()},
+        "at": "one launch at OPT-6.7B fc_in (4096 x 16384), M=4",
+        "ms": k9_main["ms"], "plain_ms": k9_main["plain_ms"],
+        "bound_ms": k9_main["bound_ms"], "bound_by": k9_main["bound_by"],
+        "library_ms": k9_main["library_ms"],
+        "library_note": "torch._int_mm (M padded to 32) on the snapped "
+                        "codes: the product without the snap"})
     emit({"kernels": kernels, "card": smi, "hbm_copy_bytes_per_s": hbm,
           "seconds": time.perf_counter() - t_start})
     print(json.dumps({"ok": True, "device": {

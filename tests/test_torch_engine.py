@@ -177,11 +177,18 @@ def test_unported_features_raise():
                    dict(kv_int8=False), dict(tp_size=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             teng._check_config(dataclasses.replace(tcfg, **change))
-    ep = teng.build_engine_params(tcfg, *_model(seed=5), device="cpu")
-    kv = teng.init_cache(tcfg, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="per-sequence pos0"):
-        teng.forward(tcfg, ep, torch.zeros(2, 1, dtype=torch.long), kv,
-                     torch.tensor([0, 1]))
+    # GPT-2's Conv1D (per-input-channel) sites, item 8.3: from the
+    # port's build_engine_params and from a reference tree that carries
+    # "kscale"
+    conv = dataclasses.replace(tcfg, lm=dataclasses.replace(
+        tcfg.lm, conv1d_sites=("fc_in",)))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*8.3"):
+        teng.build_engine_params(conv, *_model(seed=5), device="cpu")
+    jcfg, _ = _configs()
+    jep = _np_tree(jeng.build_engine_params(jcfg, *_model(seed=5)))
+    jep["layers"]["fc_in"]["kscale"] = jep["layers"]["fc_in"].pop("oscale")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*8.3"):
+        convert.from_jax_engine_params(jep, device="cpu")
 
 
 def test_package_imports_no_jax():

@@ -57,8 +57,39 @@ def test_append_stacked_bit_equal_by_position(head_dim, T, index):
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
 
 
+@pytest.mark.parametrize("head_dim,T", [(128, 5), (64, 1)])  # fold 1, 2
+def test_append_stacked_per_sequence_bit_equal_by_position(head_dim, T):
+    """A (B,) write index: sequence b's rows go to index[b] .. index[b]+T-1
+    (the reference's vector-index write), after a shared prefill write."""
+    L, B, H, S, layer = 2, 3, 2, 16, 1
+    rng = np.random.default_rng(head_dim + T)
+    jcache = jax.tree_util.tree_map(
+        lambda a: jnp.broadcast_to(a[None], (L,) + a.shape),
+        jkv.init_kv(B, S, H, head_dim))
+    tcache = tkv.init_kv(L, B, S, H, head_dim, torch.device("cpu"))
+    index = np.int32([7, 2, 11])
+    for idx, t in ((0, 6), (index, T)):
+        k = rng.normal(size=(B, t, H, head_dim)).astype(np.float32)
+        v = rng.normal(size=(B, t, H, head_dim)).astype(np.float32) * 2
+        jcache = jkv.append_kv_stacked(jcache, jnp.asarray(k),
+                                       jnp.asarray(v), layer,
+                                       jnp.asarray(idx))
+        tkv.append_kv_stacked(tcache, torch.from_numpy(k),
+                              torch.from_numpy(v), layer,
+                              torch.from_numpy(np.asarray(idx)) if t == T
+                              else idx)
+    want = from_jax_kv([np.asarray(a) for a in jcache], head_dim, "cpu")
+    for g, w in zip(tcache, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
 def test_append_past_the_end_raises():
     cache = tkv.init_kv(1, 1, 4, 1, 8, torch.device("cpu"))
     x = torch.zeros(1, 3, 1, 8)
     with pytest.raises(ValueError):
         tkv.append_kv_stacked(cache, x, x, 0, 2)
+    # per sequence: one sequence past the end is enough
+    cache = tkv.init_kv(1, 2, 4, 1, 8, torch.device("cpu"))
+    x = torch.zeros(2, 2, 1, 8)
+    with pytest.raises(ValueError):
+        tkv.append_kv_stacked(cache, x, x, 0, torch.tensor([0, 3]))
