@@ -1,9 +1,11 @@
-// The prefill-size int8 product of K5 (stacked_prefill.cu) and K9
-// (w8a8_matmul.cu) on the int8 tensor cores: xq (M, K) int8 snapped codes
-// against an N-major (N, K) int8 weight, int32 accumulation, one f32
-// multiply by scales[n]; in the OVP mode K3's dual dot and its f32 order
-// (see stacked_prefill.cu, which describes the design). K % 64 == 0,
-// 16-byte aligned buffers.
+// The OVP mode of K5's prefill-size int8 product (stacked_prefill.cu) on
+// the int8 tensor cores, mma.sync m16n8k32: xq (M, K) int8 snapped codes
+// against an N-major (N, K) layer of sign-offset OVP bytes, K3's dual dot
+// and its f32 order (see stacked_prefill.cu, which describes the design).
+// The int8-value product runs on wgmma instead (i8_wgmma.cuh); this one
+// stays on mma.sync because its second dot needs clip(c) of the B tile,
+// which wgmma can only read from shared memory. K % 64 == 0, 16-byte
+// aligned buffers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -54,12 +56,11 @@ __device__ __forceinline__ uint32_t ovp_clip4(uint32_t w) {
   return (uint32_t)__vmaxs4(__vmins4((int)w, 0x40404040), 0xC0C0C0C0);
 }
 
-// xq (M, K) int8, w (N, K) int8 (layer l's slice), scales (N,) f32,
-// out (M, N) f32. OVP: a segment is seg_tiles K steps, a block `fold`
-// segments.
-template <int BM, int BN, int WM, int WN, bool OVP>
+// xq (M, K) int8, w (N, K) OVP bytes (layer l's slice), scales (N,) f32,
+// out (M, N) f32. A segment is seg_tiles K steps, a block `fold` segments.
+template <int BM, int BN, int WM, int WN>
 __global__ void __launch_bounds__(THREADS)
-    prefill_i8_kernel(const int8_t* __restrict__ xq,
+    prefill_ovp_kernel(const int8_t* __restrict__ xq,
                       const int8_t* __restrict__ w,
                       const float* __restrict__ scales,
                       float* __restrict__ out, int M, int K, int N,
@@ -91,21 +92,18 @@ __global__ void __launch_bounds__(THREADS)
     }
   };
 
-  int acc[MT][NT][4];
-  int acc2[OVP ? MT : 1][OVP ? NT : 1][4];
-  float part[OVP ? MT : 1][OVP ? NT : 1][4];
-  float facc[OVP ? MT : 1][OVP ? NT : 1][4];
+  int acc[MT][NT][4], acc2[MT][NT][4];   // the dots against c, clip(c)
+  float part[MT][NT][4], facc[MT][NT][4];  // segment and block f32 sums
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int ii = OVP ? i : 0, jj = OVP ? j : 0;
         acc[i][j][e] = 0;
-        acc2[ii][jj][e] = 0;
-        part[ii][jj][e] = 0.f;
-        facc[ii][jj][e] = 0.f;
+        acc2[i][j][e] = 0;
+        part[i][j][e] = 0.f;
+        facc[i][j][e] = 0.f;
       }
 
   // ldmatrix row addresses: A x4 = rows (lane & 7) + 8 ((lane >> 3) & 1),
@@ -115,7 +113,7 @@ __global__ void __launch_bounds__(THREADS)
   const int b_row = (lane & 7) + 8 * (lane >> 4), b_col = 16 * ((lane >> 3) & 1);
 
   const int nk = K / BK;
-  int segs = 0;  // OVP segments finished
+  int segs = 0;  // segments finished
   load_tile(0, 0);
   cp_async_commit();
   for (int kt = 0; kt < nk; ++kt) {
@@ -145,13 +143,11 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           mma_s8(acc[i][j], a[i], b[j][0], b[j][1]);
-          if (OVP)
-            mma_s8(acc2[OVP ? i : 0][OVP ? j : 0], a[i],
-                   ovp_clip4(b[j][0]), ovp_clip4(b[j][1]));
+          mma_s8(acc2[i][j], a[i], ovp_clip4(b[j][0]), ovp_clip4(b[j][1]));
         }
     }
     __syncthreads();  // the next step's loads overwrite this stage
-    if (OVP && (kt + 1) % seg_tiles == 0) {
+    if ((kt + 1) % seg_tiles == 0) {
       ++segs;
       const bool block_end = segs % fold == 0;
 #pragma unroll
@@ -160,14 +156,13 @@ __global__ void __launch_bounds__(THREADS)
         for (int j = 0; j < NT; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int ii = OVP ? i : 0, jj = OVP ? j : 0;
-            const int p = 16 * acc[i][j][e] - 15 * acc2[ii][jj][e];
-            part[ii][jj][e] = __fadd_rn(part[ii][jj][e], __int2float_rn(p));
+            const int p = 16 * acc[i][j][e] - 15 * acc2[i][j][e];
+            part[i][j][e] = __fadd_rn(part[i][j][e], __int2float_rn(p));
             acc[i][j][e] = 0;
-            acc2[ii][jj][e] = 0;
+            acc2[i][j][e] = 0;
             if (block_end) {
-              facc[ii][jj][e] = __fadd_rn(facc[ii][jj][e], part[ii][jj][e]);
-              part[ii][jj][e] = 0.f;
+              facc[i][j][e] = __fadd_rn(facc[i][j][e], part[i][j][e]);
+              part[i][j][e] = 0.f;
             }
           }
     }
@@ -183,29 +178,18 @@ __global__ void __launch_bounds__(THREADS)
       for (int e = 0; e < 4; ++e) {
         const int m = m0 + wm * WM + i * 16 + g + 8 * (e >> 1);
         const int n = n0 + wn * WN + j * 8 + 2 * t4 + (e & 1);
-        if (m < M && n < N) {
-          const float v = OVP ? facc[OVP ? i : 0][OVP ? j : 0][e]
-                              : __int2float_rn(acc[i][j][e]);
-          out[(long)m * N + n] = __fmul_rn(v, scales[n]);
-        }
+        if (m < M && n < N)
+          out[(long)m * N + n] = __fmul_rn(facc[i][j][e], scales[n]);
       }
 }
 
-// The non-OVP mode ignores seg_tiles and fold.
-void launch_i8_mma(const int8_t* xq, const int8_t* w, const float* scales,
-                   float* out, int M, int K, int N, int seg_tiles, int fold,
-                   bool ovp, cudaStream_t s) {
-  if (ovp) {
-    constexpr int BM = 128, BN = 64;
-    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    prefill_i8_kernel<BM, BN, 32, 32, true><<<grid, THREADS, 0, s>>>(
-        xq, w, scales, out, M, K, N, seg_tiles, fold);
-  } else {
-    constexpr int BM = 128, BN = 128;
-    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    prefill_i8_kernel<BM, BN, 64, 32, false><<<grid, THREADS, 0, s>>>(
-        xq, w, scales, out, M, K, N, seg_tiles, fold);
-  }
+void launch_i8_mma_ovp(const int8_t* xq, const int8_t* w,
+                       const float* scales, float* out, int M, int K, int N,
+                       int seg_tiles, int fold, cudaStream_t s) {
+  constexpr int BM = 128, BN = 64;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  prefill_ovp_kernel<BM, BN, 32, 32><<<grid, THREADS, 0, s>>>(
+      xq, w, scales, out, M, K, N, seg_tiles, fold);
 }
 
 }  // namespace

@@ -11,182 +11,353 @@
 //   p   = exp(s - max)
 //   out = (sum_pos p * v_scale[pos] * v_i8[pos]) / sum_pos p,  cast to bf16 or f32
 //
-// The softmax is online (flash style) over key tiles of KT positions,
-// walked from position 0 upward: the first tile always holds position 0,
-// which no query masks, so the running max is finite from the first tile
-// on and masked scores underflow to p = 0 exactly as in the reference.
-// Tiles wholly past the block's last causal position are skipped. The
-// division by sum p comes after the PV product, as in the reference.
-// Summation orders differ from the plain version, so the result agrees
-// within a tolerance (stated by the callers), not bit for bit.
+// One launch of the wrapper serves any T, in one of two regimes.
 //
-// What bounds it: at decode (T = 1) the int8 cache read, 2*D bytes plus
-// two f32 scales per visible position, against 4*D flops per position, so
-// bytes; at prefill (T = 512) the f32 flops on the CUDA cores. Design:
-// one block of D = 128 threads per (query tile of QT, head, batch); the
-// K and V tiles are staged in shared memory as int8 (the K rows padded to
-// 132 bytes so the score reads are free of bank conflicts). Scores: thread
-// (key j, half p) dots its 64-dim half of key j with each query of the
-// tile; one shuffle joins the halves. Softmax statistics: one warp per
-// query row. PV: thread d owns output column d for all QT queries, in
-// registers. One launch serves any T through the grid over query tiles.
+// Decode (T <= 16). Bound: the cache read, 2 * D bytes and two f32 scales
+// per visible position against 4 * D flops per query. The positions are
+// split across blocks and the partial softmax states combined in split
+// order (kv_split.cuh, shared with K7), so B * H * splits blocks fill the
+// 132 SMs where one block per (b, h) would leave them idle.
+//
+// Prefill (T > 16). Bound: at T = 512 the bytes (the cache and q read
+// once, the output written once) over the HBM rate, the products on the
+// bf16 tensor cores taking less. Design (FlashAttention-2 on mma.sync
+// m16n8k16 bf16, f32 accumulation): a block is 4 warps on 64 queries of
+// one (b, h), each warp on 16 rows. The int8 codes are exact in bf16, so
+// only the f32 operand needs care: it is split into three bf16 terms, hi
+// = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), which hold every
+// f32 value exactly, and each product is taken three times with exact
+// products and f32 sums. So only the summation order differs from the
+// f32 reference. (Two terms keep about 16 of the 24 bits and miss the
+// f32 tolerance on large q with spread scales; one keeps 8:
+// tests/test_torch_attention_hilo.py.) qs = f32(q) * qscale is split once
+// per block into shared memory and read as A fragments with ldmatrix.
+// K and V tiles of 64 positions arrive as int8
+// through cp.async with their scales beside them, are widened to bf16 in
+// shared memory (rows padded to 272 bytes, so the ldmatrix reads of 8 rows
+// hit distinct banks), and are read with ldmatrix (K) and ldmatrix.trans
+// (V, the col-major B operand of the PV product). The score accumulators
+// are scaled by k_scale, given the ALiBi term and masked (on the tiles
+// that reach the diagonal or the end of the cache only), and fed to an
+// online softmax in registers (quad shuffles); p * v_scale is then split
+// in three again and reused as the PV product's A fragments. Key tiles run
+// from position 0 upward, so the first tile always holds position 0,
+// which no query masks: the running max is finite from the first tile on
+// and masked scores give p = 0 exactly, as in the reference. Tiles wholly
+// past the block's last query position are never read, so the last query
+// tiles do the most work: the 1-D grid hands them out first, for every
+// head, and the short blocks fill in behind them. The division by
+// sum p comes after the PV product, as in the reference. Summation orders
+// differ from the plain version, so the result agrees within a tolerance
+// (stated by the callers), not bit for bit; it does not depend on how
+// blocks are scheduled.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "kv_split.cuh"
 
 namespace {
 
-constexpr int D = 128;      // head_dim (the wrapper checks)
-constexpr int KT = 64;      // key positions per tile
-constexpr int KSTR = 132;   // padded shared row stride of the K tile, bytes
-constexpr int NTHREADS = D;
+constexpr int D = 128;        // head_dim (the wrapper checks)
+constexpr int QB = 64;        // queries per block, 16 per warp
+constexpr int KT = 64;        // key positions per tile
+constexpr int NT = 128;       // threads per block
+constexpr int BSTR = D + 8;   // bf16 row stride of the widened tiles
 constexpr float NEG_BIG = -3.4028234663852886e+38f;  // f32 min
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+constexpr int NP = 3;         // bf16 terms of each f32 operand
+
+struct Smem {
+  __nv_bfloat16 q[NP][QB * BSTR]; // qs = f32(q) * qscale, three terms
+  int8_t k8[KT * D];              // cp.async landing zone, int8
+  int8_t v8[KT * D];
+  __nv_bfloat16 kb[KT * BSTR];    // widened tiles
+  __nv_bfloat16 vb[KT * BSTR];
+  float ksc[KT];
+  float vsc[KT];
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int QT>
-__global__ void __launch_bounds__(NTHREADS)
-int8_kv_attention_kernel(const float* __restrict__ q,
-                         const int8_t* __restrict__ kc,
-                         const int8_t* __restrict__ vc,
-                         const float* __restrict__ ks,
-                         const float* __restrict__ vs,
-                         const int* __restrict__ pos0,
-                         const float* __restrict__ slopes, void* out,
-                         int out_bf16, int B, int H, int T, int S,
-                         float qscale) {
-  __shared__ float q_s[QT][D];
-  __shared__ __align__(16) int8_t k_s[KT * KSTR];
-  __shared__ __align__(16) int8_t v_s[KT][D];
-  __shared__ float kscale_s[KT];
-  __shared__ float vscale_s[KT];
-  __shared__ float p_s[QT][KT];
-  __shared__ float m_s[QT];
-  __shared__ float l_s[QT];
-  __shared__ float corr_s[QT];
+// (a, b) -> three bf16x2 terms, largest first, whose sums are a and b
+// exactly (each difference below is exact in f32)
+__device__ __forceinline__ void split3(float a, float b, uint32_t* t) {
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    t[i] = bits(h);
+    a -= __low2float(h);
+    b -= __high2float(h);
+  }
+}
 
-  const int t0 = blockIdx.x * QT;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+// four int8 codes of a little-endian word -> two exact bf16x2
+__device__ __forceinline__ uint2 widen4(int w) {
+  uint2 r;
+  r.x = bits(__floats2bfloat162_rn((float)(int8_t)w, (float)(int8_t)(w >> 8)));
+  r.y = bits(__floats2bfloat162_rn((float)(int8_t)(w >> 16),
+                                   (float)(int8_t)(w >> 24)));
+  return r;
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Fragment layouts (m16n8k16, g = lane / 4, t = lane % 4): an A fragment
+// holds rows g and g + 8 at columns 2t, 2t + 1 (regs 0, 1) and 2t + 8,
+// 2t + 9 (regs 2, 3); a C fragment rows g (c0, c1) and g + 8 (c2, c3) at
+// columns 2t, 2t + 1.
+__global__ void __launch_bounds__(NT)
+prefill_kernel(const void* __restrict__ q, int q_bf16,
+               const int8_t* __restrict__ kc, const int8_t* __restrict__ vc,
+               const float* __restrict__ ks, const float* __restrict__ vs,
+               const int* __restrict__ pos0, const float* __restrict__ slopes,
+               void* out, int out_bf16, int B, int H, int T, int S,
+               float qscale) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  // blocks run the last query tiles (the most key tiles) of every head
+  // first, so the long blocks do not trail at the end of the grid
+  const int n_bh = B * H, n_qb = gridDim.x / n_bh;
+  const int t0 = (n_qb - 1 - (int)blockIdx.x / n_bh) * QB;
+  const int h = blockIdx.x % n_bh % H, b = blockIdx.x % n_bh / H;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
   const long bh = (long)b * H + h;
   const long row0 = bh * S;  // first position of (b, h) in the layer
-
-  for (int i = tid; i < QT * D; i += NTHREADS) {
-    const int r = i / D, d = i % D, t = t0 + r;
-    q_s[r][d] = (t < T) ? q[(bh * T + t) * D + d] * qscale : 0.0f;
-  }
-  if (tid < QT) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.0f;
-  }
   const int p0 = pos0[b];
   const float slope = slopes[h];
-  const int t_last = min(t0 + QT, T) - 1;
-  const int kmax = min(p0 + t_last, S - 1);  // last position any query sees
+  const int t_last = min(t0 + QB, T) - 1;
+  const int n_tiles = min(p0 + t_last, S - 1) / KT + 1;
+  const int r0 = t0 + 16 * warp + g;  // this thread's query rows r0, r0 + 8
 
-  float acc[QT];
-#pragma unroll
-  for (int r = 0; r < QT; ++r) acc[r] = 0.0f;
-
-  for (int k0 = 0; k0 <= kmax; k0 += KT) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < KT * (D / 16); i += NTHREADS) {
-      const int j = i / (D / 16), c = i % (D / 16), pos = k0 + j;
-      int4 kv = make_int4(0, 0, 0, 0), vv = make_int4(0, 0, 0, 0);
-      if (pos < S) {
-        kv = reinterpret_cast<const int4*>(kc + (row0 + pos) * D)[c];
-        vv = reinterpret_cast<const int4*>(vc + (row0 + pos) * D)[c];
+  // qs = f32(q) * qscale in three bf16 terms, rows t0 .. t0 + 63
+  for (int i = tid; i < QB * D / 2; i += NT) {
+    const int rr = i / (D / 2), c = 2 * (i % (D / 2)), r = t0 + rr;
+    float x0 = 0.0f, x1 = 0.0f;
+    if (r < T) {
+      const long off = (bh * T + r) * D + c;
+      if (q_bf16) {
+        const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
+            reinterpret_cast<const __nv_bfloat16*>(q) + off);
+        x0 = __low2float(v);
+        x1 = __high2float(v);
+      } else {
+        const float2 v = *reinterpret_cast<const float2*>(
+            reinterpret_cast<const float*>(q) + off);
+        x0 = v.x;
+        x1 = v.y;
       }
-      int* kd = reinterpret_cast<int*>(k_s + j * KSTR + c * 16);
-      kd[0] = kv.x; kd[1] = kv.y; kd[2] = kv.z; kd[3] = kv.w;
-      *reinterpret_cast<int4*>(&v_s[j][c * 16]) = vv;
+    }
+    uint32_t t3[NP];
+    split3(x0 * qscale, x1 * qscale, t3);
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      *reinterpret_cast<uint32_t*>(&sm.q[p][rr * BSTR + c]) = t3[p];
+  }
+  // ldmatrix rows of this warp's A fragments (x4: rows + 0 / + 8, dims
+  // + 0 / + 8)
+  const int a_off = (16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1)) * BSTR +
+                    8 * (lane >> 4);
+
+  auto issue = [&](int tile) {  // the int8 codes of one tile, async
+    const int k0 = tile * KT;
+    for (int i = tid; i < KT * (D / 16); i += NT) {
+      const int j = i >> 3, c = i & 7, pos = k0 + j;
+      const bool ok = pos < S;
+      const long off = (row0 + (ok ? pos : 0)) * D + c * 16;
+      cp_async16(&sm.k8[j * D + c * 16], kc + off, ok);
+      cp_async16(&sm.v8[j * D + c * 16], vc + off, ok);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  float ksr = 0.0f, vsr = 0.0f;  // the next tile's scales, thread tid < KT
+  auto load_scales = [&](int tile) {
+    const int pos = tile * KT + tid;
+    if (tid < KT && pos < S) {
+      ksr = ks[row0 + pos];
+      vsr = vs[row0 + pos];
+    }
+  };
+
+  float o[16][4];
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
+
+  issue(0);
+  load_scales(0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * KT;
+    asm volatile("cp.async.wait_all;\n" ::);
+    __syncthreads();  // tile `it` landed; the previous tile's readers done
+    for (int i = tid; i < KT * (D / 16); i += NT) {
+      const int j = i >> 3, c = i & 7;
+      const int4 kw = *reinterpret_cast<const int4*>(&sm.k8[j * D + c * 16]);
+      const int4 vw = *reinterpret_cast<const int4*>(&sm.v8[j * D + c * 16]);
+      uint4* kd = reinterpret_cast<uint4*>(&sm.kb[j * BSTR + c * 16]);
+      uint4* vd = reinterpret_cast<uint4*>(&sm.vb[j * BSTR + c * 16]);
+      uint2 a = widen4(kw.x), bb = widen4(kw.y), cc = widen4(kw.z),
+            dd = widen4(kw.w);
+      kd[0] = make_uint4(a.x, a.y, bb.x, bb.y);
+      kd[1] = make_uint4(cc.x, cc.y, dd.x, dd.y);
+      a = widen4(vw.x), bb = widen4(vw.y), cc = widen4(vw.z), dd = widen4(vw.w);
+      vd[0] = make_uint4(a.x, a.y, bb.x, bb.y);
+      vd[1] = make_uint4(cc.x, cc.y, dd.x, dd.y);
     }
     if (tid < KT) {
-      const int pos = k0 + tid;
-      kscale_s[tid] = pos < S ? ks[row0 + pos] : 0.0f;
-      vscale_s[tid] = pos < S ? vs[row0 + pos] : 0.0f;
+      sm.ksc[tid] = ksr;
+      sm.vsc[tid] = vsr;
     }
-    __syncthreads();
+    __syncthreads();  // widened tile visible; the int8 zone is free again
+    if (it + 1 < n_tiles) {
+      issue(it + 1);
+      load_scales(it + 1);
+    }
 
-    {  // scores: thread (key j, half hf)
-      const int j = tid >> 1, hf = tid & 1, pos = k0 + j;
-      int kr[16];
-      const int* krow = reinterpret_cast<const int*>(k_s + j * KSTR + hf * 64);
+    // scores: s[j] is the C fragment of keys k0 + 8 j .. + 7
+    constexpr int NJ = KT / 8;
+    float s[NJ][4];
 #pragma unroll
-      for (int c = 0; c < 16; ++c) kr[c] = krow[c];
-      for (int r = 0; r < QT; ++r) {
-        const float* qrow = &q_s[r][hf * 64];
-        float dot = 0.0f;
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-        for (int c = 0; c < 16; ++c) {
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
 #pragma unroll
-          for (int e = 0; e < 4; ++e)  // little-endian bytes of the word
-            dot += qrow[4 * c + e] * (float)(int8_t)(kr[c] >> (8 * e));
-        }
-        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-        if (hf == 0) {
-          const int rel = pos - (p0 + t0 + r);
-          const float s = dot * kscale_s[j] + slope * (float)rel;
-          p_s[r][j] = (pos < S && rel <= 0) ? s : NEG_BIG;
+    for (int kk = 0; kk < 8; ++kk) {  // dims 16 kk .. + 15
+      uint32_t a[NP][4];
+#pragma unroll
+      for (int p = 0; p < NP; ++p) ldsm_x4(a[p], &sm.q[p][a_off + 16 * kk]);
+#pragma unroll
+      for (int jp = 0; jp < NJ / 2; ++jp) {  // key tiles 2 jp and 2 jp + 1
+        uint32_t r[4];
+        ldsm_x4(r, &sm.kb[(16 * jp + (lane & 7) + 8 * (lane >> 4)) * BSTR +
+                          16 * kk + 8 * ((lane >> 3) & 1)]);
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          mma_bf16(s[2 * jp], a[p], r[0], r[1]);
+          mma_bf16(s[2 * jp + 1], a[p], r[2], r[3]);
         }
       }
     }
-    __syncthreads();
-
-    for (int r = warp; r < QT; r += NTHREADS / 32) {  // one warp per row
-      const float s0 = p_s[r][lane], s1 = p_s[r][lane + 32];
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float e0 = expf(s0 - m_new), e1 = expf(s1 - m_new);
-      const float sum = warp_sum(e0 + e1);
-      const float c = expf(m_old - m_new);  // 0 on the first tile
-      p_s[r][lane] = e0 * vscale_s[lane];
-      p_s[r][lane + 32] = e1 * vscale_s[lane + 32];
-      __syncwarp();
-      if (lane == 0) {
-        l_s[r] = l_s[r] * c + sum;
-        m_s[r] = m_new;
-        corr_s[r] = c;
-      }
-    }
-    __syncthreads();
-
+    const bool need_mask = k0 + KT - 1 > p0 + t0 || k0 + KT > S;
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int r = 0; r < QT; ++r) {  // PV: thread tid owns column d = tid
-      float a = acc[r] * corr_s[r];
-#pragma unroll 8
-      for (int j = 0; j < KT; ++j) a += p_s[r][j] * (float)v_s[j][tid];
-      acc[r] = a;
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int jj = 8 * j + 2 * t4 + (e & 1), key = k0 + jj;
+        const int rel = key - (p0 + r0 + 8 * (e >> 1));
+        float v = __fadd_rn(__fmul_rn(s[j][e], sm.ksc[jj]),
+                            __fmul_rn(slope, (float)rel));
+        if (need_mask && (rel > 0 || key >= S)) v = NEG_BIG;
+        s[j][e] = v;
+        mx[e >> 1] = fmaxf(mx[e >> 1], v);
+      }
+    float corr[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float m_new = fmaxf(m_run[hh], quad_max(mx[hh]));
+      corr[hh] = expf(m_run[hh] - m_new);  // 0 on the first tile
+      m_run[hh] = m_new;
+      l_run[hh] *= corr[hh];
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - m_run[e >> 1]);
+        l_run[e >> 1] += p;
+        s[j][e] = p * sm.vsc[8 * j + 2 * t4 + (e & 1)];
+      }
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
+
+    // PV: k-step kk covers keys 16 kk .. + 15, i.e. score tiles 2 kk, 2 kk + 1
+#pragma unroll
+    for (int kk = 0; kk < NJ / 2; ++kk) {
+      uint32_t pa[NP][4], t3[NP];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // A regs: (row, key) pairs of s
+        const float* src = s[2 * kk + (e >> 1)] + 2 * (e & 1);
+        split3(src[0], src[1], t3);
+#pragma unroll
+        for (int p = 0; p < NP; ++p) pa[p][e] = t3[p];
+      }
+#pragma unroll
+      for (int np = 0; np < 8; ++np) {  // output dims 16 np .. + 15
+        uint32_t r[4];
+        ldsm_x4_t(r, &sm.vb[(16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) *
+                                BSTR + 16 * np + 8 * (lane >> 4)]);
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          mma_bf16(o[2 * np], pa[p], r[0], r[1]);
+          mma_bf16(o[2 * np + 1], pa[p], r[2], r[3]);
+        }
+      }
     }
   }
 
 #pragma unroll
-  for (int r = 0; r < QT; ++r) {
-    const int t = t0 + r;
-    if (t < T) {
-      const float o = acc[r] / l_s[r];
-      const long off = (bh * T + t) * D + tid;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = r0 + 8 * hh;
+    const float l = quad_sum(l_run[hh]);
+    if (r >= T) continue;
+    const long base = (bh * T + r) * D + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      const float a = o[n][2 * hh] / l, c = o[n][2 * hh + 1] / l;
       if (out_bf16)
-        reinterpret_cast<__nv_bfloat16*>(out)[off] = __float2bfloat16(o);
+        *reinterpret_cast<__nv_bfloat162*>(
+            reinterpret_cast<__nv_bfloat16*>(out) + base + 8 * n) =
+            __floats2bfloat162_rn(a, c);
       else
-        reinterpret_cast<float*>(out)[off] = o;
+        *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + base +
+                                   8 * n) = make_float2(a, c);
     }
   }
 }
@@ -199,33 +370,41 @@ const char* aq_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// q (B, H, T, D) f32; kc, vc (L, B, H, S, D) int8; ks, vs (L, B, H, S) f32;
-// pos0 (B,) int32; slopes (H,) f32; out (B, H, T, D) bf16 or f32. All on
-// the device, contiguous; D == 128. Returns a cudaError_t.
-int stacked_int8_kv_attention(const float* q, const int8_t* kc,
+// q (B, H, T, D) f32, or bf16 when q_bf16 (converted exactly); kc, vc (L,
+// B, H, S, D) int8; ks, vs (L, B, H, S) f32; pos0 (B,) int32; slopes (H,)
+// f32; out (B, H, T, D) bf16 or f32. For T <= 16 the scratch part_o (B, H,
+// n_split, T, D) f32 and part_m, part_l (B, H, n_split, T) f32, n_split =
+// ceil(S / span), span a multiple of 64; unused above. All on the device,
+// contiguous; D == 128. Returns a cudaError_t.
+int stacked_int8_kv_attention(const void* q, int q_bf16, const int8_t* kc,
                               const int8_t* vc, const float* ks,
                               const float* vs, const int* pos0,
-                              const float* slopes, void* out, int out_bf16,
-                              int l, int B, int H, int T, int S,
-                              float qscale, void* stream) {
+                              const float* slopes, float* part_o,
+                              float* part_m, float* part_l, void* out,
+                              int out_bf16, int l, int B, int H, int T, int S,
+                              int span, float qscale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const long lo = (long)l * B * H * S;
   const int8_t* kl = kc + lo * D;
   const int8_t* vl = vc + lo * D;
   const float* ksl = ks + lo;
   const float* vsl = vs + lo;
-  if (T == 1) {
-    dim3 grid(1, H, B);
-    int8_kv_attention_kernel<1><<<grid, NTHREADS, 0, st>>>(
-        q, kl, vl, ksl, vsl, pos0, slopes, out, out_bf16, B, H, T, S,
-        qscale);
-  } else {
-    constexpr int QT = 16;
-    dim3 grid((T + QT - 1) / QT, H, B);
-    int8_kv_attention_kernel<QT><<<grid, NTHREADS, 0, st>>>(
-        q, kl, vl, ksl, vsl, pos0, slopes, out, out_bf16, B, H, T, S,
-        qscale);
+  if (T <= 16)
+    return (int)kvsplit::launch(q, q_bf16, kl, vl, ksl, vsl, pos0, slopes,
+                                part_o, part_m, part_l, out, out_bf16, B, H,
+                                T, S, span, qscale, st);
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        prefill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)sizeof(Smem));
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
   }
+  const int grid = (T + QB - 1) / QB * B * H;
+  prefill_kernel<<<grid, NT, sizeof(Smem), st>>>(q, q_bf16, kl, vl, ksl, vsl,
+                                                 pos0, slopes, out, out_bf16,
+                                                 B, H, T, S, qscale);
   return (int)cudaGetLastError();
 }
 

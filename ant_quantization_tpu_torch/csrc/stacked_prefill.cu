@@ -20,21 +20,16 @@
 //
 // What bounds it: operations. At M = 2048 a 4096 x 4096 site is 6.9e10
 // int8 ops against 16.8 MB of weights, far above the card's ops-per-byte
-// line, so the product runs on the int8 tensor cores: mma.sync
-// m16n8k32 s8 x s8 -> s32 (a __dp4a kernel would be held to the CUDA
-// cores' small fraction of 1,979 TOP/s). A block computes a BM x BN
-// output tile; K runs in 64-byte steps through a two-stage cp.async ring
-// in shared memory (rows padded to 80 bytes, so the ldmatrix reads of 8
-// rows x 16 bytes hit 32 distinct banks). Both operands are K-contiguous
-// (xq row-major, W N-major), which is the "row.col" layout the
-// instruction takes, so ldmatrix without .trans loads every fragment.
-// Each warp owns a WM x WN sub-tile of int32 accumulators in registers.
-// The OVP mode also takes the second dot against clip(c) (two SIMD byte
-// ops on the B fragment in registers) into a second accumulator, and
-// keeps the f32 segment and block sums per output, so its warp tile is
-// half as wide. The product is in i8_mma.cuh, shared with K9.
+// line, so the product runs on the int8 tensor cores, fed from the int8
+// scratch that the snap pre-kernel wrote. Int8 values: wgmma from a
+// TMA-fed mbarrier ring (i8_wgmma.cuh, shared with K9). OVP bytes:
+// mma.sync m16n8k32 from a two-stage cp.async ring (i8_mma.cuh): the
+// second dot against clip(c) takes two SIMD byte ops on the B fragment in
+// registers into a second accumulator, and the f32 segment and block sums
+// are kept per output (wgmma would need clip(c) in shared memory).
 
 #include "i8_mma.cuh"
+#include "i8_wgmma.cuh"
 #include "snap_i8.cuh"
 
 extern "C" {
@@ -50,16 +45,28 @@ const char* aq_error_string(int code) {
 // Returns a cudaError_t.
 int stacked_prefill_matmul(const float* x, int8_t* xq, const int8_t* w,
                            const float* a_q, const float* a_scale,
-                           const float* scales, float* out, int l, int M,
-                           int K, int N, int G, int seg_tiles, int fold,
-                           int ovp, void* stream) {
+                           const float* scales, float* out, int l, int L,
+                           int M, int K, int N, int G, int seg_tiles,
+                           int fold, int ovp, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = launch_snap(x, xq, a_q, a_scale, l, M, K, G, s);
   if (err != cudaSuccess) return (int)err;
-  const int8_t* wl = w + (long)l * N * K;
   const float* sl = scales + (long)l * N;
-  launch_i8_mma(xq, wl, sl, out, M, K, N, seg_tiles, fold, ovp != 0, s);
-  return (int)cudaGetLastError();
+  if (ovp) {
+    launch_i8_mma_ovp(xq, w + (long)l * N * K, sl, out, M, K, N, seg_tiles,
+                      fold, s);
+    return (int)cudaGetLastError();
+  }
+  return (int)wg::launch_i8_wgmma(xq, w, L, l, sl, out, M, K, N, s);
+}
+
+// The snap pre-kernel alone (K5's first step, timed apart): x (M, K) f32
+// -> xq (M, K) int8 with layer l's a_q (L, G) and a_scale (L,).
+int snap_i8_matrix(const float* x, int8_t* xq, const float* a_q,
+                   const float* a_scale, int l, int M, int K, int G,
+                   void* stream) {
+  return (int)launch_snap(x, xq, a_q, a_scale, l, M, K, G,
+                          (cudaStream_t)stream);
 }
 
 }  // extern "C"

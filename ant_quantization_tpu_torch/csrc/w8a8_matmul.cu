@@ -17,11 +17,11 @@
 // weight is N-major (N, K), as the port stores every int8 weight. Design:
 // the snap pre-kernel of snap_i8.cuh (reciprocal mode) writes the int8
 // codes once; M <= 64 then runs K1's product (i8_dot.cuh: a warp per
-// output column, 16-byte loads, __dp4a), larger M K5's (i8_mma.cuh:
-// mma.sync m16n8k32 on the int8 tensor cores from a cp.async ring).
+// output column, 16-byte loads, __dp4a), larger M K5's (i8_wgmma.cuh:
+// wgmma on the int8 tensor cores from a TMA-fed mbarrier ring).
 
 #include "i8_dot.cuh"
-#include "i8_mma.cuh"
+#include "i8_wgmma.cuh"
 #include "snap_i8.cuh"
 
 extern "C" {
@@ -41,10 +41,9 @@ int w8a8_matmul(const float* x, int8_t* xq, const int8_t* w,
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = launch_snap(x, xq, a_q, a_scale, 0, M, K, G, s, true);
   if (err != cudaSuccess) return (int)err;
-  if (M <= 64)
-    launch_i8_dot(xq, w, out_scale, out, M, K, N, s);
-  else
-    launch_i8_mma(xq, w, out_scale, out, M, K, N, K / 64, 1, false, s);
+  if (M > 64)
+    return (int)wg::launch_i8_wgmma(xq, w, 1, 0, out_scale, out, M, K, N, s);
+  launch_i8_dot(xq, w, out_scale, out, M, K, N, s);
   return (int)cudaGetLastError();
 }
 

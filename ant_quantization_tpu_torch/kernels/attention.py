@@ -12,12 +12,16 @@ passes the view ``cache.k[l]``, no copy). Both compute, per (b, h, t):
     out = ((exp(s - max) * v_scale) @ v_i8) / sum(exp(s - max))
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
-(``csrc/int8_kv_attention.cu``: one launch for any T, decode and prefill
-alike; ``csrc/int8_kv_attention_split.cu``: T <= 16, the positions split
-across blocks); on a CPU tensor it runs its plain version, which repeats
-the reference kernel's arithmetic in plain PyTorch. :func:`attention_oracle`
-is the reference's test oracle (it divides by sqrt(D) where the kernels
-multiply).
+(``csrc/int8_kv_attention.cu``: one launch for any T, with the positions
+split across blocks for T <= 16 and the products on the bf16 tensor cores
+above; ``csrc/int8_kv_attention_split.cu``: T <= 16, the positions split
+across blocks; the split pass is ``csrc/kv_split.cuh`` in both); on a CPU
+tensor it runs its plain version, which repeats the reference kernel's
+arithmetic in plain PyTorch. :func:`attention_oracle` is the reference's
+test oracle (it divides by sqrt(D) where the kernels multiply).
+:func:`stacked_int8_kv_attention_hilo` repeats the tensor-core arithmetic
+of K2's prefill regime (each f32 operand as three bf16 terms) on the CPU,
+for the tests.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ from .. import _ext
 
 __all__ = ["stacked_int8_kv_attention", "stacked_int8_kv_attention_plain",
            "int8_kv_attention", "int8_kv_attention_plain",
-           "attention_oracle", "COUNTS", "K7_COUNTS", "K7_MAX_T"]
+           "attention_oracle", "stacked_int8_kv_attention_hilo",
+           "split_ranges", "COUNTS", "K7_COUNTS", "K7_MAX_T"]
 
 # launches of each CUDA kernel, and calls of its plain version
 COUNTS = {"launches": 0, "plain_calls": 0}        # K2
@@ -41,12 +46,33 @@ K7_COUNTS = {"launches": 0, "plain_calls": 0}
 _SOURCE = "int8_kv_attention.cu"
 _SPLIT_SOURCE = "int8_kv_attention_split.cu"
 _NEG_BIG = float(np.finfo(np.float32).min)
-K7_MAX_T = 16       # K7 serves at most this many queries per call
-_SPAN = 512         # K7's positions per block
+K7_MAX_T = 16       # K7 serves at most this many queries per call;
+                    # K2 splits the positions at this T and below
+_KT = 64            # key positions per tile of the kernels
+_SPAN_MAX = 512     # positions per split block, at most
+_SPLIT_BLOCKS = 16 * 132   # split blocks to aim for: 16 per H100 SM
 
 
 def _qscale(D: int) -> float:
     return float(np.float32(1.0 / np.sqrt(D)))
+
+
+def _span(B: int, H: int, S: int) -> int:
+    """Positions per split block for a (B, H, S) cache: enough splits
+    that B * H * splits fills the SMs several times, in whole tiles of
+    64, between 64 and 512 (at B * H = 128: 64 at S = 608, 128 at 2048,
+    512 from 8,192 on)."""
+    span = -(-S * B * H // _SPLIT_BLOCKS)
+    return min(_SPAN_MAX, max(_KT, -(-span // _KT) * _KT))
+
+
+def split_ranges(p0: int, T: int, S: int, span: int) -> list:
+    """The [begin, end) positions that each split block reads for a
+    sequence at pos0 ``p0``, as the split pass computes them: splits
+    past the last visible position ``p0 + T - 1`` exit without reading."""
+    kmax = min(p0 + T - 1, S - 1)
+    return [(b, min(b + span, kmax + 1))
+            for b in range(0, -(-S // span) * span, span) if b <= kmax]
 
 
 def _rel(pos0: torch.Tensor, T: int, S: int) -> torch.Tensor:
@@ -109,9 +135,19 @@ def _check_tensors(checks, dev):
                              f"{tuple(t.shape)} on {t.device}")
 
 
-def _launch(l, q, k, v, k_scale, v_scale, pos0, slopes, out_dtype):
+def _kernel_q(q: torch.Tensor) -> torch.Tensor:
+    """q as the kernels read it: bf16 as it is (they convert exactly),
+    anything else as f32; contiguous."""
+    if q.dtype != torch.bfloat16:
+        q = q.to(torch.float32)
+    return q.contiguous()
+
+
+def _checked_operands(q, k, v, k_scale, v_scale, pos0, slopes, out_dtype,
+                      cache_shape):
+    """Check the operands of either kernel; returns the slopes (zeros when
+    None)."""
     B, H, T, D = q.shape
-    L, _, _, S, _ = k.shape
     dev = q.device
     if D != 128:
         raise NotImplementedError(
@@ -120,24 +156,62 @@ def _launch(l, q, k, v, k_scale, v_scale, pos0, slopes, out_dtype):
         raise ValueError(f"out_dtype {out_dtype} not supported")
     if slopes is None:
         slopes = torch.zeros(H, dtype=torch.float32, device=dev)
-    _check_tensors((("q", q, torch.float32, (B, H, T, D)),
-                    ("k", k, torch.int8, (L, B, H, S, D)),
-                    ("v", v, torch.int8, (L, B, H, S, D)),
-                    ("k_scale", k_scale, torch.float32, (L, B, H, S)),
-                    ("v_scale", v_scale, torch.float32, (L, B, H, S)),
+    _check_tensors((("q", q, q.dtype, (B, H, T, D)),
+                    ("k", k, torch.int8, cache_shape + (D,)),
+                    ("v", v, torch.int8, cache_shape + (D,)),
+                    ("k_scale", k_scale, torch.float32, cache_shape),
+                    ("v_scale", v_scale, torch.float32, cache_shape),
                     ("pos0", pos0, torch.int32, (B,)),
                     ("slopes", slopes, torch.float32, (H,))), dev)
-    lib = _ext.load(_SOURCE)
-    fn = lib.stacked_int8_kv_attention
+    return slopes
+
+
+def _split_scratch(B, H, T, S, dev):
+    """The split pass's span and its scratch: per split the unnormalized
+    output, and the max and sum of exp."""
+    span = _span(B, H, S)
+    n_split = -(-S // span)
+    part_o = torch.empty((B, H, n_split, T, 128), dtype=torch.float32,
+                         device=dev)
+    part_ml = torch.empty((2, B, H, n_split, T), dtype=torch.float32,
+                          device=dev)
+    return span, part_o, part_ml
+
+
+def _entry(lib, name: str, n_int: int):
+    """A C entry point taking (q, q_bf16, the cache, pos0, slopes and
+    scratch pointers, out, out_bf16, ``n_int`` ints, qscale, stream)."""
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
-            + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int]
+                       + [ctypes.c_void_p] * 9
+                       + [ctypes.c_void_p, ctypes.c_int]
+                       + [ctypes.c_int] * n_int
+                       + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(l, q, k, v, k_scale, v_scale, pos0, slopes, out_dtype):
+    B, H, T, D = q.shape
+    L, _, _, S, _ = k.shape
+    dev = q.device
+    slopes = _checked_operands(q, k, v, k_scale, v_scale, pos0, slopes,
+                               out_dtype, (L, B, H, S))
+    lib = _ext.load(_SOURCE)
+    fn = _entry(lib, "stacked_int8_kv_attention", 6)
+    if T <= K7_MAX_T:
+        span, part_o, part_ml = _split_scratch(B, H, T, S, dev)
+        parts = (part_o.data_ptr(), part_ml[0].data_ptr(),
+                 part_ml[1].data_ptr())
+    else:
+        span, parts = _KT, (0, 0, 0)
     out = torch.empty((B, H, T, D), dtype=out_dtype, device=dev)
-    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
-              v_scale.data_ptr(), pos0.data_ptr(), slopes.data_ptr(),
-              out.data_ptr(), int(out_dtype == torch.bfloat16), l, B, H, T,
-              S, _qscale(D), _ext.stream_ptr(dev))
+    code = fn(q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
+              v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+              pos0.data_ptr(), slopes.data_ptr(), *parts, out.data_ptr(),
+              int(out_dtype == torch.bfloat16), l, B, H, T, S, span,
+              _qscale(D), _ext.stream_ptr(dev))
     _ext.check(lib, code, "stacked_int8_kv_attention")
     COUNTS["launches"] += 1
     return out
@@ -161,8 +235,8 @@ def stacked_int8_kv_attention(l: int, q: torch.Tensor, k: torch.Tensor,
     if not 0 <= l < k.shape[0]:
         raise IndexError(f"layer {l} outside a cache of {k.shape[0]}")
     if q.is_cuda:
-        return _launch(l, q.to(torch.float32).contiguous(), k, v, k_scale,
-                       v_scale, pos0, slopes, out_dtype)
+        return _launch(l, _kernel_q(q), k, v, k_scale, v_scale, pos0,
+                       slopes, out_dtype)
     return stacked_int8_kv_attention_plain(l, q, k, v, k_scale, v_scale,
                                            pos0, slopes,
                                            out_dtype=out_dtype)
@@ -172,40 +246,19 @@ def _launch_split(q, k, v, k_scale, v_scale, pos0, slopes, out_dtype):
     B, H, T, D = q.shape
     S = k.shape[2]
     dev = q.device
-    if D != 128:
-        raise NotImplementedError(
-            f"the CUDA kernel is written for head_dim 128, got {D}")
     if not 1 <= T <= K7_MAX_T:
         raise ValueError(f"K7 takes 1 to {K7_MAX_T} queries, got {T}")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"out_dtype {out_dtype} not supported")
-    if slopes is None:
-        slopes = torch.zeros(H, dtype=torch.float32, device=dev)
-    _check_tensors((("q", q, torch.float32, (B, H, T, D)),
-                    ("k_i8", k, torch.int8, (B, H, S, D)),
-                    ("v_i8", v, torch.int8, (B, H, S, D)),
-                    ("k_scale", k_scale, torch.float32, (B, H, S)),
-                    ("v_scale", v_scale, torch.float32, (B, H, S)),
-                    ("pos0", pos0, torch.int32, (B,)),
-                    ("slopes", slopes, torch.float32, (H,))), dev)
+    slopes = _checked_operands(q, k, v, k_scale, v_scale, pos0, slopes,
+                               out_dtype, (B, H, S))
     lib = _ext.load(_SPLIT_SOURCE)
-    fn = lib.int8_kv_attention_split
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 \
-            + [ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    n_split = -(-S // _SPAN)
-    # per split: the unnormalized output, and the max and sum of exp
-    part_o = torch.empty((B, H, n_split, T, D), dtype=torch.float32,
-                         device=dev)
-    part_ml = torch.empty((2, B, H, n_split, T), dtype=torch.float32,
-                          device=dev)
+    fn = _entry(lib, "int8_kv_attention_split", 5)
+    span, part_o, part_ml = _split_scratch(B, H, T, S, dev)
     out = torch.empty((B, H, T, D), dtype=out_dtype, device=dev)
-    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
-              v_scale.data_ptr(), pos0.data_ptr(), slopes.data_ptr(),
-              part_o.data_ptr(), part_ml[0].data_ptr(),
-              part_ml[1].data_ptr(), out.data_ptr(),
-              int(out_dtype == torch.bfloat16), B, H, T, S, _SPAN,
+    code = fn(q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
+              v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+              pos0.data_ptr(), slopes.data_ptr(), part_o.data_ptr(),
+              part_ml[0].data_ptr(), part_ml[1].data_ptr(), out.data_ptr(),
+              int(out_dtype == torch.bfloat16), B, H, T, S, span,
               _qscale(D), _ext.stream_ptr(dev))
     _ext.check(lib, code, "int8_kv_attention_split")
     K7_COUNTS["launches"] += 1
@@ -230,10 +283,61 @@ def int8_kv_attention(q: torch.Tensor, k_i8: torch.Tensor,
     returns           (B, H, T, D) out_dtype
     """
     if q.is_cuda:
-        return _launch_split(q.to(torch.float32).contiguous(), k_i8, v_i8,
-                             k_scale, v_scale, pos0, slopes, out_dtype)
+        return _launch_split(_kernel_q(q), k_i8, v_i8, k_scale, v_scale,
+                             pos0, slopes, out_dtype)
     return int8_kv_attention_plain(q, k_i8, v_i8, k_scale, v_scale, pos0,
                                    slopes, out_dtype=out_dtype)
+
+
+def _bf16_parts(x: torch.Tensor, parts: int) -> list:
+    """f32 x as ``parts`` bf16 terms, largest first, each back in f32:
+    hi = bf16(x), then bf16 of what is left. Three parts hold every f32
+    value exactly (8 + 8 + 8 significant bits)."""
+    out = []
+    for _ in range(parts):
+        term = x.to(torch.bfloat16).to(torch.float32)
+        out.append(term)
+        x = x - term
+    return out
+
+
+def stacked_int8_kv_attention_hilo(
+        l: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        k_scale: torch.Tensor, v_scale: torch.Tensor, pos0: torch.Tensor,
+        slopes: Optional[torch.Tensor] = None, *, parts: int = 3,
+        out_dtype=torch.float32) -> torch.Tensor:
+    """The arithmetic of K2's prefill regime in plain PyTorch (tests only):
+    qs = f32(q) * qscale and p * v_scale each split into ``parts`` bf16
+    terms (the kernel takes 3) against the exact int8 codes, f32 sums, an
+    online softmax over key tiles of 64 taken in order, with the rescale
+    of the running output and sum."""
+    B, H, T, D = q.shape
+    S = k.shape[3]
+    qp = _bf16_parts(q.to(torch.float32) * _qscale(D), parts)
+    kf, vf = k[l].to(torch.float32), v[l].to(torch.float32)
+    rel = _rel(pos0, T, S)[:, None]                          # (B, 1, T, S)
+    if slopes is None:
+        slopes = torch.zeros(H, dtype=torch.float32, device=q.device)
+    alibi = slopes.to(torch.float32)[None, :, None, None] * rel.to(
+        torch.float32)
+    m = torch.full((B, H, T, 1), -float("inf"), device=q.device)
+    lsum = torch.zeros((B, H, T, 1), device=q.device)
+    o = torch.zeros((B, H, T, D), device=q.device)
+    kmax = min(int(pos0.max()) + T - 1, S - 1)
+    for k0 in range(0, kmax + 1, _KT):
+        sl = slice(k0, min(k0 + _KT, S))
+        kt = kf[:, :, sl].transpose(-1, -2)
+        s = sum(torch.matmul(a, kt) for a in qp)
+        s = s * k_scale[l][:, :, None, sl] + alibi[..., sl]
+        s = torch.where(rel[..., sl] <= 0, s, torch.full_like(s, _NEG_BIG))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        lsum = lsum * corr + p.sum(dim=-1, keepdim=True)
+        pv = _bf16_parts(p * v_scale[l][:, :, None, sl], parts)
+        o = o * corr + sum(torch.matmul(a, vf[:, :, sl]) for a in pv)
+        m = m_new
+    return (o / lsum).to(out_dtype)
 
 
 def attention_oracle(q, k_i8, v_i8, k_scale, v_scale, pos0, slopes=None):

@@ -24,7 +24,8 @@ computes one layer ``l``:
 
 - K5, :func:`stacked_quant_matmul` at M > 256 (the reference's
   ``_prefill_i8``): K1 or K3 for prefill-size M, on the int8 tensor
-  cores, with the same numbers (the reference holds its M-blocked kernel
+  cores (wgmma for int8 values, mma.sync for OVP bytes), with the same
+  numbers (the reference holds its M-blocked kernel
   bit-identical to the decode kernel, so K5's plain version is K1's or
   K3's). As in the reference, 64 < M <= 256 stays on K1/K3.
 - K6, :func:`stacked_quant_matmul_p4`: the packed 4-bit weights of
@@ -65,7 +66,7 @@ __all__ = ["stacked_quant_matmul", "stacked_quant_matmul_plain",
            "stacked_quant_matmul_aovp", "stacked_quant_matmul_aovp_plain",
            "stacked_quant_matmul_p4", "stacked_quant_matmul_p4_plain",
            "int8_matmul", "COUNTS", "K3_COUNTS", "K4_COUNTS", "K5_COUNTS",
-           "K6_COUNTS", "PREFILL_M"]
+           "K6_COUNTS", "PREFILL_M", "prefill_snap"]
 
 # launches of each CUDA kernel, and calls of its plain version (K5 counts
 # both of its modes, int8 values and OVP)
@@ -225,16 +226,39 @@ def _launch_prefill(l, x, w, scales, a_q, a_scale, ovp, block_k):
         raise ValueError(f"K5 needs OVP segments of a multiple of {_K5_BK} "
                          f"rows, K = {K} and block_k = {block_k} give {seg}")
     lib = _ext.load(_PREFILL_SOURCE)
-    fn = _fn(lib, "stacked_prefill_matmul", 7, 8)
+    fn = _fn(lib, "stacked_prefill_matmul", 7, 9)
     xq = torch.empty((M, K), dtype=torch.int8, device=dev)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     code = fn(x.data_ptr(), xq.data_ptr(), w.data_ptr(), a_q.data_ptr(),
               a_scale.data_ptr(), scales.data_ptr(), out.data_ptr(),
-              l, M, K, N, a_q.shape[1], seg // _K5_BK, per_block, int(ovp),
-              _ext.stream_ptr(dev))
+              l, L, M, K, N, a_q.shape[1], seg // _K5_BK, per_block,
+              int(ovp), _ext.stream_ptr(dev))
     _ext.check(lib, code, "stacked_prefill_matmul")
     K5_COUNTS["launches"] += 1
     return out
+
+
+def prefill_snap(l: int, x: torch.Tensor, a_q: torch.Tensor,
+                 a_scale: torch.Tensor) -> torch.Tensor:
+    """K5's snap pre-kernel alone, ``int8(snap(x / a_scale[l]; a_q[l]))``
+    -> (M, K) int8, to time it apart from the product (the engine never
+    calls it, and it counts as no K5 launch). A CPU tensor takes the
+    plain version's snap."""
+    if not x.is_cuda:
+        return snap_value(x.to(torch.float32) / a_scale[l],
+                          a_q[l].to(torch.float32)).to(torch.int8)
+    M, K = x.shape
+    dev = x.device
+    _check_operands((("x", x, torch.float32), ("a_q", a_q, torch.float32),
+                     ("a_scale", a_scale, torch.float32)), dev)
+    lib = _ext.load(_PREFILL_SOURCE)
+    fn = _fn(lib, "snap_i8_matrix", 4, 4)
+    xq = torch.empty((M, K), dtype=torch.int8, device=dev)
+    code = fn(x.data_ptr(), xq.data_ptr(), a_q.data_ptr(),
+              a_scale.data_ptr(), l, M, K, a_q.shape[1],
+              _ext.stream_ptr(dev))
+    _ext.check(lib, code, "snap_i8_matrix")
+    return xq
 
 
 def stacked_quant_matmul(l: int, x: torch.Tensor, w: torch.Tensor,

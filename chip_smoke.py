@@ -10,7 +10,10 @@ Phases, each printing one JSON line (numbers unrounded):
 3. hbm: the card's copy bandwidth, from a large device-to-device copy;
 4. kernel checks: each kernel against its plain PyTorch version on the
    card, at the OPT-6.7B shapes of the main path: K1 bit-equal, K2 within
-   atol 2e-2 + rtol 1e-2 (bf16 output) and atol 1e-4 (f32 output);
+   atol 2e-2 + rtol 1e-2 (bf16 q and output) and atol 1e-4 (f32) at T 1,
+   5 and 16 (positions split across blocks) and 17, 100 and 512 (bf16
+   tensor cores), pos0 0 and ragged with a last query at S - 1, ALiBi on
+   and off;
 5. main path: the OPT-6.7B W4A4 + INT8-KV + int8-lm_head engine at full
    width and depth (32 layers), random weights from a seeded generator,
    served through ``Engine.prefill`` (bs 4 x 512 tokens) and 64 greedy
@@ -20,7 +23,8 @@ Phases, each printing one JSON line (numbers unrounded):
    launches, layers rotated so weights come from device memory), beside
    the plain versions, one library call for the same work, and the bound
    (the larger of bytes over 3.35 TB/s and operations over the peak rate
-   of their type, H100 SXM data sheet);
+   of their type, H100 SXM data sheet: attention's at the bf16 tensor-core
+   rate, the int8 products' at the int8 one); K2 also at T = 512;
 7. profile: torch.profiler over one prefill and a few decode steps of
    the main-path engine: device time by kernel and the device's busy
    share of the wall time;
@@ -50,7 +54,9 @@ Phases, each printing one JSON line (numbers unrounded):
    ``stacked_prefill=True``: one prefill whose site matmuls all launch
    K5 (192), logits bit-equal to the unstacked prefill (OVP weights:
    within SP_OVP_RTOL), 8 greedy steps each; K5 times at one prefill
-   layer (M = 2048) beside the torch route it replaces; a profile; and
+   layer (M = 2048) beside the torch route it replaces, with its snap
+   pre-kernel timed alone beside that one's byte bound; K5's OVP mode
+   alone on the OVP-weights stacks; a profile; and
    in situ at 2 layers, every K5 call checked and a swap for its plain
    version that must give identical tokens and logits;
 14. w4pack path: OPT-6.7B with packed 4-bit weights built on the card
@@ -85,12 +91,13 @@ The kernel checks (4) include K3 and K4 against their plain versions,
 bit for bit, at the three site shapes and M 4 and 64, on exact concat
 midpoints, padded duplicates and outlier pairs, and on adversarial
 inputs at K = 16384 whose partial sums pass 2^24; and K6 (M 1, 4, 64,
-affine and table decode) and K5 (M 300 and 2048, int8 values and OVP,
-and K3's adversarial case) bit for bit, K8 (M 4 and 2048) within
-K8_RTOL of each output's sum of term magnitudes; K7 (S 2048 and 16,384,
+affine and table decode) and K5 (M 257, 300, 2048 and 4096, int8
+values on wgmma and OVP bytes, and K3's adversarial case) bit for bit,
+K8 (M 4 and 2048) within K8_RTOL of each output's sum of term magnitudes; K7 (S 2048 and 16,384,
 T 1, 4 and 16, ragged pos0, ALiBi on and off) within K2's tolerance; K9
-(fc_in and fc_out, M 1, 4, 64, 300 and 2048, exact midpoint ties after
-the multiply by 1 / a_scale) bit for bit.
+(fc_in and fc_out, M 1, 4, 64, 65, 257, 300 and 2048; K 4160 by N 4104
+at M 65 and 300; exact midpoint ties after the multiply by 1 / a_scale)
+bit for bit.
 
 Then the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -115,6 +122,7 @@ BATCH, PREFILL, DECODE = 4, 512, 64
 MAX_SEQ = PREFILL + DECODE + 32
 HBM_BPS = 3.35e12          # H100 SXM data sheet
 INT8_OPS = 1.979e15        # dense int8 tensor-core peak
+BF16_FLOPS = 989e12        # dense bf16 tensor-core peak
 F32_FLOPS = 67e12          # f32 outside the tensor cores
 # K2 agrees with its plain version within atol + rtol * |plain|: in bf16
 # one output step is up to 2^-7 of the value, so a summation-order
@@ -263,22 +271,30 @@ def phase_checks(torch, gen):
     slopes = torch.tensor(alibi_slopes(H), dtype=torch.float32,
                           device="cuda")
     k2_err = {"bf16": 0.0, "f32": 0.0}
-    cases = [(1, [0, 0, 0, 0]), (1, [512] * 4), (1, [0, 100, 333, S - 1]),
-             (512, [0] * 4), (512, [0, 17, 50, S - 512])]
+    # decode (T <= 16, split positions) and prefill (tensor cores) regimes,
+    # ragged pos0 with the last query at S - 1; q in bf16 (as the engine
+    # passes it) with bf16 output, in f32 with f32 output
+    cases = [(1, [512] * 4)] + [
+        (T, p0) for T in (1, 5, 16, 17, 100, 512)
+        for p0 in ([0] * 4, [0, 17, 333 if T < 256 else 50, S - T])]
     for T, p0 in cases:
-        q = torch.randn((B, H, T, D), device="cuda", generator=gen)
+        q32 = torch.randn((B, H, T, D), device="cuda", generator=gen)
         pos0 = torch.tensor(p0, dtype=torch.int32, device="cuda")
         for sl in (None, slopes):
             for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+                q = q32.to(dt)
+                before = k2.COUNTS["launches"]
                 got = k2.stacked_int8_kv_attention(1, q, k, v, ks, vs, pos0,
                                                    sl, out_dtype=dt)
+                if k2.COUNTS["launches"] != before + 1:
+                    fail(f"K2 did not launch once at T={T}")
                 want = k2.stacked_int8_kv_attention_plain(
                     1, q, k, v, ks, vs, pos0, sl, out_dtype=dt)
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
                 ok = k2_close(torch, got, want, tag)
                 emit({"phase": "check", "kernel": "K2", "T": T, "pos0": p0,
-                      "alibi": sl is not None, "out": tag,
+                      "alibi": sl is not None, "out": tag, "q": tag,
                       "max_abs_err": err, "atol_rtol": K2_TOL[tag],
                       "pass": ok})
                 if not ok:
@@ -456,7 +472,8 @@ def phase_checks_w4pack(torch, gen):
     """K6, K5 and K8 against their plain versions on the card, at the
     three OPT site shapes: K6 bit for bit at M 1, 4 and 64, affine and
     table decode; K5 (stacked_quant_matmul at M > 256) bit for bit at M
-    300 and 2048, int8 values and OVP bytes, and on K3's adversarial
+    257, 300, 2048 and 4096, int8 values (wgmma) and OVP bytes
+    (mma.sync), and on K3's adversarial
     K = 16384 case whose 256-row segment sums pass 2^24; K8 at M 4 and
     2048 within K8_RTOL of each output's sum of term magnitudes."""
     import numpy as np
@@ -499,8 +516,8 @@ def phase_checks_w4pack(torch, gen):
                 record("K6", got, want, exact, M=M, K=K, N=N, affine=affine)
         del w
     for K, N in shapes:
-        for M, ovp, adv in ((300, False, False), (2048, False, False),
-                            (300, True, False), (2048, True, False)) + (
+        for M, ovp, adv in tuple((M, ovp, False) for ovp in (False, True)
+                                 for M in (257, 300, 2048, 4096)) + (
                 ((300, True, True),) if K == ff else ()):
             if ovp:
                 x, w, sc, aq, asc, l = _k3_operands(torch, M, K, N, 2, gen,
@@ -1025,12 +1042,17 @@ def k1_bound(M, K, N, G=16):
     return byts, ops, _bound(byts, ops, INT8_OPS)[0]
 
 
-def k2_bound(B, H, T, D, S, pos0):
+def k2_bound(B, H, T, D, S, pos0, q_bytes=4, out_bytes=2):
+    """K2's (and K7's) bound: the visible cache read once, q read at the
+    element size of the timed call, the output written once, against the
+    score and PV operations at the bf16 tensor-core rate (the least the
+    card could take for them)."""
     vis = [min(p + t + 1, S) for p in pos0 for t in range(T)]
     keys = sum(min(p + T, S) for p in pos0)       # each key read once
-    byts = keys * H * (2 * D + 8) + B * H * T * D * (4 + 2) + 4 * B + 4 * H
+    byts = (keys * H * (2 * D + 8) + B * H * T * D * (q_bytes + out_bytes)
+            + 4 * B + 4 * H)
     ops = sum(vis) * H * 4 * D
-    return (byts, ops, *_bound(byts, ops, F32_FLOPS))
+    return (byts, ops, *_bound(byts, ops, BF16_FLOPS))
 
 
 def phase_times(torch, engine):
@@ -1072,7 +1094,9 @@ def phase_times(torch, engine):
     k2_rows = []
     for T, p in ((1, PREFILL + DECODE - 1), (PREFILL, 0)):
         pos0 = torch.full((B,), p, dtype=torch.int32, device="cuda")
-        q = torch.randn((B, H, T, D), device="cuda", generator=gen)
+        # q in bf16, as the engine passes it
+        q = torch.randn((B, H, T, D), device="cuda", generator=gen).to(
+            torch.bfloat16)
         n_l = L if T == 1 else 4
         iters = 2 * n_l
         t_k = cuda_ms(torch, lambda i: k2.stacked_int8_kv_attention(
@@ -1084,15 +1108,14 @@ def phase_times(torch, engine):
             kl, vl = dequant_kv(type(kv)(*(a[l] for a in kv)), torch.bfloat16)
             kd.append(kl[:, :, :p + T])
             vd.append(vl[:, :, :p + T])
-        qb = q.to(torch.bfloat16)
         if T == 1:
             t_l = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
-                qb, kd[i % n_l], vd[i % n_l]), iters)
+                q, kd[i % n_l], vd[i % n_l]), iters)
         else:
             t_l = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
-                qb, kd[i % n_l], vd[i % n_l], is_causal=True), iters)
+                q, kd[i % n_l], vd[i % n_l], is_causal=True), iters)
         del kd, vd
-        byts, ops, bound, by = k2_bound(B, H, T, D, S, [p] * B)
+        byts, ops, bound, by = k2_bound(B, H, T, D, S, [p] * B, q_bytes=2)
         k2_rows.append({"T": T, "pos0": p, "B": B, "H": H, "S": S,
                         "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
                         "bound_ms": bound, "bound_by": by, "bytes": byts,
@@ -1266,16 +1289,65 @@ def phase_times_k5(torch, engine):
         xq = snap_value(x / asc[0], aq[0]).to(torch.int8)
         t_l = cuda_ms(torch, lambda i: torch._int_mm(xq, w[i % L].t()),
                       iters)
+        # the snap pre-kernel alone: x read once, the int8 codes written
+        t_s = cuda_ms(torch, lambda i: ks.prefill_snap(i % L, x, aq, asc),
+                      iters)
+        snap_bytes = 4 * M * K + M * K + 4 * 17
         byts = 4 * M * K + K * N + 4 * M * N + 4 * N + 4 * 17
         ops = 2 * M * K * N
         bound, by = _bound(byts, ops, INT8_OPS)
         rows.append({"site": name, "M": M, "K": K, "N": N, "ms": t_k,
                      "plain_ms": t_p, "library_ms": t_l, "bound_ms": bound,
-                     "bound_by": by, "bytes": byts, "ops": ops})
+                     "bound_by": by, "bytes": byts, "ops": ops,
+                     "snap_ms": t_s, "snap_bound_ms": _bound(
+                         snap_bytes, 0, INT8_OPS)[0]})
     emit({"phase": "kernel_times_k5", "graphed": True,
           "plain_note": "K5's plain version is the torch route it replaces",
           "library_note": "torch._int_mm on the snapped codes: the product "
-                          "without the snap", "K5": rows})
+                          "without the snap",
+          "snap_note": "the snap pre-kernel alone (part of every K5 launch), "
+                       "beside its byte bound: x f32 read, int8 written",
+          "K5": rows})
+    return rows
+
+
+def phase_times_k5_ovp(torch, ovpw_engine):
+    """K5's OVP mode alone at one prefill layer's six sites (M = 2048) on
+    the OVP-weights engine's 32-layer stacks of OVP bytes, layers rotated:
+    beside its bound (two int8 dots), its plain version (the torch route
+    with two _int_mm and K3's f32 order) and torch._int_mm for one of its
+    two dots on the same bytes (no single call computes the pair)."""
+    from ant_quantization_tpu_torch.kernels import stacked as ks
+    from ant_quantization_tpu_torch.serve.engine import _prepare_stacked
+    stk = _prepare_stacked(ovpw_engine.cfg, ovpw_engine.engine_params(),
+                           BATCH)
+    L = ovpw_engine.cfg.lm.n_layers
+    bk = ovpw_engine.cfg.stacked_block_k
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    M, iters = BATCH * PREFILL, 2 * L
+    rows = []
+    for name in engine_layer_shapes(ovpw_engine.cfg.lm):
+        s = stk[name]
+        w, sc, aq, asc = s["w"], s["scales"], s["a_q"], s["a_scale"]
+        N, K = w.shape[1:]
+        x = torch.randn((M, K), device="cuda", generator=gen)
+        t_k = cuda_ms(torch, lambda i: ks.stacked_quant_matmul(
+            i % L, x, w, sc, aq, asc, ovp=True, block_k=bk), iters)
+        t_p = cuda_ms(torch, lambda i: ks.stacked_quant_matmul_plain(
+            i % L, x, w, sc, aq, asc, ovp=True, block_k=bk), iters)
+        xq = torch.randint(-64, 65, (M, K), dtype=torch.int8, device="cuda",
+                           generator=gen)
+        t_l = cuda_ms(torch, lambda i: torch._int_mm(xq, w[i % L].t()),
+                      iters)
+        byts, ops, bound, by = ovp_bound(M, K, N, 2, 4 * (aq.shape[1] + 1))
+        rows.append({"site": name, "M": M, "K": K, "N": N, "ms": t_k,
+                     "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
+                     "bytes": byts, "ops": ops, "int_mm_ms": t_l})
+    emit({"phase": "kernel_times_k5_ovp", "graphed": True,
+          "int_mm_note": "torch._int_mm on the same OVP bytes as int8: one "
+                         "of K5's two dots, not the same function",
+          "K5_ovp": rows})
     return rows
 
 
@@ -1668,16 +1740,20 @@ def _k9_operands(torch):
 def phase_checks_k9(torch, gen):
     """K9 against its plain version on the card, bit for bit, at OPT-6.7B's
     fc_in (4096 -> 16384) and fc_out (16384 -> 4096), M 1, 4, 64 (the
-    __dp4a route), 300 and 2048 (the tensor-core route); row 0 starts
-    with an exact midpoint tie per codebook gap."""
+    __dp4a route), 65, 257, 300 and 2048 (the wgmma route), and at K 4160
+    and N 4104, neither a multiple of the wgmma tiles (TMA's zero fill at
+    the K and N tails); row 0 starts with an exact midpoint tie per
+    codebook gap."""
     from ant_quantization_tpu_torch.kernels import qmatmul as kq
     a_q, a_scale, ties = _k9_operands(torch)
     err = 0.0
-    for K, N in ((4096, 16384), (16384, 4096)):
+    for K, N, Ms in ((4096, 16384, (1, 4, 64, 65, 257, 300, 2048)),
+                     (16384, 4096, (1, 4, 64, 65, 257, 300, 2048)),
+                     (4160, 4104, (65, 300))):
         w = torch.randint(-64, 64, (N, K), dtype=torch.int8, device="cuda",
                           generator=gen)
         osc = torch.rand((N,), device="cuda", generator=gen) * 2e-3 + 1e-3
-        for M in (1, 4, 64, 300, 2048):
+        for M in Ms:
             x = torch.randn((M, K), device="cuda", generator=gen) * 8 * \
                 K9_A_SCALE
             x[0, :ties.shape[0]] = ties
@@ -2042,6 +2118,7 @@ def main() -> int:
     olive, olive_ep, olive_counts, olive_ids = phase_olive(torch, gen)
     ovpw, ovpw_counts = phase_ovp_weights(torch, olive_ep, olive_ids)
     ovp_rows = phase_times_ovp(torch, olive, ovpw)
+    k5_ovp_rows = phase_times_k5_ovp(torch, ovpw)
     phase_profile(torch, olive, olive_ids, path="OliVe")
     del olive, olive_ep
     sp, _ = phase_stacked_prefill(torch, ovpw, olive_ids,
@@ -2098,7 +2175,11 @@ def main() -> int:
                f"at position {dec['pos0']}, cache S={dec['S']}",
          "ms": dec["ms"], "plain_ms": dec["plain_ms"],
          "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-         "library_ms": dec["library_ms"]},
+         "library_ms": dec["library_ms"],
+         "prefill": {k: pre[k] for k in ("T", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+         "library_note": "SDPA on the dequantized bf16 cache (causal at "
+                         "prefill)"},
     ]
     for tag, fname, src, line, launches in (
             ("K3", "stacked_quant_matmul ovp=True (K3)", "stacked_i8.cu",
@@ -2160,6 +2241,18 @@ def main() -> int:
             "library_ms": sum(x.get("library_ms", x.get("int_mm_ms"))
                               for x in rows),
             "library_note": lib})
+    k5 = next(x for x in kernels if x["name"].endswith("(K5)"))
+    k5["snap"] = {"ms": sum(x["snap_ms"] for x in k5_rows),
+                  "bound_ms": sum(x["snap_bound_ms"] for x in k5_rows),
+                  "bound_by": "bytes",
+                  "note": "the snap pre-kernel alone, part of ms"}
+    k5["ovp_mode"] = {
+        "ms": sum(x["ms"] for x in k5_ovp_rows),
+        "plain_ms": sum(x["plain_ms"] for x in k5_ovp_rows),
+        "bound_ms": sum(x["bound_ms"] for x in k5_ovp_rows),
+        "bound_by": "operations", "library_ms": None,
+        "int_mm_reference_ms": sum(x["int_mm_ms"] for x in k5_ovp_rows),
+        "at": prefill_at + " on OVP bytes"}
     kernels.append({
         "name": "int8_kv_attention (K7)", "route": "cuda",
         "source": "ant_quantization_tpu_torch/csrc/int8_kv_attention_split.cu",

@@ -197,3 +197,25 @@ def test_stacked_prefill_engine(kind, B, T):
                            jeng.init_cache(jcfg, B), 0)
     np.testing.assert_allclose(logits[True].numpy(), np.asarray(want),
                                rtol=5e-3, atol=5e-3)
+
+
+def test_prefill_snap_cpu_is_the_plain_snap():
+    """``prefill_snap`` (K5's snap pre-kernel alone, for timing) takes the
+    plain version's snap on a CPU tensor: the codes whose product with
+    W[l] is the plain version's int32 sum, and no K5 launch is counted."""
+    rng = np.random.default_rng(3)
+    L, M, K, N, l = 2, 300, 256, 64, 1
+    a_q = torch.from_numpy(np.sort(rng.integers(-127, 128, (L, 16)),
+                                   axis=1).astype(np.float32))
+    a_scale = torch.tensor([0.5, 0.25])
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32) * 20)
+    w = torch.from_numpy(rng.integers(-127, 128, (L, N, K)).astype(np.int8))
+    scales = torch.ones((L, N))
+    before = _counts()
+    xq = tk.prefill_snap(l, x, a_q, a_scale)
+    assert _counts() == before
+    assert xq.dtype == torch.int8 and xq.shape == (M, K)
+    assert set(xq.unique().tolist()) <= set(a_q[l].tolist())
+    want = tk.stacked_quant_matmul_plain(l, x, w, scales, a_q, a_scale)
+    got = tk.int8_matmul(xq, w[l]).to(torch.float32)
+    assert torch.equal(got, want)
