@@ -19,6 +19,8 @@ Layouts that change:
 - every other site leaf (``oscale``, ``bias``, ``ovp``, ``a_grid``,
   ``a_alpha``, ``a_out``, the ``aovp_*`` tables of K4, and "w4pack"'s
   ``grid``, ``q16`` and ``affine4``) keeps its values and dtype;
+- "w4pack" sites gain K8's term tables ``k8_terms`` and ``k8_unit``,
+  made from each layer's ``grid`` as ``build_engine_params`` makes them;
 - KV codes (L, B, H, S/f, f*D) lane-folded -> flat (L, B, H, S, D), and
   plane-major scales (L, B, H, f, S/f) -> (L, B, H, S), by position.
 """
@@ -33,6 +35,7 @@ import torch
 from ._ext import resolve_device
 from .kernels.kv_cache import QuantKV
 from .models.transformer_lm import ALL_SITES
+from .serve.engine import k8_plan_leaves
 
 __all__ = ["from_jax_engine_params", "from_jax_kv"]
 
@@ -73,6 +76,10 @@ def from_jax_engine_params(tree: Dict, device=None) -> Dict:
                                                 (0, 2, 1)), dev)
         if "packed" in site:
             n = np.asarray(site["packed"]).shape[2]
+            plans = [k8_plan_leaves(g, dev) for g in np.asarray(
+                site["grid"], np.float32).reshape(-1, 16)]
+            for key in ("k8_terms", "k8_unit"):
+                out[key] = torch.stack([p[key] for p in plans])
             for key in ("scale", "oscale"):
                 out[key] = _tensor(np.broadcast_to(
                     np.asarray(site[key], np.float32).reshape(

@@ -1,5 +1,7 @@
 // The prefill-size int8 product of K5 (stacked_prefill.cu, int8-value
-// weights) and K9 (w8a8_matmul.cu) on Hopper's warpgroup tensor cores:
+// weights) and K9 (w8a8_matmul.cu) on Hopper's warpgroup tensor cores
+// (its mbarrier, TMA and tensor-map pieces also serve K1's weight stream,
+// i8_stream.cuh, and K8, qmatmul_w4.cu):
 // xq (M, K) int8 snapped codes against layer `layer` of an N-major
 // (L, N, K) int8 weight stack, int32 accumulation, then one f32 multiply
 // by scales[n]:
@@ -312,30 +314,33 @@ inline bool encode(CUtensorMap* map, const void* ptr, int rank,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The 3-D map of a weight stack, encoded once per stack and kept.
+// The 3-D map of a weight stack (boxes of 128 bytes of K by `rows`
+// columns), encoded once per stack and box and kept.
 struct StackMap {
   const void* ptr;
-  int L, N, K;
+  int L, N, K, rows;
   CUtensorMap map;
 };
 
-inline const CUtensorMap* stack_map(const int8_t* w, int L, int N, int K) {
+inline const CUtensorMap* stack_map(const int8_t* w, int L, int N, int K,
+                                    int rows = BN) {
   static StackMap cache[32];
   static int n_used = 0, next = 0;
   for (int i = 0; i < n_used; ++i) {
     const StackMap& e = cache[i];
-    if (e.ptr == w && e.L == L && e.N == N && e.K == K)
+    if (e.ptr == w && e.L == L && e.N == N && e.K == K && e.rows == rows)
       return &e.map;
   }
   StackMap& e = cache[next];
   const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)N, (cuuint64_t)L};
   const cuuint64_t strides[2] = {(cuuint64_t)K, (cuuint64_t)N * K};
-  const cuuint32_t box[3] = {BK, BN, 1};
+  const cuuint32_t box[3] = {BK, (cuuint32_t)rows, 1};
   if (!encode(&e.map, w, 3, dims, strides, box)) return nullptr;
   e.ptr = w;
   e.L = L;
   e.N = N;
   e.K = K;
+  e.rows = rows;
   next = (next + 1) % 32;
   if (n_used < 32) ++n_used;
   return &e.map;

@@ -33,17 +33,19 @@
 //
 // What bounds it: at decode (M = 4) the weight stream, K*N bytes per call
 // (16.8 MB for a 4096 x 4096 site), against 2*M*K*N int8 operations per
-// dot, so it is bound by bytes. Design: a first small kernel snaps x once
-// into an int8 (M, K) scratch (M*K bytes, it stays in L2); the matmul
-// kernel then gives each warp one output column n, whose K weight bytes
-// are one contiguous row of the N-major (L, N, K) stack, read once with
-// 16-byte loads; x codes are re-read from L1/L2. M rows are processed MT
-// at a time so each lane keeps MT int32 accumulators in registers; a warp
-// shuffle sums the lanes (K1's product is in i8_dot.cuh, shared with K9).
-// The layer index only offsets the pointer: no per-layer copy of the stack
-// exists.
+// dot, so it is bound by bytes. K1's design is i8_stream.cuh (shared with
+// K9 at M <= 64): one launch, the snap fused into each block, the weight
+// stream staged by TMA and split along K until the card is full. K3's:
+// the snap pre-kernel of snap_i8.cuh writes x's codes once into an int8
+// (M, K) scratch; the matmul kernel then gives each warp one output column
+// n, whose K weight bytes are one contiguous row of the N-major (L, N, K)
+// stack, read once with 16-byte loads; x codes are re-read from L1/L2. M
+// rows are processed MT at a time so each lane keeps MT int32 accumulators
+// in registers. The layer index only offsets the pointer: no per-layer
+// copy of the stack exists.
 
-#include "i8_dot.cuh"
+#include "i8_stream.cuh"
+#include "snap_i8.cuh"
 
 namespace {
 
@@ -150,21 +152,18 @@ const char* aq_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// x (M, K) f32; xq scratch (M, K) int8; w (L, N, K) int8; a_q (L, G) f32;
-// a_scale (L,) f32; scales (L, N) f32; out (M, N) f32, all on the device.
-// K % 16 == 0 and 16-byte aligned buffers (the wrapper checks).
-// Returns a cudaError_t.
-int stacked_i8_matmul(const float* x, int8_t* xq, const int8_t* w,
-                      const float* a_q, const float* a_scale,
-                      const float* scales, float* out, int l, int M, int K,
-                      int N, int G, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = launch_snap(x, xq, a_q, a_scale, l, M, K, G, s);
-  if (err != cudaSuccess) return (int)err;
-  const int8_t* wl = w + (long)l * N * K;
-  const float* sl = scales + (long)l * N;
-  launch_i8_dot(xq, wl, sl, out, M, K, N, s);
-  return (int)cudaGetLastError();
+// K1. x (M, K) f32; w (L, N, K) int8; a_q (L, G) f32; a_scale (L,) f32;
+// scales (L, N) f32; out (M, N) f32, all on the device; ws and count: the
+// split-K workspace (unused when splits == 1). mt and splits: the
+// wrapper's plan. K % 16 == 0 and 16-byte aligned buffers
+// (the wrapper checks). Returns a cudaError_t.
+int stacked_i8_matmul(const float* x, const int8_t* w, const float* a_q,
+                      const float* a_scale, const float* scales, float* out,
+                      int* ws, unsigned* count, int l, int L, int M, int K,
+                      int N, int G, int mt, int splits, void* stream) {
+  return (int)st::launch_i8_stream(x, w, L, l, a_q, a_scale, scales, out, ws,
+                                   count, M, K, N, G, mt, splits, false,
+                                   (cudaStream_t)stream);
 }
 
 // K3: as stacked_i8_matmul on sign-offset OVP weight bytes; seg and fold

@@ -26,11 +26,16 @@ one output column's packed bytes are contiguous, which both of its
 kernels stream (K6 in ``kernels/stacked.py`` one column per warp, K8 in
 column tiles). ``convert.py`` transposes the reference's stacks.
 
-K8 computes ``x (M, K) f32 @ grid[codes] * scale`` in f32: on a CUDA
-tensor it launches ``csrc/qmatmul_w4.cu`` (f32 FMAs on the CUDA cores,
-no TF32, no tensor cores), on a CPU tensor its plain version. The f32
-sum order differs between the two and from the reference's, so they
-agree within the rounding of an f32 dot, not bit for bit.
+K8 computes ``x (M, K) @ grid[codes] * scale`` with f32 products and
+sums: on a CUDA tensor it launches ``csrc/qmatmul_w4.cu`` (bf16 tensor
+cores on operands that bf16 holds exactly), on a CPU tensor its plain
+version. :func:`w4_term_plan` states each grid as bf16 terms (the grid
+itself, its int8 restatement with the unit in the epilogue, or a split
+into up to three terms), a bf16 x is one term and an f32 x three, and
+:func:`w4_products` lists the term products the kernel issues: those
+whose bound can exceed 1/16 of ``K8_RTOL``. The f32 sum order differs
+between kernel, plain version and reference, so they agree within
+``K8_RTOL`` of each output's sum of term magnitudes, not bit for bit.
 
 K9 launches ``csrc/w8a8_matmul.cu`` on a CUDA tensor and runs its plain
 version on a CPU tensor; both are bit-equal to the reference (exact
@@ -55,7 +60,8 @@ __all__ = ["int8_codebook", "quantize_weights_w4_i8", "OVP_OFFSET",
            "ovp_encode_scalar", "ovp_clip", "ovp_decode_values",
            "pack_w4", "unpack_w4", "quantize_weights_w4",
            "dequant_w4_reference", "tf32_off", "f32_product",
-           "quantized_matmul_w4",
+           "K8_RTOL", "TERM_BOUND", "bf16_terms", "w4_term_plan",
+           "w4_products", "quantized_matmul_w4",
            "quantized_matmul_w4_plain", "int8_matmul", "w8a8_snap",
            "fused_w8a8_matmul", "fused_w8a8_matmul_plain", "K8_COUNTS",
            "K9_COUNTS"]
@@ -324,17 +330,81 @@ def f32_product(a: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
         return a @ w.t()
 
 
+# K8's hold: within this share of each output's sum of term magnitudes
+# |x| @ |W| of the f32 product (a random-sign sum of K roundings stays near
+# 2^-24 of it)
+K8_RTOL = 1e-5
+# the largest magnitude of term i of bf16_terms, relative to the value:
+# hi rounds to 8 significant bits (the rest is at most 2^-8 of the
+# value), mid to 8 more (the rest at most 2^-17 of it)
+TERM_BOUND = (1.0, 2.0 ** -8, 2.0 ** -17)
+
+
+def bf16_terms(v: torch.Tensor) -> torch.Tensor:
+    """f32 values -> (3, ...) f32 tensors of bf16 values, hi first: each
+    the bf16 rounding of what the earlier ones leave (those differences
+    are exact in f32). The three terms sum to every f32 value exactly."""
+    rest = v.to(torch.float32)
+    out = []
+    for _ in range(3):
+        t = rest.to(torch.bfloat16).to(torch.float32)
+        out.append(t)
+        rest = rest - t
+    return torch.stack(out)
+
+
+def w4_term_plan(grid16) -> tuple[np.ndarray, float, int]:
+    """K8's weight table for one 16-entry grid, decided on the host once
+    per grid: ``(terms (3, 16) f32, unit, n)`` with ``sum_j terms[j] *
+    unit`` the grid and every value exact in bf16, rows past ``n`` zero.
+
+    1. the grid itself, where bf16 holds every entry (flint, pot, float);
+    2. else its int8 restatement ``q16`` (:func:`int8_codebook`), with the
+       unit moved into the epilogue (the int grid: 10/7 k);
+    3. else the grid split into bf16 terms (:func:`bf16_terms`)."""
+    g = np.asarray(grid16, np.float32).reshape(-1)[:16]
+    tab = np.zeros((3, 16), np.float32)
+    gt = torch.from_numpy(g.copy())
+    if torch.equal(gt.to(torch.bfloat16).to(torch.float32), gt):
+        tab[0] = g
+        return tab + 0.0, 1.0, 1
+    q16, unit, exact = int8_codebook(g)
+    if exact and np.all(np.abs(q16 * np.float64(unit) - g)
+                        <= 2.0 ** -22 * np.abs(g)):
+        tab[0] = q16
+        return tab + 0.0, float(unit), 1
+    tab[:] = bf16_terms(gt).numpy()
+    if not np.array_equal(tab.astype(np.float64).sum(0), g.astype(np.float64)):
+        raise ValueError(f"grid {g} has no exact three-term bf16 split")
+    n = max(j + 1 for j in range(3) if np.any(tab[j] != 0)) \
+        if np.any(tab != 0) else 1
+    return tab + 0.0, 1.0, n
+
+
+def w4_products(x_terms: int, w_terms: int = 3) -> list:
+    """The (x term, weight term) products K8 issues: those whose bound
+    ``TERM_BOUND[i] * TERM_BOUND[j]`` of the output's term-magnitude sum
+    exceeds 1/16 of ``K8_RTOL`` (the rest, together at most 2 * 2^-25,
+    leave the hold to the f32 sums). A bf16 x against one weight term: 1
+    product; an f32 x (three terms) against one: 3; against three: 6."""
+    return [(i, j) for i in range(x_terms) for j in range(w_terms)
+            if TERM_BOUND[i] * TERM_BOUND[j] > K8_RTOL / 16]
+
+
 def quantized_matmul_w4_plain(x: torch.Tensor, packed: torch.Tensor,
-                              scale: torch.Tensor,
-                              grid: torch.Tensor) -> torch.Tensor:
+                              scale: torch.Tensor, grid: torch.Tensor,
+                              terms: torch.Tensor = None,
+                              unit: torch.Tensor = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`quantized_matmul_w4`: the decoded
-    f32 weight, an f32 product, then the scale."""
+    f32 weight, an f32 product, then the scale. It decodes ``grid``
+    itself: ``terms`` and ``unit`` are the kernel's operands, taken for a
+    like call and not read."""
     K8_COUNTS["plain_calls"] += 1
     w = _decode16(unpack_w4(packed), grid)                    # (N, K)
     return f32_product(x, w) * scale.to(torch.float32)[None, :]
 
 
-def _launch_w4(x, packed, scale, grid):
+def _launch_w4(x, packed, scale, terms, unit):
     N, K2 = packed.shape
     M, K = x.shape
     dev = x.device
@@ -342,46 +412,70 @@ def _launch_w4(x, packed, scale, grid):
         raise ValueError(f"x (M, {2 * K2}) with K/2 a multiple of 16 "
                          f"expected, got x {tuple(x.shape)}, packed "
                          f"{tuple(packed.shape)}")
-    for name, t, dt, shape in (("x", x, torch.float32, (M, K)),
+    for name, t, dt, shape in (("x", x, x.dtype, (M, K)),
                                ("packed", packed, torch.uint8, (N, K2)),
                                ("scale", scale, torch.float32, (N,)),
-                               ("grid", grid, torch.float32, (16,))):
+                               ("terms", terms, torch.float32, (3, 16)),
+                               ("unit", unit, torch.float32, (1,))):
         if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
                 or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous {dt} tensor of "
                              f"shape {shape} on {dev}")
-    if x.data_ptr() % 16 or packed.data_ptr() % 8:
-        raise ValueError("x must be 16-byte and packed 8-byte aligned")
+    if x.data_ptr() % 16 or packed.data_ptr() % 16:
+        raise ValueError("x and packed must be 16-byte aligned")
+    x_f32 = x.dtype == torch.float32
+    # smallest bound first: the corrections are summed at their own scale
+    # before the leading product's sum takes them in
+    pairs = w4_products(3 if x_f32 else 1)[::-1]
     lib = _ext.load(_SOURCE)
-    fn = lib.w4_f32_matmul
+    fn = lib.w4_bf16_matmul
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    xs = (torch.empty((3, M, K), dtype=torch.bfloat16, device=dev)
+          if x_f32 else None)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    code = fn(x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-              grid.data_ptr(), out.data_ptr(), M, K, N,
-              _ext.stream_ptr(dev))
-    _ext.check(lib, code, "w4_f32_matmul")
+    pa = (ctypes.c_int * len(pairs))(*(a for a, _ in pairs))
+    pb = (ctypes.c_int * len(pairs))(*(b for _, b in pairs))
+    code = fn(x.data_ptr(), 0 if xs is None else xs.data_ptr(),
+              packed.data_ptr(), scale.data_ptr(), terms.data_ptr(),
+              unit.data_ptr(), out.data_ptr(), M, K, N, int(x_f32), pa, pb,
+              len(pairs), _ext.stream_ptr(dev))
+    _ext.check(lib, code, "w4_bf16_matmul")
     K8_COUNTS["launches"] += 1
     return out
 
 
 def quantized_matmul_w4(x: torch.Tensor, packed: torch.Tensor,
-                        scale: torch.Tensor,
-                        grid: torch.Tensor) -> torch.Tensor:
+                        scale: torch.Tensor, grid: torch.Tensor,
+                        terms: torch.Tensor = None,
+                        unit: torch.Tensor = None) -> torch.Tensor:
     """K8: ``x @ dequant(packed) * scale`` -> (M, N) f32.
 
-    x:      (M, K) activations (taken to f32)
+    x:      (M, K) activations, bf16 (one term on the card, as the engine
+            passes them in ``cfg.dtype``) or f32 (three terms); other
+            dtypes are taken to f32
     packed: (N, K/2) uint8 split-K packed codes: one layer of the
             engine's (L, N, K/2) stack is the view ``stack[l]``, no copy
     scale:  (N,) f32 per-output-channel scale, alpha / max(grid)
     grid:   (16,) f32 integer-domain codebook
+    terms, unit: :func:`w4_term_plan` of ``grid`` as (3, 16) and () f32
+            tensors (the engine keeps them with the stack); on the card
+            without them the plan is made from ``grid``, which reads it
+            back to the host
     """
     if x.is_cuda:
-        return _launch_w4(x.to(torch.float32).contiguous(), packed,
+        if x.dtype not in (torch.bfloat16, torch.float32):
+            x = x.to(torch.float32)
+        if terms is None or unit is None:
+            tab, u, _ = w4_term_plan(grid.detach().cpu().numpy())
+            terms = torch.tensor(tab, device=x.device)
+            unit = torch.tensor(np.float32(u), device=x.device)
+        return _launch_w4(x.contiguous(), packed,
                           scale.to(torch.float32).contiguous(),
-                          grid.to(torch.float32).contiguous())
+                          terms.to(torch.float32).contiguous(),
+                          unit.to(torch.float32).reshape(1).contiguous())
     return quantized_matmul_w4_plain(x, packed, scale, grid)
 
 
@@ -439,17 +533,22 @@ def _launch_w8a8(x, w_i8, a_q, a_scale, out_scale):
                              f"shape {shape} on {dev}")
     if x.data_ptr() % 16 or w_i8.data_ptr() % 16:
         raise ValueError("x and w_i8 must be 16-byte aligned")
+    from .stacked import launch_k1_args
     lib = _ext.load(_W8A8_SOURCE)
     fn = lib.w8a8_matmul
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    xq = torch.empty((M, K), dtype=torch.int8, device=dev)
+    xq = (torch.empty((M, K), dtype=torch.int8, device=dev) if M > 64
+          else None)
+    ws, count, mt, splits = (launch_k1_args(M, K, N, dev) if M <= 64
+                             else (0, 0, 1, 1))
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    code = fn(x.data_ptr(), xq.data_ptr(), w_i8.data_ptr(), a_q.data_ptr(),
-              a_scale.data_ptr(), out_scale.data_ptr(), out.data_ptr(), M, K,
-              N, G, _ext.stream_ptr(dev))
+    code = fn(x.data_ptr(), 0 if xq is None else xq.data_ptr(),
+              w_i8.data_ptr(), a_q.data_ptr(), a_scale.data_ptr(),
+              out_scale.data_ptr(), out.data_ptr(), ws, count, M, K, N, G,
+              mt, splits, _ext.stream_ptr(dev))
     _ext.check(lib, code, "w8a8_matmul")
     K9_COUNTS["launches"] += 1
     return out

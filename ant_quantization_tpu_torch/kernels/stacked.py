@@ -39,7 +39,9 @@ computes one layer ``l``:
 of their numbers (``EngineConfig.stacked_block_k``).
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
-(``csrc/stacked_i8.cu`` for K1 and K3, ``csrc/stacked_prefill.cu`` for
+(``csrc/stacked_i8.cu`` for K1, on the staged split-K weight stream of
+``csrc/i8_stream.cuh`` laid out by :func:`k1_plan`, and K3,
+``csrc/stacked_prefill.cu`` for
 K5, ``csrc/stacked_p4.cu`` for K6, ``csrc/stacked_aovp.cu`` for K4; each
 source says what bounds it and how it is laid out); on a CPU tensor
 it runs its plain PyTorch version, which has the same arithmetic in the
@@ -66,7 +68,8 @@ __all__ = ["stacked_quant_matmul", "stacked_quant_matmul_plain",
            "stacked_quant_matmul_aovp", "stacked_quant_matmul_aovp_plain",
            "stacked_quant_matmul_p4", "stacked_quant_matmul_p4_plain",
            "int8_matmul", "COUNTS", "K3_COUNTS", "K4_COUNTS", "K5_COUNTS",
-           "K6_COUNTS", "PREFILL_M", "prefill_snap"]
+           "K6_COUNTS", "PREFILL_M", "prefill_snap", "k1_plan",
+           "split_workspace"]
 
 # launches of each CUDA kernel, and calls of its plain version (K5 counts
 # both of its modes, int8 values and OVP)
@@ -83,6 +86,66 @@ _P4_SOURCE = "stacked_p4.cu"
 _SUB = 256          # K3's int32 sub-chunk rows (the reference's `sub`)
 PREFILL_M = 256     # larger M takes K5 (the reference's M-blocked route)
 _K5_BK = 64         # K5's K tile: K and the OVP segments are multiples
+# K1's weight stream (csrc/i8_stream.cuh): output columns per block, K
+# bytes per stage, stages in flight, threads per block, the SMs to fill,
+# and the tile counters at the head of the split-K workspace
+K1_COLS, K1_STEP, K1_STAGES, K1_THREADS, K1_SMS = 128, 128, 4, 256, 132
+K1_COUNTERS = 1 << 16
+K1_MT = (1, 2, 4, 8, 16)        # x rows per block
+
+
+def k1_plan(M: int, K: int, N: int) -> dict:
+    """K1's launch plan at (M, K, N), M <= 256: ``mt`` x rows per block
+    (the smallest of K1_MT that covers M, else 16, then M tiles of 16)
+    and ``splits`` K ranges of whole ``K1_STEP``-byte stages, as many as
+    keep the grid within one wave of two blocks per SM, never more than
+    there are stages. ``smem`` is a block's shared memory as the kernel
+    counts it: the stage ring, the other half-column's int32 sums, and
+    two stages' x codes."""
+    mt = next((t for t in K1_MT if t >= M), K1_MT[-1])
+    m_tiles, n_tiles = -(-M // mt), -(-N // K1_COLS)
+    steps = -(-K // K1_STEP)
+    splits = min(steps, max(1, 2 * K1_SMS // (m_tiles * n_tiles)))
+    tpc = K1_THREADS // K1_COLS
+    smem = (1024 + K1_STAGES * (K1_COLS * K1_STEP + 8) + 2 * 16 * 4
+            + (tpc - 1) * mt * K1_COLS * 4 + 2 * mt * K1_STEP)
+    return {"mt": mt, "m_tiles": m_tiles, "n_tiles": n_tiles,
+            "steps": steps, "splits": splits,
+            "blocks": m_tiles * n_tiles * splits, "smem": smem}
+
+
+_SPLIT_WS: dict = {}
+
+
+def split_workspace(dev: torch.device, n: int) -> torch.Tensor:
+    """K1's split-K workspace on ``dev``: ``K1_COUNTERS`` tile counters,
+    zero, then room for ``n`` int32 partial sums. The kernel overwrites
+    the partials and leaves the counters zero, so one buffer serves every
+    call on the device (one stream at a time); it is made outside CUDA
+    graph captures, as their warm-up calls do."""
+    n += K1_COUNTERS
+    ws = _SPLIT_WS.get(dev)
+    if ws is None or ws.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("K1's split-K workspace grows inside a CUDA "
+                               "graph capture; call once before capturing")
+        ws = torch.zeros(max(n, 1 << 20), dtype=torch.int32, device=dev)
+        _SPLIT_WS[dev] = ws
+    return ws
+
+
+def launch_k1_args(M: int, K: int, N: int, dev: torch.device) -> tuple:
+    """(partials pointer, counters pointer, mt, splits) for one launch of
+    K1's product."""
+    plan = k1_plan(M, K, N)
+    mt, splits = plan["mt"], plan["splits"]
+    if splits == 1:
+        return 0, 0, mt, 1
+    if plan["m_tiles"] * plan["n_tiles"] > K1_COUNTERS:
+        raise ValueError(f"K1 at M {M}, N {N} has more tiles than the "
+                         f"{K1_COUNTERS} split-K counters")
+    ws = split_workspace(dev, splits * M * N)
+    return ws.data_ptr() + 4 * K1_COUNTERS, ws.data_ptr(), mt, splits
 
 
 def _fit(n: int, want: int, quantum: int = 128) -> int:
@@ -195,20 +258,24 @@ def _launch(l, x, w, scales, a_q, a_scale, ovp, block_k):
     if M > PREFILL_M:
         return _launch_prefill(l, x, w, scales, a_q, a_scale, ovp, block_k)
     lib = _ext.load(_SOURCE)
-    xq = torch.empty((M, K), dtype=torch.int8, device=dev)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    ptrs = (x.data_ptr(), xq.data_ptr(), w.data_ptr(), a_q.data_ptr(),
-            a_scale.data_ptr(), scales.data_ptr(), out.data_ptr())
     if ovp:
         seg, per_block = _check_segments(K, block_k, _SUB)
+        xq = torch.empty((M, K), dtype=torch.int8, device=dev)
         fn = _fn(lib, "stacked_i8_ovp_matmul", 7, 7)
-        code = fn(*ptrs, l, M, K, N, G, seg, per_block,
-                  _ext.stream_ptr(dev))
+        code = fn(x.data_ptr(), xq.data_ptr(), w.data_ptr(), a_q.data_ptr(),
+                  a_scale.data_ptr(), scales.data_ptr(), out.data_ptr(), l,
+                  M, K, N, G, seg, per_block, _ext.stream_ptr(dev))
         _ext.check(lib, code, "stacked_i8_ovp_matmul")
         K3_COUNTS["launches"] += 1
     else:
-        fn = _fn(lib, "stacked_i8_matmul", 7, 5)
-        code = fn(*ptrs, l, M, K, N, G, _ext.stream_ptr(dev))
+        if x.data_ptr() % 16 or w.data_ptr() % 16:
+            raise ValueError("x and w must be 16-byte aligned")
+        ws, count, mt, splits = launch_k1_args(M, K, N, dev)
+        fn = _fn(lib, "stacked_i8_matmul", 8, 8)
+        code = fn(x.data_ptr(), w.data_ptr(), a_q.data_ptr(),
+                  a_scale.data_ptr(), scales.data_ptr(), out.data_ptr(), ws,
+                  count, l, L, M, K, N, G, mt, splits, _ext.stream_ptr(dev))
         _ext.check(lib, code, "stacked_i8_matmul")
         COUNTS["launches"] += 1
     return out

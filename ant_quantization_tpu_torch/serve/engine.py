@@ -37,7 +37,8 @@ Routing follows the reference (``_prepare_stacked``):
   route, site by site;
 - the unfused "w4pack" route (prefill, and decode when the rule above
   fails) fake-quantizes the activation in ``cfg.dtype`` and runs K8
-  (``kernels/qmatmul.py``), an f32 product against the grid values;
+  (``kernels/qmatmul.py``) on it, an f32-exact product against the grid
+  values;
 - attention takes the reference's route at every shape
   (:func:`attention_route`): K2 (``kernels/attention.py``, one launch per
   layer for any T) while one head's tile fits the reference's budget;
@@ -69,7 +70,7 @@ from ..kernels.qmatmul import (f32_product, int8_codebook, int8_matmul,
                                ovp_encode_scalar, ovp_unit,
                                quantize_weights_ovp_i8, quantize_weights_w4,
                                quantize_weights_w4_i8, quantized_matmul_w4,
-                               tf32_off)
+                               tf32_off, w4_term_plan)
 from ..kernels.stacked import (stacked_quant_matmul,
                                stacked_quant_matmul_aovp,
                                stacked_quant_matmul_p4)
@@ -80,8 +81,9 @@ from ..ops.snap import snap_concat, snap_value
 
 __all__ = ["EngineConfig", "quantize_lm_head", "quantize_activation",
            "quantize_activation_ovp", "weight_entry", "packed_weight_entry",
-           "act_entry", "stack_entries", "build_engine_params", "forward",
-           "init_cache", "Engine", "attention_route"]
+           "k8_plan_leaves", "act_entry", "stack_entries",
+           "build_engine_params", "forward", "init_cache", "Engine",
+           "attention_route"]
 
 _ATTN_SITES = ("qkv", "q", "k", "v", "out")
 # the reference's VMEM budget for one head's tile of its stacked attention
@@ -234,9 +236,10 @@ def weight_entry(kernel: torch.Tensor, wq, ovp: bool) -> Dict:
 def packed_weight_entry(kernel: torch.Tensor, wq) -> Dict:
     """One site-layer's "w4pack" leaves from its (K, N) f32 kernel and its
     weight quantizer state: ``packed`` (N, K/2) uint8 split-K codes,
-    ``scale`` = alpha / max(grid), the f32 ``grid`` (K8's operands),
-    ``q16`` its int8 values (int32) and ``oscale`` = scale * their unit
-    (K6's operands)."""
+    ``scale`` = alpha / max(grid), the f32 ``grid`` and its bf16 term
+    table ``k8_terms`` with ``k8_unit`` (K8's operands,
+    ``kernels/qmatmul.py:w4_term_plan``), ``q16`` its int8 values (int32)
+    and ``oscale`` = scale * their unit (K6's operands)."""
     dev = kernel.device
     g16 = np.asarray(_field(wq, "grid"), np.float32).reshape(-1)[:16]
     packed, scale = quantize_weights_w4(kernel, g16, _field(wq, "alpha"))
@@ -244,7 +247,16 @@ def packed_weight_entry(kernel: torch.Tensor, wq) -> Dict:
     return {"packed": packed, "scale": scale,
             "grid": torch.as_tensor(g16.copy(), device=dev),
             "q16": torch.as_tensor(q16.astype(np.int32), device=dev),
-            "oscale": scale * torch.tensor(np.float32(w_unit), device=dev)}
+            "oscale": scale * torch.tensor(np.float32(w_unit), device=dev),
+            **k8_plan_leaves(g16, dev)}
+
+
+def k8_plan_leaves(g16: np.ndarray, device) -> Dict[str, torch.Tensor]:
+    """K8's term table of one layer's grid, decided once on the host and
+    kept with the stack: ``k8_terms`` (3, 16) f32 and ``k8_unit`` ()."""
+    tab, unit, _ = w4_term_plan(g16)
+    return {"k8_terms": torch.as_tensor(tab, device=device),
+            "k8_unit": torch.tensor(np.float32(unit), device=device)}
 
 
 def act_entry(cfg: EngineConfig, aq, ovp: bool,
@@ -407,7 +419,8 @@ def _lm_logits(top: Dict, x: torch.Tensor) -> torch.Tensor:
     takes a dynamic per-token absmax scale on x, an int8 x int8 product,
     then rescales by (x_scale * row_scale)."""
     if "wte_i8" not in top:
-        return torch.matmul(x, top["wte"].t()).to(torch.float32)
+        return f32_product(x.reshape(-1, x.shape[-1]), top["wte"]).reshape(
+            *x.shape[:-1], -1)
     xf = x.to(torch.float32)
     x_scale = (torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-12)
                / _const(xf, 127.0))                           # (B, T, 1)
@@ -433,11 +446,20 @@ def _ln(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 def _act(name: str, x: torch.Tensor) -> torch.Tensor:
+    """ReLU, or the tanh GELU with the reference's cast points. Its
+    constant sqrt(2/pi) is a strongly typed f32 there, so under a bf16
+    ``x`` the inner ``x + 0.044715 x^3`` stays bf16 (the cube rounded
+    once from f32, 0.044715 rounded to bf16 first, as JAX takes a Python
+    float) and everything from the product with the constant on is f32:
+    a bf16 input gives an f32 GELU, which fc_out then snaps."""
     if name == "relu":
         return torch.relu(x)
-    return 0.5 * x * (1.0 + torch.tanh(
-        float(np.sqrt(2.0 / np.pi).astype(np.float32))
-        * (x + 0.044715 * torch.pow(x, 3.0))))
+    cube = torch.pow(x.to(torch.float32), 3.0).to(x.dtype)
+    inner = x + torch.tensor(0.044715, device=x.device).to(x.dtype) * cube
+    c = torch.tensor(np.sqrt(2.0 / np.pi).astype(np.float32),
+                     device=x.device)
+    t = torch.tanh(c * inner.to(torch.float32))
+    return (0.5 * x).to(torch.float32) * (1.0 + t)
 
 
 def _prepare_stacked(cfg: EngineConfig, ep: Dict,
@@ -507,7 +529,7 @@ def _site_matmul_nobias(cfg: EngineConfig, ep: Dict, name: str,
                                     block_k=cfg.stacked_block_k)
     site = ep["layers"][name]
     if "packed" in site:
-        # "w4pack": fake-quant in cfg.dtype, then K8 on the f32 values
+        # "w4pack": fake-quant in cfg.dtype, then K8 on those values
         if "a_out" in site:
             x2d = quantize_activation_ovp(x2d, site["a_grid"][l],
                                           site["a_out"][l],
@@ -515,8 +537,9 @@ def _site_matmul_nobias(cfg: EngineConfig, ep: Dict, name: str,
         elif "a_grid" in site:
             x2d = quantize_activation(x2d, site["a_grid"][l],
                                       site["a_alpha"][l])
-        return quantized_matmul_w4(x2d.to(torch.float32), site["packed"][l],
-                                   site["scale"][l], site["grid"][l])
+        return quantized_matmul_w4(x2d, site["packed"][l], site["scale"][l],
+                                   site["grid"][l], site["k8_terms"][l],
+                                   site["k8_unit"][l])
     w = site["w_i8"][l]
     if "a_q" in site:
         a_scale = site["a_scale"][l]

@@ -9,7 +9,9 @@ Phases, each printing one JSON line (numbers unrounded):
    checkout (one nvcc per source, all at once) and time it;
 3. hbm: the card's copy bandwidth, from a large device-to-device copy;
 4. kernel checks: each kernel against its plain PyTorch version on the
-   card, at the OPT-6.7B shapes of the main path: K1 bit-equal, K2 within
+   card, at the OPT-6.7B shapes of the main path: K1 bit-equal (M 1, 2,
+   3, 4, 5, 16, 64, 65, 200 and 256 at the OPT sites, BLOOM's fused qkv
+   and an N off its column tile), K2 within
    atol 2e-2 + rtol 1e-2 (bf16 q and output) and atol 1e-4 (f32) at T 1,
    5 and 16 (positions split across blocks) and 17, 100 and 512 (bf16
    tensor cores), pos0 0 and ragged with a last query at S - 1, ALiBi on
@@ -93,7 +95,8 @@ midpoints, padded duplicates and outlier pairs, and on adversarial
 inputs at K = 16384 whose partial sums pass 2^24; and K6 (M 1, 4, 64,
 affine and table decode) and K5 (M 257, 300, 2048 and 4096, int8
 values on wgmma and OVP bytes, and K3's adversarial case) bit for bit,
-K8 (M 4 and 2048) within K8_RTOL of each output's sum of term magnitudes; K7 (S 2048 and 16,384,
+K8 (M 4 and 2048, bf16 and f32 x, flint, int and unsigned float grids) within K8_RTOL of each
+output's sum of term magnitudes; K7 (S 2048 and 16,384,
 T 1, 4 and 16, ragged pos0, ALiBi on and off) within K2's tolerance; K9
 (fc_in and fc_out, M 1, 4, 64, 65, 257, 300 and 2048; K 4160 by N 4104
 at M 65 and 300; exact midpoint ties after the multiply by 1 / a_scale)
@@ -241,26 +244,40 @@ def _k1_operands(torch, M, K, N, L, gen):
     return x, w, scales, a_q, a_scale, l
 
 
+K1_CHECK_M = (1, 2, 3, 4, 5, 16, 64, 65, 200, 256)
+# the OPT sites, BLOOM's fused qkv, and an N that is no multiple of K1's
+# 128-column tile
+K1_CHECK_KN = ((4096, 4096), (4096, 16384), (16384, 4096), (4096, 12288),
+               (4096, 4104))
+
+
 def phase_checks(torch, gen):
     from ant_quantization_tpu_torch.kernels import attention as k2
     from ant_quantization_tpu_torch.kernels import stacked as k1
     from ant_quantization_tpu_torch.models.transformer_lm import alibi_slopes
-    d, ff = 4096, 16384
     k1_err = 0.0
-    for (K, N) in ((d, d), (d, ff), (ff, d)):
-        for M in (4, 64):
-            x, w, sc, aq, asc, l = _k1_operands(torch, M, K, N, 2, gen)
-            got = k1.stacked_quant_matmul(l, x, w, sc, aq, asc)
-            want = k1.stacked_quant_matmul_plain(l, x, w, sc, aq, asc)
+    for (K, N) in K1_CHECK_KN:
+        x, w, sc, aq, asc, l = _k1_operands(torch, max(K1_CHECK_M), K, N, 2,
+                                            gen)
+        for M in K1_CHECK_M:
+            plan = k1.k1_plan(M, K, N)
+            before = k1.COUNTS["launches"]
+            got = k1.stacked_quant_matmul(l, x[:M], w, sc, aq, asc)
+            if k1.COUNTS["launches"] != before + 1:
+                fail(f"K1 did not launch once at M={M} K={K} N={N}")
+            want = k1.stacked_quant_matmul_plain(l, x[:M], w, sc, aq, asc)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             equal = torch.equal(got, want)
             emit({"phase": "check", "kernel": "K1", "M": M, "K": K, "N": N,
-                  "layer": l, "max_abs_err": err, "bit_equal": equal})
+                  "layer": l, "splits": plan["splits"],
+                  "blocks": plan["blocks"], "max_abs_err": err,
+                  "bit_equal": equal})
             if not equal:
                 fail(f"K1 differs from its plain version at M={M} K={K} "
                      f"N={N} (max abs err {err})")
             k1_err = max(k1_err, err)
+        del x, w
     B, H, D, S, L = 4, 32, 128, MAX_SEQ, 2
     k = torch.randint(-127, 128, (L, B, H, S, D), dtype=torch.int8,
                       device="cuda", generator=gen)
@@ -459,7 +476,7 @@ def _k8_size(torch, x, packed, scale, grid):
     """The sum of the magnitudes of K8's terms, per output: |x| @ |W|."""
     from ant_quantization_tpu_torch.kernels import qmatmul as kq
     wv = kq.dequant_w4_reference(packed, scale, grid).abs()      # (K, N)
-    return kq.f32_product(x.abs(), wv.t())
+    return kq.f32_product(x.abs().to(torch.float32), wv.t())
 
 
 def k8_close(torch, got, want, size) -> bool:
@@ -475,7 +492,9 @@ def phase_checks_w4pack(torch, gen):
     257, 300, 2048 and 4096, int8 values (wgmma) and OVP bytes
     (mma.sync), and on K3's adversarial
     K = 16384 case whose 256-row segment sums pass 2^24; K8 at M 4 and
-    2048 within K8_RTOL of each output's sum of term magnitudes."""
+    2048, bf16 and f32 x, on the flint, int and unsigned float grids
+    (the three routes of its bf16 weight table), within K8_RTOL of each
+    output's sum of term magnitudes."""
     import numpy as np
     from ant_quantization_tpu_torch.kernels import qmatmul as kq
     from ant_quantization_tpu_torch.kernels import stacked as ks
@@ -540,20 +559,31 @@ def phase_checks_w4pack(torch, gen):
                     fail(f"K5 adversarial case stays exact: {info}")
             record("K5", got, want, exact, **info)
             del x, w, got, want
-    grid = torch.tensor(flint, device="cuda")
-    for K, N in shapes:
-        packed = torch.randint(0, 256, (N, K // 2), dtype=torch.uint8,
-                               device="cuda", generator=gen)
-        scale = torch.rand((N,), device="cuda", generator=gen) * 1e-2
-        for M in (4, 2048):
-            x = torch.randn((M, K), device="cuda", generator=gen)
-            got = kq.quantized_matmul_w4(x, packed, scale, grid)
-            want = kq.quantized_matmul_w4_plain(x, packed, scale, grid)
-            size = _k8_size(torch, x, packed, scale, grid)
-            record("K8", got, want,
-                   lambda _: k8_close(torch, got, want, size),
-                   M=M, K=K, N=N, rtol_of_size=K8_RTOL,
-                   max_err_over_size=((got - want).abs() / size).max().item())
+    # K8 on the three routes of its weight table: the flint grid (exact
+    # in bf16), the int grid (its int8 restatement and unit) and the
+    # unsigned float grid (neither: three bf16 terms); bf16 x (one term,
+    # as the engine passes it) and f32 x (three)
+    for mode, signed in (("flint", True), ("int", True), ("float", False)):
+        grid = torch.tensor(cb.ant_grid(mode, 4, signed).astype(np.float32),
+                            device="cuda")
+        for K, N in shapes:
+            packed = torch.randint(0, 256, (N, K // 2), dtype=torch.uint8,
+                                   device="cuda", generator=gen)
+            scale = torch.rand((N,), device="cuda", generator=gen) * 1e-2
+            for M in (4, 2048):
+                for dt in (torch.bfloat16, torch.float32):
+                    x = torch.randn((M, K), device="cuda",
+                                    generator=gen).to(dt)
+                    got = kq.quantized_matmul_w4(x, packed, scale, grid)
+                    want = kq.quantized_matmul_w4_plain(x, packed, scale,
+                                                        grid)
+                    size = _k8_size(torch, x, packed, scale, grid)
+                    record("K8", got, want,
+                           lambda _: k8_close(torch, got, want, size),
+                           M=M, K=K, N=N, grid=mode, signed=signed,
+                           x=str(dt).split(".")[-1], rtol_of_size=K8_RTOL,
+                           max_err_over_size=((got - want).abs() / size
+                                              ).max().item())
     return errs
 
 
@@ -1197,14 +1227,18 @@ def phase_times_w4pack(torch, engine):
     version and torch._int_mm on the unpacked int8 weights (the same
     weight values at twice the bytes, one int8 dot without the snap: a
     reference point, not the same function); K8 at one prefill layer's six
-    sites (M = 2048) beside its operation bound, its plain version and
-    cuBLAS SGEMM (TF32 off) on the dequantized f32 weight, which is the
-    same function."""
+    sites (M = 2048) on the engine's x (the site's fake-quant in bf16: one
+    term, one bf16 product) and on f32 randn x (three terms and products),
+    each beside its operation bound at the bf16 tensor-core rate (and, for
+    history, the f32 bound of PR 3-5's design), its plain version, cuBLAS
+    SGEMM (TF32 off) on the f32 operands, which is the same function, and
+    torch.mm in bf16 on the bf16 operands, which rounds its output (a
+    reference point only)."""
     from ant_quantization_tpu_torch.kernels import qmatmul as kq
     from ant_quantization_tpu_torch.kernels import stacked as ks
-    from ant_quantization_tpu_torch.serve.engine import _prepare_stacked
+    from ant_quantization_tpu_torch.serve import engine as eng
     ep = engine.engine_params()
-    stk = _prepare_stacked(engine.cfg, ep, BATCH)
+    stk = eng._prepare_stacked(engine.cfg, ep, BATCH)
     L = engine.cfg.lm.n_layers
     gen = torch.Generator(device="cuda")
     gen.manual_seed(13)
@@ -1238,23 +1272,40 @@ def phase_times_w4pack(torch, engine):
                            "int_mm_ms": t_l})
         site = ep["layers"][name]
         M, n_l = BATCH * PREFILL, 4
-        x = torch.randn((M, K), device="cuda", generator=gen)
-        k8 = [(site["packed"][l], site["scale"][l], site["grid"][l])
-              for l in range(n_l)]
-        t_k = cuda_ms(torch, lambda i: kq.quantized_matmul_w4(x, *k8[i % n_l]),
-                      n_l)
-        t_p = cuda_ms(torch, lambda i: kq.quantized_matmul_w4_plain(
-            x, *k8[i % n_l]), n_l)
-        wdq = [kq.dequant_w4_reference(*a) for a in k8]           # (K, N)
-        t_l = cuda_ms(torch, lambda i: torch.mm(x, wdq[i % n_l]), n_l)
-        del wdq
-        byts = 4 * M * K + K * N // 2 + 4 * M * N + 4 * N + 64
+        k8 = [(site["packed"][l], site["scale"][l], site["grid"][l],
+               site["k8_terms"][l], site["k8_unit"][l]) for l in range(n_l)]
+        xf = torch.randn((M, K), device="cuda", generator=gen)
+        # the engine's x: the site's fake-quant in cfg.dtype (bf16)
+        xb = eng.quantize_activation(xf.to(torch.bfloat16),
+                                     site["a_grid"][0], site["a_alpha"][0])
+        row = {"site": name, "M": M, "K": K, "N": N}
+        wdq = [kq.dequant_w4_reference(*a[:3]) for a in k8]       # (K, N)
+        for tag, x in (("bf16", xb), ("f32", xf)):
+            row[f"ms_{tag}_x"] = cuda_ms(
+                torch, lambda i: kq.quantized_matmul_w4(x, *k8[i % n_l]),
+                n_l)
+        row["plain_ms"] = cuda_ms(torch, lambda i: kq.quantized_matmul_w4_plain(
+            xb, *k8[i % n_l]), n_l)
+        # cuBLAS SGEMM (TF32 off) on the f32 operands computes K8's
+        # function; torch.mm in bf16 rounds its output (a reference point)
+        xb32 = xb.to(torch.float32)
+        row["library_ms"] = cuda_ms(torch, lambda i: torch.mm(
+            xb32, wdq[i % n_l]), n_l)
+        wbf = [w.to(torch.bfloat16) for w in wdq]
+        row["bf16_mm_ms"] = cuda_ms(torch, lambda i: torch.mm(
+            xb, wbf[i % n_l]), n_l)
+        del wdq, wbf
         ops = 2 * M * K * N
-        bound, by = _bound(byts, ops, F32_FLOPS)
-        rows["K8"].append({"site": name, "M": M, "K": K, "N": N, "ms": t_k,
-                           "plain_ms": t_p, "library_ms": t_l,
-                           "bound_ms": bound, "bound_by": by, "bytes": byts,
-                           "ops": ops})
+        for tag, xbytes, prods in (("bf16", 2, 1), ("f32", 4, 3)):
+            byts = xbytes * M * K + K * N // 2 + 4 * M * N + 4 * N + 64
+            row[f"bound_ms_{tag}_x"], row[f"bound_by_{tag}_x"] = _bound(
+                byts, ops * prods, BF16_FLOPS)
+        row["bound_ms_f32_rate"] = _bound(4 * M * K + K * N // 2
+                                          + 4 * M * N + 4 * N + 64, ops,
+                                          F32_FLOPS)[0]
+        row["ms"], row["bound_ms"] = row["ms_bf16_x"], row["bound_ms_bf16_x"]
+        row["bound_by"] = row["bound_by_bf16_x"]
+        rows["K8"].append(row)
     emit({"phase": "kernel_times_w4pack", "graphed": True,
           "int_mm_note": "K6 beside torch._int_mm (M padded to 32) on the "
                          "unpacked int8 weights: one int8 dot, not the "
@@ -1569,7 +1620,7 @@ def phase_insitu_w4pack(torch, gen):
                         device="cuda", generator=gen)
     stats = {}
     k8_ok = lambda out, want, a: k8_close(torch, out, want,
-                                          _k8_size(torch, *a))
+                                          _k8_size(torch, *a[:4]))
     reset_counts()
     ta, la = _greedy(torch, eng, cfg, ep, ids, ks.stacked_quant_matmul,
                      k2.stacked_int8_kv_attention,
@@ -2152,6 +2203,8 @@ def main() -> int:
     kernels = [
         {"name": "stacked_quant_matmul (K1)", "route": "cuda",
          "source": "ant_quantization_tpu_torch/csrc/stacked_i8.cu",
+         "design": "redesigned PR 6: staged split-K weight stream, the snap "
+                   "fused into each block (csrc/i8_stream.cuh)",
          "replaces": "ant_quantization_tpu/kernels/stacked.py:453",
          "launches": counts["K1"]["launches"], "max_abs_err": k1_err,
          "pass": True,
@@ -2225,8 +2278,8 @@ def main() -> int:
             ("K8", "quantized_matmul_w4 (K8)", "qmatmul_w4.cu",
              "ant_quantization_tpu/kernels/qmatmul.py:116",
              w4_counts["K8"]["launches"], w4_rows["K8"], prefill_at,
-             "cuBLAS SGEMM (torch.mm, TF32 off) on the dequantized f32 "
-             "weight: the same function")):
+             "cuBLAS SGEMM (torch.mm, TF32 off) on the f32 x and the "
+             "dequantized f32 weight: the same function")):
         kernels.append({
             "name": fname, "route": "cuda",
             "source": f"ant_quantization_tpu_torch/csrc/{src}",
@@ -2241,6 +2294,18 @@ def main() -> int:
             "library_ms": sum(x.get("library_ms", x.get("int_mm_ms"))
                               for x in rows),
             "library_note": lib})
+    k8 = next(x for x in kernels if x["name"].endswith("(K8)"))
+    k8_rows = w4_rows["K8"]
+    k8["design"] = ("redesigned PR 6: bf16 wgmma on exact bf16 terms (the "
+                    "engine's bf16 x against an exact table: one product)")
+    k8["x"] = "the engine's fake-quantized bf16 x"
+    k8["f32_x"] = {k: sum(x[f"{k}_f32_x"] for x in k8_rows)
+                   for k in ("ms", "bound_ms")}
+    k8["f32_x"]["bound_by"] = "operations"
+    k8["bound_ms_f32_rate"] = sum(x["bound_ms_f32_rate"] for x in k8_rows)
+    k8["bf16_mm_ms"] = sum(x["bf16_mm_ms"] for x in k8_rows)
+    k8["bf16_mm_note"] = ("torch.mm in bf16 on the bf16 operands: rounds "
+                          "its output, a reference point only")
     k5 = next(x for x in kernels if x["name"].endswith("(K5)"))
     k5["snap"] = {"ms": sum(x["snap_ms"] for x in k5_rows),
                   "bound_ms": sum(x["snap_bound_ms"] for x in k5_rows),
@@ -2273,6 +2338,8 @@ def main() -> int:
     kernels.append({
         "name": "fused_w8a8_matmul (K9)", "route": "cuda",
         "source": "ant_quantization_tpu_torch/csrc/w8a8_matmul.cu",
+        "design": "M <= 64 on K1's stream since PR 6 (csrc/i8_stream.cuh); "
+                  "M > 64 on K5's wgmma product since PR 5",
         "replaces": "ant_quantization_tpu/kernels/qmatmul.py:199",
         "launches": insitu_bloom["launches"]["K9"],
         "launches_note": "no engine path calls K9 (as in the reference): "
