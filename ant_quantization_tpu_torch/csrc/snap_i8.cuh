@@ -1,5 +1,5 @@
-// The activation snap pre-kernel shared by K1/K3 (stacked_i8.cu), K5
-// (stacked_prefill.cu), K6 (stacked_p4.cu) and K9 (w8a8_matmul.cu):
+// The activation snap pre-kernel shared by K5 (stacked_prefill.cu), K6
+// (stacked_p4.cu) and K9 above 64 rows (w8a8_matmul.cu):
 // x / a_scale[l] (an IEEE f32 division; no --use_fast_math), or for K9
 // (`recip`) x * inv with inv = 1 / a_scale[l] divided once, as the
 // reference's fused_w8a8_matmul scales; snapped onto the int8-domain

@@ -41,8 +41,9 @@ of their numbers (``EngineConfig.stacked_block_k``).
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
 (``csrc/stacked_i8.cu`` for K1, on the staged split-K weight stream of
 ``csrc/i8_stream.cuh`` laid out by :func:`k1_plan`, and K3,
-``csrc/stacked_prefill.cu`` for
-K5, ``csrc/stacked_p4.cu`` for K6, ``csrc/stacked_aovp.cu`` for K4; each
+``csrc/stacked_aovp.cu`` for K4, both on that stream in
+``csrc/ovp_stream.cuh`` laid out by :func:`k34_plan`,
+``csrc/stacked_prefill.cu`` for K5, ``csrc/stacked_p4.cu`` for K6; each
 source says what bounds it and how it is laid out); on a CPU tensor
 it runs its plain PyTorch version, which has the same arithmetic in the
 same order and which the tests hold against the JAX reference and
@@ -68,7 +69,7 @@ __all__ = ["stacked_quant_matmul", "stacked_quant_matmul_plain",
            "stacked_quant_matmul_aovp", "stacked_quant_matmul_aovp_plain",
            "stacked_quant_matmul_p4", "stacked_quant_matmul_p4_plain",
            "int8_matmul", "COUNTS", "K3_COUNTS", "K4_COUNTS", "K5_COUNTS",
-           "K6_COUNTS", "PREFILL_M", "prefill_snap", "k1_plan",
+           "K6_COUNTS", "PREFILL_M", "prefill_snap", "k1_plan", "k34_plan",
            "split_workspace"]
 
 # launches of each CUDA kernel, and calls of its plain version (K5 counts
@@ -92,60 +93,104 @@ _K5_BK = 64         # K5's K tile: K and the OVP segments are multiples
 K1_COLS, K1_STEP, K1_STAGES, K1_THREADS, K1_SMS = 128, 128, 4, 256, 132
 K1_COUNTERS = 1 << 16
 K1_MT = (1, 2, 4, 8, 16)        # x rows per block
+K34_MT = (1, 2, 4, 8)           # K3's and K4's
+K34_XROW = K1_STEP + 16         # their shared code rows, bytes
 
 
-def k1_plan(M: int, K: int, N: int) -> dict:
-    """K1's launch plan at (M, K, N), M <= 256: ``mt`` x rows per block
-    (the smallest of K1_MT that covers M, else 16, then M tiles of 16)
-    and ``splits`` K ranges of whole ``K1_STEP``-byte stages, as many as
-    keep the grid within one wave of two blocks per SM, never more than
-    there are stages. ``smem`` is a block's shared memory as the kernel
-    counts it: the stage ring, the other half-column's int32 sums, and
-    two stages' x codes."""
-    mt = next((t for t in K1_MT if t >= M), K1_MT[-1])
+def _stream_grid(M: int, K: int, N: int, mts: tuple) -> dict:
+    """The grid of K1's weight stream (also K3's and K4's): ``mt`` x rows
+    per block (the smallest of ``mts`` that covers M, else the largest,
+    then M tiles of it) and ``splits`` K ranges of whole ``K1_STEP``-byte
+    stages, as many as keep the grid within one wave of two blocks per
+    SM, never more than there are stages."""
+    mt = next((t for t in mts if t >= M), mts[-1])
     m_tiles, n_tiles = -(-M // mt), -(-N // K1_COLS)
     steps = -(-K // K1_STEP)
     splits = min(steps, max(1, 2 * K1_SMS // (m_tiles * n_tiles)))
-    tpc = K1_THREADS // K1_COLS
-    smem = (1024 + K1_STAGES * (K1_COLS * K1_STEP + 8) + 2 * 16 * 4
-            + (tpc - 1) * mt * K1_COLS * 4 + 2 * mt * K1_STEP)
     return {"mt": mt, "m_tiles": m_tiles, "n_tiles": n_tiles,
             "steps": steps, "splits": splits,
-            "blocks": m_tiles * n_tiles * splits, "smem": smem}
+            "blocks": m_tiles * n_tiles * splits}
+
+
+def k1_plan(M: int, K: int, N: int) -> dict:
+    """K1's launch plan at (M, K, N), M <= 256: :func:`_stream_grid` over
+    ``K1_MT``. ``smem`` is a block's shared memory as the kernel counts
+    it: the stage ring, the other half-column's int32 sums, and two
+    stages' x codes."""
+    p = _stream_grid(M, K, N, K1_MT)
+    tpc = K1_THREADS // K1_COLS
+    p["smem"] = (1024 + K1_STAGES * (K1_COLS * K1_STEP + 8) + 2 * 16 * 4
+                 + (tpc - 1) * p["mt"] * K1_COLS * 4 + 2 * p["mt"] * K1_STEP)
+    return p
+
+
+def k34_plan(M: int, K: int, N: int, seg: int, fold: int, aovp: bool,
+             w_ovp: bool = True) -> dict:
+    """K3's (``aovp`` False) or K4's launch plan on K1's stream
+    (``csrc/ovp_stream.cuh``), for segments of ``seg`` rows in f32 blocks
+    of ``fold`` segments (``_check_segments``; K4: one). A segment is
+    ``ss`` whole stages (``seg`` is a multiple of ``K1_STEP`` or all of
+    K). The grid is :func:`_stream_grid`'s over ``K34_MT``, but K is split
+    only between f32 blocks, ``units`` of them: every segment's int32 dots
+    stay whole in one block, which forms its blocks' f32 sums in order, and
+    the tile's last split chains them (``ws`` f32 between the splits).
+    ``smem``: the stage ring, the tables, and two stages' x codes (K4: cx
+    and px), rows of ``K34_XROW`` bytes, eight or sixteen (the mma's B
+    columns)."""
+    if K % (seg * fold) or (seg % K1_STEP and seg != K):
+        raise ValueError(f"f32 blocks of {fold} x {seg} rows do not cut "
+                         f"K = {K} into whole {K1_STEP}-byte stages")
+    p = _stream_grid(M, K, N, K34_MT)
+    ss = -(-seg // K1_STEP)
+    units = p["steps"] // (ss * fold)
+    splits = min(units, p["splits"])
+    rows = -(-(2 if aovp else 1) * p["mt"] // 8) * 8
+    p.update(splits=splits, blocks=p["m_tiles"] * p["n_tiles"] * splits,
+             ss=ss, units=units, ws=units * M * N if splits > 1 else 0,
+             smem=1024 + K1_STAGES * (K1_COLS * K1_STEP + 8) + 3 * 32 * 4
+             + 2 * rows * K34_XROW)
+    return p
 
 
 _SPLIT_WS: dict = {}
 
 
 def split_workspace(dev: torch.device, n: int) -> torch.Tensor:
-    """K1's split-K workspace on ``dev``: ``K1_COUNTERS`` tile counters,
-    zero, then room for ``n`` int32 partial sums. The kernel overwrites
-    the partials and leaves the counters zero, so one buffer serves every
-    call on the device (one stream at a time); it is made outside CUDA
-    graph captures, as their warm-up calls do."""
+    """The split-K workspace of K1, K3 and K4 on ``dev``: ``K1_COUNTERS``
+    tile counters, zero, then room for ``n`` 4-byte partials (K1's int32
+    sums, K3's and K4's f32 block sums). The kernels overwrite the
+    partials and leave the counters zero, so one buffer serves every call
+    on the device (one stream at a time); it is made outside CUDA graph
+    captures, as their warm-up calls do."""
     n += K1_COUNTERS
     ws = _SPLIT_WS.get(dev)
     if ws is None or ws.numel() < n:
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("K1's split-K workspace grows inside a CUDA "
+            raise RuntimeError("the split-K workspace grows inside a CUDA "
                                "graph capture; call once before capturing")
         ws = torch.zeros(max(n, 1 << 20), dtype=torch.int32, device=dev)
         _SPLIT_WS[dev] = ws
     return ws
 
 
+def _split_args(plan: dict, n: int, dev: torch.device) -> tuple:
+    """(partials pointer, counters pointer) for one launch on the stream
+    with ``n`` partials; (0, 0) without a split."""
+    if plan["splits"] == 1:
+        return 0, 0
+    if plan["m_tiles"] * plan["n_tiles"] > K1_COUNTERS:
+        raise ValueError(f"{plan['m_tiles']} x {plan['n_tiles']} tiles "
+                         f"exceed the {K1_COUNTERS} split-K counters")
+    ws = split_workspace(dev, n)
+    return ws.data_ptr() + 4 * K1_COUNTERS, ws.data_ptr()
+
+
 def launch_k1_args(M: int, K: int, N: int, dev: torch.device) -> tuple:
     """(partials pointer, counters pointer, mt, splits) for one launch of
     K1's product."""
     plan = k1_plan(M, K, N)
-    mt, splits = plan["mt"], plan["splits"]
-    if splits == 1:
-        return 0, 0, mt, 1
-    if plan["m_tiles"] * plan["n_tiles"] > K1_COUNTERS:
-        raise ValueError(f"K1 at M {M}, N {N} has more tiles than the "
-                         f"{K1_COUNTERS} split-K counters")
-    ws = split_workspace(dev, splits * M * N)
-    return ws.data_ptr() + 4 * K1_COUNTERS, ws.data_ptr(), mt, splits
+    ws, count = _split_args(plan, plan["splits"] * M * N, dev)
+    return ws, count, plan["mt"], plan["splits"]
 
 
 def _fit(n: int, want: int, quantum: int = 128) -> int:
@@ -257,20 +302,22 @@ def _launch(l, x, w, scales, a_q, a_scale, ovp, block_k):
         raise ValueError("scales (L, N), a_q (L, G), a_scale (L,) expected")
     if M > PREFILL_M:
         return _launch_prefill(l, x, w, scales, a_q, a_scale, ovp, block_k)
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("x and w must be 16-byte aligned")
     lib = _ext.load(_SOURCE)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     if ovp:
         seg, per_block = _check_segments(K, block_k, _SUB)
-        xq = torch.empty((M, K), dtype=torch.int8, device=dev)
-        fn = _fn(lib, "stacked_i8_ovp_matmul", 7, 7)
-        code = fn(x.data_ptr(), xq.data_ptr(), w.data_ptr(), a_q.data_ptr(),
-                  a_scale.data_ptr(), scales.data_ptr(), out.data_ptr(), l,
-                  M, K, N, G, seg, per_block, _ext.stream_ptr(dev))
+        plan = k34_plan(M, K, N, seg, per_block, aovp=False)
+        ws, count = _split_args(plan, plan["ws"], dev)
+        fn = _fn(lib, "stacked_i8_ovp_matmul", 8, 10)
+        code = fn(x.data_ptr(), w.data_ptr(), a_q.data_ptr(),
+                  a_scale.data_ptr(), scales.data_ptr(), out.data_ptr(), ws,
+                  count, l, L, M, K, N, G, seg, per_block, plan["mt"],
+                  plan["splits"], _ext.stream_ptr(dev))
         _ext.check(lib, code, "stacked_i8_ovp_matmul")
         K3_COUNTS["launches"] += 1
     else:
-        if x.data_ptr() % 16 or w.data_ptr() % 16:
-            raise ValueError("x and w must be 16-byte aligned")
         ws, count, mt, splits = launch_k1_args(M, K, N, dev)
         fn = _fn(lib, "stacked_i8_matmul", 8, 8)
         code = fn(x.data_ptr(), w.data_ptr(), a_q.data_ptr(),
@@ -496,16 +543,21 @@ def _launch_aovp(l, x, w, scales, prescale, mids, ties, enc, w_ovp,
             or enc.shape != (L, G1 + 1)):
         raise ValueError("scales (L, N), prescale (L,), mids and ties "
                          "(L, G-1), enc (L, G) expected")
+    if G1 + 1 > 32:
+        raise ValueError(f"K4 takes at most 32 table entries, got {G1 + 1}")
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("x and w must be 16-byte aligned")
     seg, _ = _check_segments(K, block_k, K)
+    plan = k34_plan(M, K, N, seg, 1, aovp=True, w_ovp=w_ovp)
+    ws, count = _split_args(plan, plan["ws"], dev)
     lib = _ext.load(_AOVP_SOURCE)
-    fn = _fn(lib, "stacked_aovp_matmul", 10, 7)
-    cx = torch.empty((M, K), dtype=torch.int8, device=dev)
-    px = torch.empty((M, K), dtype=torch.int8, device=dev)
+    fn = _fn(lib, "stacked_aovp_matmul", 10, 10)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    code = fn(x.data_ptr(), cx.data_ptr(), px.data_ptr(), w.data_ptr(),
-              prescale.data_ptr(), mids.data_ptr(), ties.data_ptr(),
-              enc.data_ptr(), scales.data_ptr(), out.data_ptr(),
-              l, M, K, N, G1 + 1, seg, int(w_ovp), _ext.stream_ptr(dev))
+    code = fn(x.data_ptr(), w.data_ptr(), prescale.data_ptr(),
+              mids.data_ptr(), ties.data_ptr(), enc.data_ptr(),
+              scales.data_ptr(), out.data_ptr(), ws, count, l, L, M, K, N,
+              G1 + 1, seg, int(w_ovp), plan["mt"], plan["splits"],
+              _ext.stream_ptr(dev))
     _ext.check(lib, code, "stacked_aovp_matmul")
     K4_COUNTS["launches"] += 1
     return out

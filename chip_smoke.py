@@ -43,10 +43,11 @@ Phases, each printing one JSON line (numbers unrounded):
    the decode activations, which must be above 0;
 10. OVP-weights path: the same OVP weights with int8-exact A4 inputs
    through ``Engine``: decode runs K3;
-11. K3 and K4 times at one decode layer's six sites, with the plain
-   versions, the bound and ``torch._int_mm`` on the same int8 weight
-   stream as a reference point (not the same function), and a profile
-   of the OliVe engine as in 7;
+11. K3 and K4 times at one decode layer's six sites, their launch plans
+   and K1 on the same weight stream, with the plain versions, the bound
+   and ``torch._int_mm`` on the same int8 weight stream as a reference
+   point (not the same function), and profiles of the OliVe and
+   OVP-weights engines as in 7;
 12. in situ, OliVe: a 2-layer full-OliVe engine with every K4 call
    checked against its plain version, and runs with K4's (and, on the
    OVP-weights route, K3's) plain version that must give identical
@@ -90,9 +91,13 @@ Phases, each printing one JSON line (numbers unrounded):
    site matmul on the engine's own activations (no engine path calls K9).
 
 The kernel checks (4) include K3 and K4 against their plain versions,
-bit for bit, at the three site shapes and M 4 and 64, on exact concat
-midpoints, padded duplicates and outlier pairs, and on adversarial
-inputs at K = 16384 whose partial sums pass 2^24; and K6 (M 1, 4, 64,
+bit for bit, at M 1, 2, 3, 4, 5, 16, 64 and 200 on K1's five (K, N), K4
+on OVP and int8-value weights and signed and unsigned grids, on exact
+concat midpoints, padded duplicates and outlier pairs, on adversarial
+inputs at K = 4096 and 16384 whose partial sums pass 2^24, on tables whose thresholds fall out of order (K4's
+select chain), at a prescale that is no power of two and at negative
+scales (the per-element division), each call one launch and one device
+kernel; and K6 (M 1, 4, 64,
 affine and table decode) and K5 (M 257, 300, 2048 and 4096, int8
 values on wgmma and OVP bytes, and K3's adversarial case) bit for bit,
 K8 (M 4 and 2048, bf16 and f32 x, flint, int and unsigned float grids) within K8_RTOL of each
@@ -374,101 +379,202 @@ def _k3_operands(torch, M, K, N, L, gen, adversarial: bool):
     return x, w, scales, a_q, a_scale, l
 
 
-def _k4_operands(torch, M, K, N, L, gen, signed, w_ovp, adversarial):
-    """K4's operands at prescale 0.25 (a power of two, so exact concat
-    midpoints survive x / prescale): row 0 walks every midpoint (the tie
-    flags and the padded duplicates), row 1 puts outliers on both members
-    of pairs; the rest are normal samples with ~10% outliers. Adversarial:
-    every activation at the top outlier against all-outlier columns."""
+def _k4_operands(torch, M, K, N, L, gen, signed, w_ovp, adversarial,
+                 prescale=0.25):
+    """K4's operands at ``prescale`` (0.25, a power of two, keeps exact
+    concat midpoints exact after x / prescale): row 0 walks every midpoint
+    (the tie flags and the padded duplicates), row 1 puts outliers on both
+    members of pairs; the rest are normal samples with ~10% outliers.
+    Adversarial: every activation at the top outlier against all-outlier
+    columns."""
     mids, ties, enc = _aovp_tables(torch, signed, L)
-    prescale = torch.full((L,), 0.25, device="cuda")
+    pre = torch.full((L,), prescale, device="cuda")
     l = L - 1
     if adversarial:
-        x = torch.full((M, K), 384 * 0.25, device="cuda")
+        x = torch.full((M, K), 384 * prescale, device="cuda")
         x[:, 1::4] *= -1
         pick = torch.randint(0, 3, (L, N, K), device="cuda", generator=gen)
         w = torch.tensor([100, 120, 127], dtype=torch.int8,
                          device="cuda")[pick]
     else:
-        x = torch.randn((M, K), device="cuda", generator=gen) * 24 * 0.25
-        x[0] = (mids[l] * 0.25).repeat(K // mids.shape[1] + 1)[:K]
-        x[1, 0:64:2] = 300 * 0.25
-        x[1, 1:64:2] = -200 * 0.25
+        x = torch.randn((M, K), device="cuda", generator=gen) * 24 * prescale
+        x[0] = (mids[l] * prescale).repeat(K // mids.shape[1] + 1)[:K]
+        x[1, 0:64:2] = 300 * prescale
+        x[1, 1:64:2] = -200 * prescale
         lo = -127 if w_ovp else -64
         w = torch.randint(lo, 128 if w_ovp else 65, (L, N, K),
                           dtype=torch.int8, device="cuda", generator=gen)
     if not signed:
         x = x.abs()
     scales = torch.rand((L, N), device="cuda", generator=gen) * 2e-3 + 1e-3
-    return x, w, scales, prescale, mids, ties, enc, l
+    return x, w, scales, pre, mids, ties, enc, l
+
+
+def _skewed(mids, ties, i: int = 14):
+    """K4's tables with midpoint i + 1 moved onto midpoint i and their tie
+    flags made (0, 1): an x exactly there fails step i and passes step
+    i + 1, so the thresholds on x fall out of order and the kernel must
+    run the select chain itself, not its binary search."""
+    mids, ties = mids.clone(), ties.clone()
+    mids[:, i + 1] = mids[:, i]
+    ties[:, i], ties[:, i + 1] = 0, 1
+    return mids, ties
+
+
+K34_CHECK_M = (1, 2, 3, 4, 5, 16, 64, 200)
 
 
 def phase_checks_ovp(torch, gen):
-    """K3 and K4 against their plain versions, bit for bit, at the three
-    OPT site shapes and M 4 and 64 (K4 with OVP and int8-value weights,
-    signed and unsigned grids), and on adversarial inputs at K = 16384
-    whose int32 partial sums pass 2^24, where the order of the f32 steps
-    decides the result."""
+    """K3 and K4 against their plain versions, bit for bit, at M 1, 2, 3,
+    4, 5, 16, 64 and 200 (both wrappers send every M up to 256 to their
+    decode kernels) on K1's five (K, N), K4 with OVP and int8-value
+    weights on signed and unsigned grids; on adversarial inputs whose
+    int32 segment sums pass 2^24, where the order of the f32 steps
+    decides the result; K4 on tables whose thresholds fall out of order
+    (its select chain) and at a prescale that is no power of two; both at
+    a negative scale (the per-element division). Each call must be one
+    launch, and the profiler must see one device kernel per call."""
     from ant_quantization_tpu_torch.kernels import stacked as ks
     from ant_quantization_tpu_torch.kernels.qmatmul import ovp_decode_values
     from ant_quantization_tpu_torch.ops.snap import snap_value
-    d, ff = 4096, 16384
     errs = {"K3": 0.0, "K4": 0.0}
+    n_checks = {"K3": 0, "K4": 0}
+    counts = {"K3": ks.K3_COUNTS, "K4": ks.K4_COUNTS}
 
-    def record(kernel, got, want, **info):
+    def check(kernel, call, plain, plan, **info):
+        before = counts[kernel]["launches"]
+        got = call()
+        if counts[kernel]["launches"] != before + 1:
+            fail(f"{kernel} did not launch once: {info}")
+        want = plain()
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         equal = torch.equal(got, want)
-        emit({"phase": "check", "kernel": kernel, **info,
+        emit({"phase": "check", "kernel": kernel, **info, "mt": plan["mt"],
+              "splits": plan["splits"], "blocks": plan["blocks"],
               "max_abs_err": err, "bit_equal": equal})
         if not equal:
             fail(f"{kernel} differs from its plain version: {info} "
                  f"(max abs err {err})")
         errs[kernel] = max(errs[kernel], err)
+        n_checks[kernel] += 1
 
-    cases = [(K, N, M, False) for (K, N) in ((d, d), (d, ff), (ff, d))
-             for M in (4, 64)] + [(ff, d, 4, True)]
-    for K, N, M, adv in cases:
-        x, w, sc, aq, asc, l = _k3_operands(torch, M, K, N, 2, gen, adv)
-        got = ks.stacked_quant_matmul(l, x, w, sc, aq, asc, ovp=True)
-        want = ks.stacked_quant_matmul_plain(l, x, w, sc, aq, asc, ovp=True)
-        info = {"M": M, "K": K, "N": N, "adversarial": adv}
+    kn0 = K1_CHECK_KN[0]                       # 4096 x 4096
+    adv_kn = (kn0, K1_CHECK_KN[2])             # and 16384 x 4096
+    for (K, N) in K1_CHECK_KN:
+        seg = ks._check_segments(K, 1024, ks._SUB)
+        for adv in (False, True) if (K, N) in adv_kn else (False,):
+            x, w, sc, aq, asc, l = _k3_operands(
+                torch, max(K34_CHECK_M), K, N, 2, gen, adv)
+            info = {"K": K, "N": N, "adversarial": adv}
+            if adv:
+                # the f32 steps really round: a 256-row sub-chunk passes
+                # 2^24 (reported beside it: whether one rounding of the
+                # exact sum gives another result than the reference's)
+                xq = snap_value(x[:4] / asc[l], aq[l]).double()
+                wv = ovp_decode_values(w[l]).double()
+                info["subchunk_max"] = (xq[:, :256] @ wv[:, :256].t()).abs(
+                    ).max().item()
+                once = (xq @ wv.t()).float() * sc[l]
+                want4 = ks.stacked_quant_matmul_plain(l, x[:4], w, sc, aq,
+                                                      asc, ovp=True)
+                info["differs_from_one_rounding"] = not torch.equal(once,
+                                                                    want4)
+                if info["subchunk_max"] <= 2 ** 24:
+                    fail(f"K3 adversarial case stays exact: {info}")
+                del wv
+            for M in (4, 64) if adv else K34_CHECK_M:
+                xm = x[:M]
+                check("K3", lambda: ks.stacked_quant_matmul(
+                          l, xm, w, sc, aq, asc, ovp=True),
+                      lambda: ks.stacked_quant_matmul_plain(
+                          l, xm, w, sc, aq, asc, ovp=True),
+                      ks.k34_plan(M, K, N, *seg, aovp=False), M=M, **info)
+            del x, w
+    # a negative scale: the kernels divide each element, as the plain
+    # version does (no thresholds on x for a scale that is not > 0)
+    x, w, sc, aq, asc, l = _k3_operands(torch, 64, *kn0, 2, gen, False)
+    asc = -asc
+    x[0, :15] = (aq[l, 1:] + aq[l, :-1]) * 0.5 * asc[l]
+    for M in (1, 4, 64):
+        xm = x[:M]
+        check("K3", lambda: ks.stacked_quant_matmul(
+                  l, xm, w, sc, aq, asc, ovp=True),
+              lambda: ks.stacked_quant_matmul_plain(
+                  l, xm, w, sc, aq, asc, ovp=True),
+              ks.k34_plan(M, *kn0, *ks._check_segments(kn0[0], 1024,
+                                                       ks._SUB),
+                          aovp=False),
+              M=M, K=kn0[0], N=kn0[1], adversarial=False, a_scale=-0.25)
+    del x, w
+    k4_cases = [(K, N, signed, w_ovp, False, "engine", 0.25)
+                for (K, N) in K1_CHECK_KN for signed in (True, False)
+                for w_ovp in (True, False)]
+    k4_cases += [(K, N, True, True, True, "engine", 0.25)
+                 for (K, N) in adv_kn]
+    k4_cases += [(*kn0, True, w_ovp, False, "skewed", 0.25)
+                 for w_ovp in (True, False)]
+    k4_cases += [(*kn0, signed, True, False, "engine", 0.19)
+                 for signed in (True, False)]
+    k4_cases += [(*kn0, True, w_ovp, False, "engine", -0.25)
+                 for w_ovp in (True, False)]
+    for K, N, signed, w_ovp, adv, tables, prescale in k4_cases:
+        seg = ks._check_segments(K, 1024, K)
+        x, w, sc, pre, mids, ties, enc, l = _k4_operands(
+            torch, max(K34_CHECK_M), K, N, 2, gen, signed, w_ovp, adv,
+            prescale)
+        if tables == "skewed":
+            mids, ties = _skewed(mids, ties)
+            x[0, :mids.shape[1]] = mids[l] * prescale
+        info = {"K": K, "N": N, "signed": signed, "w_ovp": w_ovp,
+                "adversarial": adv, "tables": tables, "prescale": prescale}
+        cx = ks.aovp_encode(x[:4] / pre[l], mids[l], ties[l], enc[l])
+        info["outlier_share"] = (cx.abs() > 64).float().mean().item()
         if adv:
-            # the f32 steps really round: a 256-row sub-chunk passes 2^24
-            # (reported beside it: whether one rounding of the exact sum
-            # gives another result than the reference's order)
-            xq = snap_value(x / asc[l], aq[l]).double()
-            wv = ovp_decode_values(w[l]).double()
-            info["subchunk_max"] = (xq[:, :256] @ wv[:, :256].t()).abs(
-                ).max().item()
-            once = (xq @ wv.t()).float() * sc[l]
-            info["differs_from_one_rounding"] = not torch.equal(once, want)
-            if info["subchunk_max"] <= 2 ** 24:
-                fail(f"K3 adversarial case stays exact: {info}")
-        record("K3", got, want, **info)
+            # 256 d1 alone needs more than 24 bits
+            d1 = cx[:, :1024].double() @ w[l][:, :1024].double().t()
+            info["block_dot_max"] = d1.abs().max().item()
+            if 256 * info["block_dot_max"] <= 2 ** 24:
+                fail(f"K4 adversarial case stays exact: {info}")
+        if tables == "skewed":
+            # at the moved midpoint the chain's answer is not the entry
+            # that the count of passed steps picks
+            xs = (x[0] / pre[l])[:, None]
+            passed = (xs > mids[l]) | ((xs == mids[l]) & (ties[l] > 0))
+            by_count = enc[l][passed.sum(1)]
+            info["chain_not_count"] = not torch.equal(
+                ks.aovp_snap_encode(x[:1] / pre[l], mids[l], ties[l],
+                                    enc[l])[0], by_count)
+            if not info["chain_not_count"]:
+                fail(f"K4's skewed tables do not test the chain: {info}")
+        for M in (4, 64) if adv else (1, 4, 64) if tables == "skewed" \
+                or prescale < 0 else (4,) if prescale != 0.25 \
+                else K34_CHECK_M:
+            args = (l, x[:M], w, sc, pre, mids, ties, enc)
+            check("K4", lambda: ks.stacked_quant_matmul_aovp(
+                      *args, w_ovp=w_ovp),
+                  lambda: ks.stacked_quant_matmul_aovp_plain(
+                      *args, w_ovp=w_ovp),
+                  ks.k34_plan(M, K, N, *seg, aovp=True, w_ovp=w_ovp), M=M,
+                  **info)
         del x, w
-    for K, N, M, adv in cases:
-        for signed in (True, False):
-            for w_ovp in (True, False):
-                if adv and not (signed and w_ovp):
-                    continue
-                x, w, sc, pre, mids, ties, enc, l = _k4_operands(
-                    torch, M, K, N, 2, gen, signed, w_ovp, adv)
-                args = (l, x, w, sc, pre, mids, ties, enc)
-                got = ks.stacked_quant_matmul_aovp(*args, w_ovp=w_ovp)
-                want = ks.stacked_quant_matmul_aovp_plain(*args, w_ovp=w_ovp)
-                info = {"M": M, "K": K, "N": N, "signed": signed,
-                        "w_ovp": w_ovp, "adversarial": adv}
-                cx = ks.aovp_encode(x / pre[l], mids[l], ties[l], enc[l])
-                info["outlier_share"] = (cx.abs() > 64).float().mean().item()
-                if adv:
-                    # 256 d1 alone needs more than 24 bits
-                    d1 = cx[:, :1024].double() @ w[l][:, :1024].double().t()
-                    info["block_dot_max"] = d1.abs().max().item()
-                    if 256 * info["block_dot_max"] <= 2 ** 24:
-                        fail(f"K4 adversarial case stays exact: {info}")
-                record("K4", got, want, **info)
-                del x, w
+    # one device kernel per call: no encode or snap pre-kernel
+    x, w, sc, aq, asc, l = _k3_operands(torch, 4, *kn0, 2, gen, False)
+    mids, ties, enc = _aovp_tables(torch, True, 2)
+    pre = torch.full((2,), 0.25, device="cuda")
+    per_call = {}
+    for tag, fn in (
+            ("K3", lambda: ks.stacked_quant_matmul(l, x, w, sc, aq, asc,
+                                                   ovp=True)),
+            ("K4", lambda: ks.stacked_quant_matmul_aovp(
+                l, x, w, sc, pre, mids, ties, enc, w_ovp=True))):
+        fn()
+        _, rows = _profiled(torch, fn)
+        per_call[tag] = [{"name": k[:80], "count": c} for _, k, c in rows]
+        if sum(c for _, _, c in rows) != 1:
+            fail(f"{tag} ran {rows} on the device, not one kernel")
+    emit({"phase": "checks_ovp", "checks": n_checks,
+          "kernels_per_call": per_call})
     return errs
 
 
@@ -1168,10 +1274,12 @@ def phase_times_ovp(torch, olive_engine, ovpw_engine):
     """K3 and K4 times at one decode layer's six sites (M = 4), on the
     32-layer OVP weight stacks of the two OliVe engines and their own
     tables, layers rotated so the weights come from device memory: the
-    kernel, its plain version, the bound, and torch._int_mm on the same
+    kernel, its launch plan, its plain version, the bound, K1 on the same
+    weight stream (K3 and K4 run on its stream: the difference is their
+    encode, extra dots and f32 order), and torch._int_mm on the same
     int8 weight stream and M as a reference point. _int_mm is one int8
-    dot, not the same function: no single PyTorch call computes K3's
-    dual or K4's quad dot with the encode."""
+    dot, not the same function: no single PyTorch call computes K3's dual
+    or K4's quad dot with the encode."""
     from ant_quantization_tpu_torch.kernels import stacked as ks
     from ant_quantization_tpu_torch.serve.engine import _prepare_stacked
     stk4 = _prepare_stacked(olive_engine.cfg, olive_engine.engine_params(),
@@ -1179,6 +1287,7 @@ def phase_times_ovp(torch, olive_engine, ovpw_engine):
     stk3 = _prepare_stacked(ovpw_engine.cfg, ovpw_engine.engine_params(),
                             BATCH)
     L = olive_engine.cfg.lm.n_layers
+    block_k = olive_engine.cfg.stacked_block_k
     gen = torch.Generator(device="cuda")
     gen.manual_seed(11)
     M, iters = BATCH, 2 * L
@@ -1197,23 +1306,31 @@ def phase_times_ovp(torch, olive_engine, ovpw_engine):
                                device="cuda", generator=gen)
         t_l = cuda_ms(torch, lambda i: torch._int_mm(xq_pad, w[i % L].t()),
                       iters)
-        for kern, fn, plain, args, kw, dots, tb in (
+        t_1 = cuda_ms(torch, lambda i: ks.stacked_quant_matmul(
+            i % L, x, w, *a3), iters)
+        for kern, fn, plain, args, kw, dots, tb, seg in (
                 ("K4", ks.stacked_quant_matmul_aovp,
                  ks.stacked_quant_matmul_aovp_plain, a4, {"w_ovp": True}, 4,
-                 4 * (31 + 31 + 32 + 1)),
+                 4 * (31 + 31 + 32 + 1), ks._check_segments(K, block_k, K)),
                 ("K3", ks.stacked_quant_matmul,
                  ks.stacked_quant_matmul_plain, a3, {"ovp": True}, 2,
-                 4 * (s3["a_q"].shape[1] + 1))):
+                 4 * (s3["a_q"].shape[1] + 1),
+                 ks._check_segments(K, block_k, ks._SUB))):
             t_k = cuda_ms(torch, lambda i: fn(i % L, x, w, *args, **kw),
                           iters)
             t_p = cuda_ms(torch, lambda i: plain(i % L, x, w, *args, **kw),
                           iters)
+            plan = ks.k34_plan(M, K, N, *seg, aovp=kern == "K4")
             byts, ops, bound, by = ovp_bound(M, K, N, dots, tb)
             rows[kern].append({
                 "site": name, "M": M, "K": K, "N": N, "ms": t_k,
+                "mt": plan["mt"], "splits": plan["splits"],
+                "blocks": plan["blocks"], "segment_rows": seg[0],
                 "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
-                "bytes": byts, "ops": ops, "int_mm_ms": t_l})
+                "bytes": byts, "ops": ops, "k1_ms": t_1, "int_mm_ms": t_l})
     emit({"phase": "kernel_times_ovp", "graphed": True,
+          "k1_note": "K1 (stacked_quant_matmul, ovp=False) on the same "
+                     "weight stream, M and stream design",
           "int_mm_note": "torch._int_mm (M padded to 32) on the same int8 "
                          "weight stream: one int8 dot, not the same "
                          "function", **rows})
@@ -2171,6 +2288,7 @@ def main() -> int:
     ovp_rows = phase_times_ovp(torch, olive, ovpw)
     k5_ovp_rows = phase_times_k5_ovp(torch, ovpw)
     phase_profile(torch, olive, olive_ids, path="OliVe")
+    phase_profile(torch, ovpw, olive_ids, path="OVP weights")
     del olive, olive_ep
     sp, _ = phase_stacked_prefill(torch, ovpw, olive_ids,
                                   "stacked_prefill_ovp_weights")
@@ -2245,7 +2363,14 @@ def main() -> int:
         kernels.append({
             "name": fname, "route": "cuda",
             "source": f"ant_quantization_tpu_torch/csrc/{src}",
+            "design": "redesigned: one launch on K1's staged split-K "
+                      "weight stream, the snap or encode fused into each "
+                      "block, the dots on int8 mma.sync, K split only "
+                      "between f32 blocks (csrc/ovp_stream.cuh)",
             "replaces": line, "launches": launches,
+            "plans": {x["site"]: {"mt": x["mt"], "splits": x["splits"]}
+                      for x in rows},
+            "k1_ms_same_stream": sum(x["k1_ms"] for x in rows),
             "max_abs_err": k34_err[tag], "pass": True,
             "ms_per_launch": {x["site"]: x["ms"] for x in rows},
             "at": "one decode layer: the 6 site launches at M=4 on OVP "
