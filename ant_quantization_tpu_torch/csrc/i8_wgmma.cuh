@@ -1,7 +1,8 @@
 // The prefill-size int8 product of K5 (stacked_prefill.cu, int8-value
 // weights) and K9 (w8a8_matmul.cu) on Hopper's warpgroup tensor cores
-// (its mbarrier, TMA and tensor-map pieces also serve K1's weight stream,
-// i8_stream.cuh, and K8, qmatmul_w4.cu):
+// (its mbarrier, TMA, tensor-map and fragment pieces also serve K1's
+// weight stream, i8_stream.cuh, K3, K4 and K6 on it, K5's OVP product,
+// ovp_wgmma.cuh, and K8, qmatmul_w4.cu):
 // xq (M, K) int8 snapped codes against layer `layer` of an N-major
 // (L, N, K) int8 weight stack, int32 accumulation, then one f32 multiply
 // by scales[n]:
@@ -117,6 +118,32 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
           smem_u32(dst)),
       "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
       : "memory");
+}
+
+// ldmatrix x4: lanes 8 q .. 8 q + 7 give the row addresses of 8 x 16-byte
+// matrix q, which lands in r[q] (lane L: bytes 4 (L % 4) .. + 3 of row
+// L / 4)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* smem) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(smem)));
+}
+
+// c += A (16 x 32 s8, row) . B (8 x 32 s8, col), int32: mma.sync m16n8k32
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// clip(c, -64, 64) on each signed byte (the OVP weight's second form)
+__device__ __forceinline__ uint32_t clip64(uint32_t w) {
+  return (uint32_t)__vmaxs4(__vmins4((int)w, 0x40404040), 0xC0C0C0C0);
 }
 
 // A K-major operand of 8-row groups of 128-byte rows, 128-byte swizzle:

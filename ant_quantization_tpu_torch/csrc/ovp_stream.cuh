@@ -88,27 +88,9 @@ struct Shape {
   static constexpr int xbuf = nb * 8 * XROW;              // one buffer
 };
 
-__device__ __forceinline__ uint32_t clip64(uint32_t w) {
-  // clip(c, -64, 64) on each signed byte
-  return (uint32_t)__vmaxs4(__vmins4((int)w, 0x40404040), 0xC0C0C0C0);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* smem) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(wg::smem_u32(smem)));
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using wg::clip64;
+using wg::ldmatrix_x4;
+using wg::mma_s8;
 
 // The least f32 t with pred(t / sc), pred(v) = v >= m (ge) or v > m, for
 // a finite sc > 0: start from m's image and step one ulp at a time. NaN

@@ -1,11 +1,11 @@
-// The activation snap pre-kernel shared by K5 (stacked_prefill.cu), K6
-// (stacked_p4.cu) and K9 above 64 rows (w8a8_matmul.cu):
+// The activation snap pre-kernel shared by K5 (stacked_prefill.cu) and K9
+// above 64 rows (w8a8_matmul.cu):
 // x / a_scale[l] (an IEEE f32 division; no --use_fast_math), or for K9
 // (`recip`) x * inv with inv = 1 / a_scale[l] divided once, as the
 // reference's fused_w8a8_matmul scales; snapped onto the int8-domain
 // codebook a_q[l] by `>=` against the f32 midpoints (aq[i] + aq[i+1]) *
 // 0.5, ties to the larger entry, written once into an int8 (M, K) scratch
-// that the matmul kernel then reads. Also the 16-byte int8 dot.
+// that the matmul kernel then reads.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -30,14 +30,6 @@ __global__ void snap_i8_kernel(const float* __restrict__ x,
     }
     xq[i] = (int8_t)__float2int_rn(aq[idx]);
   }
-}
-
-__device__ __forceinline__ int dot16(const int4& a, const int4& b, int acc) {
-  acc = __dp4a(a.x, b.x, acc);
-  acc = __dp4a(a.y, b.y, acc);
-  acc = __dp4a(a.z, b.z, acc);
-  acc = __dp4a(a.w, b.w, acc);
-  return acc;
 }
 
 // x (M, K) f32 -> xq (M, K) int8 with layer l's a_q (L, G) and a_scale (L,)

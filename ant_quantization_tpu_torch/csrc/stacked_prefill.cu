@@ -19,17 +19,18 @@
 // order, which nvcc never contracts.
 //
 // What bounds it: operations. At M = 2048 a 4096 x 4096 site is 6.9e10
-// int8 ops against 16.8 MB of weights, far above the card's ops-per-byte
-// line, so the product runs on the int8 tensor cores, fed from the int8
-// scratch that the snap pre-kernel wrote. Int8 values: wgmma from a
-// TMA-fed mbarrier ring (i8_wgmma.cuh, shared with K9). OVP bytes:
-// mma.sync m16n8k32 from a two-stage cp.async ring (i8_mma.cuh): the
-// second dot against clip(c) takes two SIMD byte ops on the B fragment in
-// registers into a second accumulator, and the f32 segment and block sums
-// are kept per output (wgmma would need clip(c) in shared memory).
+// int8 ops per dot against 16.8 MB of weights, far above the card's
+// ops-per-byte line, so the product runs on the int8 tensor cores
+// (wgmma, the only path to their full rate), fed from the int8 scratch
+// that the snap pre-kernel wrote, behind a TMA-fed mbarrier ring. Int8
+// values: xq as wgmma's A and the weight tile as B, both from shared
+// memory (i8_wgmma.cuh, shared with K9). OVP bytes: the weight tile as
+// the register-held A, loaded by ldmatrix and clamped in registers for
+// the second dot, the codes as B, and the segments' f32 sums kept per
+// output (ovp_wgmma.cuh).
 
-#include "i8_mma.cuh"
 #include "i8_wgmma.cuh"
+#include "ovp_wgmma.cuh"
 #include "snap_i8.cuh"
 
 extern "C" {
@@ -40,23 +41,21 @@ const char* aq_error_string(int code) {
 
 // x (M, K) f32; xq scratch (M, K) int8; w (L, N, K) int8; a_q (L, G) f32;
 // a_scale (L,) f32; scales (L, N) f32; out (M, N) f32, all on the device.
-// K % 64 == 0; OVP (ovp != 0): segments of seg_tiles * 64 rows, blocks of
-// `fold` segments, K % (64 * seg_tiles * fold) == 0 (the wrapper checks).
+// K % 64 == 0; OVP (ovp != 0): segments of seg rows, seg % 64 == 0,
+// blocks of `fold` segments, K % (seg * fold) == 0 (the wrapper checks).
 // Returns a cudaError_t.
 int stacked_prefill_matmul(const float* x, int8_t* xq, const int8_t* w,
                            const float* a_q, const float* a_scale,
                            const float* scales, float* out, int l, int L,
-                           int M, int K, int N, int G, int seg_tiles,
-                           int fold, int ovp, void* stream) {
+                           int M, int K, int N, int G, int seg, int fold,
+                           int ovp, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = launch_snap(x, xq, a_q, a_scale, l, M, K, G, s);
   if (err != cudaSuccess) return (int)err;
   const float* sl = scales + (long)l * N;
-  if (ovp) {
-    launch_i8_mma_ovp(xq, w + (long)l * N * K, sl, out, M, K, N, seg_tiles,
-                      fold, s);
-    return (int)cudaGetLastError();
-  }
+  if (ovp)
+    return (int)ow::launch_ovp_wgmma(xq, w, L, l, sl, out, M, K, N, seg,
+                                     fold, s);
   return (int)wg::launch_i8_wgmma(xq, w, L, l, sl, out, M, K, N, s);
 }
 

@@ -24,7 +24,8 @@ computes one layer ``l``:
 
 - K5, :func:`stacked_quant_matmul` at M > 256 (the reference's
   ``_prefill_i8``): K1 or K3 for prefill-size M, on the int8 tensor
-  cores (wgmma for int8 values, mma.sync for OVP bytes), with the same
+  cores (wgmma in both modes; OVP bytes with the weight tile as the
+  register-held operand, laid out by :func:`k5_ovp_plan`), with the same
   numbers (the reference holds its M-blocked kernel
   bit-identical to the decode kernel, so K5's plain version is K1's or
   K3's). As in the reference, 64 < M <= 256 stays on K1/K3.
@@ -43,8 +44,9 @@ On a CUDA tensor each wrapper launches its hand-written Hopper kernel
 ``csrc/i8_stream.cuh`` laid out by :func:`k1_plan`, and K3,
 ``csrc/stacked_aovp.cu`` for K4, both on that stream in
 ``csrc/ovp_stream.cuh`` laid out by :func:`k34_plan`,
-``csrc/stacked_prefill.cu`` for K5, ``csrc/stacked_p4.cu`` for K6; each
-source says what bounds it and how it is laid out); on a CPU tensor
+``csrc/stacked_prefill.cu`` for K5, ``csrc/stacked_p4.cu`` for K6 on K1's
+stream with a nibble decode, laid out by :func:`k6_plan`; each source
+says what bounds it and how it is laid out); on a CPU tensor
 it runs its plain PyTorch version, which has the same arithmetic in the
 same order and which the tests hold against the JAX reference and
 ``chip_smoke.py`` holds against the kernel, bit for bit.
@@ -69,8 +71,8 @@ __all__ = ["stacked_quant_matmul", "stacked_quant_matmul_plain",
            "stacked_quant_matmul_aovp", "stacked_quant_matmul_aovp_plain",
            "stacked_quant_matmul_p4", "stacked_quant_matmul_p4_plain",
            "int8_matmul", "COUNTS", "K3_COUNTS", "K4_COUNTS", "K5_COUNTS",
-           "K6_COUNTS", "PREFILL_M", "prefill_snap", "k1_plan", "k34_plan",
-           "split_workspace"]
+           "K6_COUNTS", "PREFILL_M", "prefill_snap", "k1_plan", "k6_plan",
+           "k34_plan", "k5_ovp_plan", "split_workspace"]
 
 # launches of each CUDA kernel, and calls of its plain version (K5 counts
 # both of its modes, int8 values and OVP)
@@ -87,6 +89,9 @@ _P4_SOURCE = "stacked_p4.cu"
 _SUB = 256          # K3's int32 sub-chunk rows (the reference's `sub`)
 PREFILL_M = 256     # larger M takes K5 (the reference's M-blocked route)
 _K5_BK = 64         # K5's K tile: K and the OVP segments are multiples
+# K5's OVP product (csrc/ovp_wgmma.cuh): weight columns and x rows per
+# block, TMA stages in flight
+K5_WN, K5_XM, K5_STAGES = 128, 128, 4
 # K1's weight stream (csrc/i8_stream.cuh): output columns per block, K
 # bytes per stage, stages in flight, threads per block, the SMs to fill,
 # and the tile counters at the head of the split-K workspace
@@ -121,6 +126,19 @@ def k1_plan(M: int, K: int, N: int) -> dict:
     tpc = K1_THREADS // K1_COLS
     p["smem"] = (1024 + K1_STAGES * (K1_COLS * K1_STEP + 8) + 2 * 16 * 4
                  + (tpc - 1) * p["mt"] * K1_COLS * 4 + 2 * p["mt"] * K1_STEP)
+    return p
+
+
+def k6_plan(M: int, K: int, N: int) -> dict:
+    """K6's launch plan at (M, K, N), any M: K1's stream
+    (:func:`_stream_grid` over ``K1_MT``, so M above 16 runs in M tiles)
+    over the K/2 packed bytes of each column. ``smem``: K1's block, but a
+    stage pairs with two x ranges, each kept as whole eight-row tiles of
+    the mma's B in rows of ``K34_XROW`` bytes (``codes`` per buffer)."""
+    p = _stream_grid(M, K // 2, N, K1_MT)
+    p["codes"] = 2 * -(-p["mt"] // 8) * 8 * K34_XROW
+    p["smem"] = (1024 + K1_STAGES * (K1_COLS * K1_STEP + 8) + 2 * 16 * 4
+                 + p["mt"] * K1_COLS * 4 + 2 * p["codes"])
     return p
 
 
@@ -328,6 +346,33 @@ def _launch(l, x, w, scales, a_q, a_scale, ovp, block_k):
     return out
 
 
+def k5_ovp_plan(M: int, K: int, N: int, seg: int, fold: int) -> dict:
+    """The launch plan of K5's OVP product (``csrc/ovp_wgmma.cuh``) at
+    (M, K, N) for segments of ``seg`` rows in f32 blocks of ``fold``
+    segments: blocks of ``K5_WN`` weight columns (two consumer warpgroups
+    of 64, wgmma's register-held A) by ``K5_XM`` x rows (its B), M tiles
+    fastest; ``stages`` TMA stages of ``K1_STEP`` K bytes of both tiles;
+    K walked in ``k_steps`` wgmma steps of 32 bytes, two to a commit
+    group, a segment ``seg_steps`` of them. ``smem``: the ring, its
+    barriers and the f32 totals of the finished blocks (one per output of
+    the block's tile). ``regs``: a consumer thread's 32-bit registers for
+    the two int32 dots, the running f32 sum and one pair's A fragments (c
+    and its clip)."""
+    if K % _K5_BK or seg % _K5_BK or K % (seg * fold):
+        raise ValueError(f"K5 needs K and its OVP segments in multiples of "
+                         f"{_K5_BK} rows and whole f32 blocks: K = {K}, "
+                         f"{fold} segments of {seg}")
+    m_tiles, n_tiles = -(-M // K5_XM), -(-N // K5_WN)
+    acc = K5_XM // 2                # one m64 x XM int32 dot per thread
+    return {"xm": K5_XM, "wn": K5_WN, "m_tiles": m_tiles,
+            "n_tiles": n_tiles, "blocks": m_tiles * n_tiles,
+            "stages": K5_STAGES, "stage_ks": -(-K // K1_STEP),
+            "k_steps": K // 32, "seg_steps": seg // 32, "fold": fold,
+            "smem": (1024 + K5_STAGES * (K5_WN + K5_XM) * K1_STEP
+                     + 2 * K5_STAGES * 8 + K5_WN * K5_XM * 4),
+            "regs": 2 * acc + acc + 2 * 2 * 4}
+
+
 def _launch_prefill(l, x, w, scales, a_q, a_scale, ovp, block_k):
     """K5: the snap pre-kernel, then the int8 tensor-core product."""
     L, N, K = w.shape
@@ -336,17 +381,16 @@ def _launch_prefill(l, x, w, scales, a_q, a_scale, ovp, block_k):
     if K % _K5_BK:
         raise ValueError(f"K = {K} must be a multiple of {_K5_BK} for K5")
     seg, per_block = _check_segments(K, block_k, _SUB) if ovp else (K, 1)
-    if seg % _K5_BK:
-        raise ValueError(f"K5 needs OVP segments of a multiple of {_K5_BK} "
-                         f"rows, K = {K} and block_k = {block_k} give {seg}")
+    if ovp:
+        k5_ovp_plan(M, K, N, seg, per_block)
     lib = _ext.load(_PREFILL_SOURCE)
     fn = _fn(lib, "stacked_prefill_matmul", 7, 9)
     xq = torch.empty((M, K), dtype=torch.int8, device=dev)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     code = fn(x.data_ptr(), xq.data_ptr(), w.data_ptr(), a_q.data_ptr(),
               a_scale.data_ptr(), scales.data_ptr(), out.data_ptr(),
-              l, L, M, K, N, a_q.shape[1], seg // _K5_BK, per_block,
-              int(ovp), _ext.stream_ptr(dev))
+              l, L, M, K, N, a_q.shape[1], seg, per_block, int(ovp),
+              _ext.stream_ptr(dev))
     _ext.check(lib, code, "stacked_prefill_matmul")
     K5_COUNTS["launches"] += 1
     return out
@@ -433,16 +477,17 @@ def _launch_p4(l, x, w, scales, a_q, a_scale, q16, affine):
             or a_q.shape[0] != L or q16.shape != (L, 16)):
         raise ValueError("scales (L, N), a_q (L, G), a_scale (L,), q16 "
                          "(L, 16) expected")
-    if w.data_ptr() % 16:
-        raise ValueError("w must be 16-byte aligned")
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("x and w must be 16-byte aligned")
+    plan = k6_plan(M, K, N)
+    ws, count = _split_args(plan, plan["splits"] * M * N, dev)
     lib = _ext.load(_P4_SOURCE)
-    fn = _fn(lib, "stacked_p4_matmul", 8, 6)
-    xq = torch.empty((M, K), dtype=torch.int8, device=dev)
+    fn = _fn(lib, "stacked_p4_matmul", 9, 9)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    code = fn(x.data_ptr(), xq.data_ptr(), w.data_ptr(), q16.data_ptr(),
-              a_q.data_ptr(), a_scale.data_ptr(), scales.data_ptr(),
-              out.data_ptr(), l, M, K, N, a_q.shape[1], int(affine),
-              _ext.stream_ptr(dev))
+    code = fn(x.data_ptr(), w.data_ptr(), q16.data_ptr(), a_q.data_ptr(),
+              a_scale.data_ptr(), scales.data_ptr(), out.data_ptr(), ws,
+              count, l, L, M, K, N, a_q.shape[1], int(affine), plan["mt"],
+              plan["splits"], _ext.stream_ptr(dev))
     _ext.check(lib, code, "stacked_p4_matmul")
     K6_COUNTS["launches"] += 1
     return out

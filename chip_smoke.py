@@ -59,15 +59,18 @@ Phases, each printing one JSON line (numbers unrounded):
    within SP_OVP_RTOL), 8 greedy steps each; K5 times at one prefill
    layer (M = 2048) beside the torch route it replaces, with its snap
    pre-kernel timed alone beside that one's byte bound; K5's OVP mode
-   alone on the OVP-weights stacks; a profile; and
+   alone on the OVP-weights stacks; a profile of each stacked prefill; and
    in situ at 2 layers, every K5 call checked and a swap for its plain
    version that must give identical tokens and logits;
 14. w4pack path: OPT-6.7B with packed 4-bit weights built on the card
    by ``quantize_weights_w4`` (ANT int grid at q/k/v: affine decode;
    flint elsewhere: table decode), 32 layers, served as in 5: decode
-   runs K6 (12,288), prefill K8 (192); K6 times at one decode layer and
-   K8 times at one prefill layer beside their bounds, plain versions
-   and library calls; a profile; and in situ at 2 layers (every K6 call
+   runs K6 (12,288), prefill K8 (192); K6 times at one decode layer (with
+   each launch's plan, and its fixed cost per launch from the line through
+   its two table-decoded sites, out at 4096 x 4096 and fc_in) and K8
+   times at one prefill layer beside their bounds,
+   plain versions and library calls; a profile; and in situ at 2 layers
+   (every K6 call
    bit-equal, every K8 call within K8_RTOL, a K6 swap with identical
    tokens and logits);
 15. bloom_main: BLOOM-7b1 at full width and depth (30 layers, fused qkv
@@ -97,9 +100,12 @@ concat midpoints, padded duplicates and outlier pairs, on adversarial
 inputs at K = 4096 and 16384 whose partial sums pass 2^24, on tables whose thresholds fall out of order (K4's
 select chain), at a prescale that is no power of two and at negative
 scales (the per-element division), each call one launch and one device
-kernel; and K6 (M 1, 4, 64,
-affine and table decode) and K5 (M 257, 300, 2048 and 4096, int8
-values on wgmma and OVP bytes, and K3's adversarial case) bit for bit,
+kernel; and K6 (M 1, 4, 16, 64 and
+300, affine and table decode, at the OPT sites and at K 4160 by N 4104,
+each call one launch and one device kernel) and K5 (M 257, 300, 2048 and
+4096, int8 values and OVP bytes, both on wgmma, and K3's adversarial
+case; the OVP mode also at block_k 64, 128, 256 and 4096; each call the
+snap pre-kernel and one product kernel) bit for bit,
 K8 (M 4 and 2048, bf16 and f32 x, flint, int and unsigned float grids) within K8_RTOL of each
 output's sum of term magnitudes; K7 (S 2048 and 16,384,
 T 1, 4 and 16, ragged pos0, ALiBi on and off) within K2's tolerance; K9
@@ -591,16 +597,28 @@ def k8_close(torch, got, want, size) -> bool:
         ((got - want).abs() <= K8_RTOL * size).all())
 
 
+K6_CHECK_M = (1, 4, 16, 64, 300)
+# block_k beside the engine's 1024 for K5's OVP mode at one site: its
+# segments and f32 blocks (at K = 4096: 64 and 4096 give one block of 16
+# segments of 256 rows, 128 segments of 128 rows each one block, 256
+# segments of 256 rows each one block)
+K5_OVP_BLOCK_K = (64, 128, 256, 4096)
+
+
 def phase_checks_w4pack(torch, gen):
     """K6, K5 and K8 against their plain versions on the card, at the
-    three OPT site shapes: K6 bit for bit at M 1, 4 and 64, affine and
-    table decode; K5 (stacked_quant_matmul at M > 256) bit for bit at M
-    257, 300, 2048 and 4096, int8 values (wgmma) and OVP bytes
-    (mma.sync), and on K3's adversarial
-    K = 16384 case whose 256-row segment sums pass 2^24; K8 at M 4 and
-    2048, bf16 and f32 x, on the flint, int and unsigned float grids
-    (the three routes of its bf16 weight table), within K8_RTOL of each
-    output's sum of term magnitudes."""
+    three OPT site shapes: K6 bit for bit at M 1, 4, 16, 64 and 300,
+    affine and table decode, and at K = 4160 (K/2 no multiple of its
+    128-byte stage) by N = 4104, each call one launch and one device
+    kernel; K5 (stacked_quant_matmul at M > 256) bit for bit at M 257,
+    300, 2048 and 4096, int8 values and OVP bytes (both on wgmma), and on
+    K3's adversarial K = 16384 case whose 256-row segment sums pass 2^24;
+    its OVP mode also at block_k 64, 128, 256 and 4096 on the 4096 x 4096
+    site (adversarial at 128 and 4096 as well), each call the snap
+    pre-kernel and one product kernel; K8 at M 4 and 2048, bf16 and f32
+    x, on the flint, int and unsigned float grids (the three routes of its
+    bf16 weight table), within K8_RTOL of each output's sum of term
+    magnitudes."""
     import numpy as np
     from ant_quantization_tpu_torch.kernels import qmatmul as kq
     from ant_quantization_tpu_torch.kernels import stacked as ks
@@ -611,6 +629,7 @@ def phase_checks_w4pack(torch, gen):
     d, ff = 4096, 16384
     shapes = ((d, d), (d, ff), (ff, d))
     errs = {"K5": 0.0, "K6": 0.0, "K8": 0.0}
+    n_checks = {"K5": 0, "K6": 0, "K8": 0}
 
     def record(kernel, got, want, ok, **info):
         torch.cuda.synchronize()
@@ -622,49 +641,96 @@ def phase_checks_w4pack(torch, gen):
             fail(f"{kernel} differs from its plain version: {info} "
                  f"(max abs err {err})")
         errs[kernel] = max(errs[kernel], err)
+        n_checks[kernel] += 1
+
+    def launched(counts, call, info):
+        before = counts["launches"]
+        got = call()
+        if counts["launches"] != before + 1:
+            fail(f"did not launch once at {info}")
+        return got
 
     exact = lambda equal: equal
     flint = cb.ant_grid("flint", 4, True).astype(np.float32)
-    for K, N in shapes:
+    for K, N in shapes + ((4160, 4104),):
         for affine in (True, False):
             q16v = np.arange(16) - 8 if affine else int8_codebook(flint)[0]
             q16 = torch.tensor(np.stack([q16v] * 2).astype(np.int32),
                                device="cuda")
             w = torch.randint(0, 256, (2, N, K // 2), dtype=torch.uint8,
                               device="cuda", generator=gen)
-            for M in (1, 4, 64):
-                x, _, sc, aq, asc, l = _k1_operands(torch, M, K, 8, 2, gen)
-                sc = torch.rand((2, N), device="cuda", generator=gen) * 1e-3
-                args = (l, x, w, sc, aq, asc, q16, affine)
-                got = ks.stacked_quant_matmul_p4(*args)
+            sc = torch.rand((2, N), device="cuda", generator=gen) * 1e-3
+            x, _, _, aq, asc, l = _k1_operands(torch, max(K6_CHECK_M), K, 8,
+                                               2, gen)
+            # exact midpoint ties in the high half of K too
+            x[0, K // 2:K // 2 + 15] = x[0, :15]
+            for M in K6_CHECK_M:
+                args = (l, x[:M], w, sc, aq, asc, q16, affine)
+                plan = ks.k6_plan(M, K, N)
+                info = {"M": M, "K": K, "N": N, "affine": affine,
+                        "mt": plan["mt"], "splits": plan["splits"],
+                        "blocks": plan["blocks"]}
+                got = launched(ks.K6_COUNTS,
+                               lambda: ks.stacked_quant_matmul_p4(*args),
+                               info)
                 want = ks.stacked_quant_matmul_p4_plain(*args)
-                record("K6", got, want, exact, M=M, K=K, N=N, affine=affine)
-        del w
-    for K, N in shapes:
-        for M, ovp, adv in tuple((M, ovp, False) for ovp in (False, True)
-                                 for M in (257, 300, 2048, 4096)) + (
-                ((300, True, True),) if K == ff else ()):
-            if ovp:
-                x, w, sc, aq, asc, l = _k3_operands(torch, M, K, N, 2, gen,
-                                                    adv)
-            else:
-                x, w, sc, aq, asc, l = _k1_operands(torch, M, K, N, 2, gen)
-            info = {"M": M, "K": K, "N": N, "ovp": ovp, "adversarial": adv}
-            before = ks.K5_COUNTS["launches"]
-            got = ks.stacked_quant_matmul(l, x, w, sc, aq, asc, ovp=ovp)
-            if ks.K5_COUNTS["launches"] != before + 1:
-                fail(f"K5 did not launch at {info}")
-            want = ks.stacked_quant_matmul_plain(l, x, w, sc, aq, asc,
-                                                 ovp=ovp)
-            if adv:
-                xq = snap_value(x / asc[l], aq[l]).double()
-                wv = ovp_decode_values(w[l]).double()
-                info["subchunk_max"] = (xq[:, :256] @ wv[:, :256].t()).abs(
-                    ).max().item()
-                if info["subchunk_max"] <= 2 ** 24:
-                    fail(f"K5 adversarial case stays exact: {info}")
-            record("K5", got, want, exact, **info)
-            del x, w, got, want
+                record("K6", got, want, exact, **info)
+            del w, x
+    # K5 cases: (M, K, N, ovp, adversarial, block_k)
+    k5_cases = [(M, K, N, ovp, False, 1024) for K, N in shapes
+                for ovp in (False, True) for M in (257, 300, 2048, 4096)]
+    k5_cases += [(300, ff, d, True, True, 1024)]
+    k5_cases += [(M, d, d, True, False, bk) for bk in K5_OVP_BLOCK_K
+                 for M in (300, 2048)]
+    k5_cases += [(300, d, d, True, True, bk) for bk in (128, 4096)]
+    for M, K, N, ovp, adv, bk in k5_cases:
+        if ovp:
+            x, w, sc, aq, asc, l = _k3_operands(torch, M, K, N, 2, gen, adv)
+        else:
+            x, w, sc, aq, asc, l = _k1_operands(torch, M, K, N, 2, gen)
+        info = {"M": M, "K": K, "N": N, "ovp": ovp, "adversarial": adv,
+                "block_k": bk}
+        if ovp:
+            info["segment_rows"], info["fold"] = ks._check_segments(
+                K, bk, ks._SUB)
+        got = launched(ks.K5_COUNTS, lambda: ks.stacked_quant_matmul(
+            l, x, w, sc, aq, asc, ovp=ovp, block_k=bk), info)
+        want = ks.stacked_quant_matmul_plain(l, x, w, sc, aq, asc, ovp=ovp,
+                                             block_k=bk)
+        if adv:
+            xq = snap_value(x / asc[l], aq[l]).double()
+            wv = ovp_decode_values(w[l]).double()
+            info["subchunk_max"] = (xq[:, :256] @ wv[:, :256].t()).abs(
+                ).max().item()
+            if info["subchunk_max"] <= 2 ** 24:
+                fail(f"K5 adversarial case stays exact: {info}")
+            del wv
+        record("K5", got, want, exact, **info)
+        del x, w, got, want
+    # device kernels per call: K6 one (no snap pre-kernel), K5 two (the
+    # snap pre-kernel and the product) in both modes
+    per_call = {}
+    q16 = torch.tensor(np.stack([np.arange(16) - 8] * 2).astype(np.int32),
+                       device="cuda")
+    w4 = torch.randint(0, 256, (2, d, d // 2), dtype=torch.uint8,
+                       device="cuda", generator=gen)
+    x4, _, _, aq, asc, l = _k1_operands(torch, 4, d, 8, 2, gen)
+    sc4 = torch.rand((2, d), device="cuda", generator=gen) * 1e-3
+    x5, w5, sc5, aq5, asc5, l5 = _k3_operands(torch, 300, d, d, 2, gen,
+                                              False)
+    for tag, want_n, fn in (
+            ("K6", 1, lambda: ks.stacked_quant_matmul_p4(
+                l, x4, w4, sc4, aq, asc, q16, True)),
+            ("K5 ovp", 2, lambda: ks.stacked_quant_matmul(
+                l5, x5, w5, sc5, aq5, asc5, ovp=True)),
+            ("K5 int8", 2, lambda: ks.stacked_quant_matmul(
+                l5, x5, w5, sc5, aq5, asc5, ovp=False))):
+        fn()
+        _, rows = _profiled(torch, fn)
+        per_call[tag] = [{"name": k[:80], "count": c} for _, k, c in rows]
+        if sum(c for _, _, c in rows) != want_n:
+            fail(f"{tag} ran {rows} on the device, not {want_n} kernels")
+    del w4, x5, w5
     # K8 on the three routes of its weight table: the flint grid (exact
     # in bf16), the int grid (its int8 restatement and unit) and the
     # unsigned float grid (neither: three bf16 terms); bf16 x (one term,
@@ -690,6 +756,8 @@ def phase_checks_w4pack(torch, gen):
                            x=str(dt).split(".")[-1], rtol_of_size=K8_RTOL,
                            max_err_over_size=((got - want).abs() / size
                                               ).max().item())
+    emit({"phase": "checks_w4pack", "checks": n_checks,
+          "kernels_per_call": per_call})
     return errs
 
 
@@ -1383,10 +1451,13 @@ def phase_times_w4pack(torch, engine):
         del w8
         byts = K * N // 2 + 4 * M * K + 4 * M * N + 4 * N + 64 + 4 * 17
         bound, by = _bound(byts, 2 * M * K * N, INT8_OPS)
+        plan = ks.k6_plan(M, K, N)
         rows["K6"].append({"site": name, "M": M, "K": K, "N": N,
                            "affine": s["affine"], "ms": t_k, "plain_ms": t_p,
                            "bound_ms": bound, "bound_by": by, "bytes": byts,
-                           "int_mm_ms": t_l})
+                           "int_mm_ms": t_l, "mt": plan["mt"],
+                           "splits": plan["splits"],
+                           "blocks": plan["blocks"]})
         site = ep["layers"][name]
         M, n_l = BATCH * PREFILL, 4
         k8 = [(site["packed"][l], site["scale"][l], site["grid"][l],
@@ -1423,10 +1494,24 @@ def phase_times_w4pack(torch, engine):
         row["ms"], row["bound_ms"] = row["ms_bf16_x"], row["bound_ms_bf16_x"]
         row["bound_by"] = row["bound_by_bf16_x"]
         rows["K8"].append(row)
+    # K6's time per launch at a 4096 x 4096 site and at fc_in beside
+    # their byte bounds, and the line through the two sites of one decode
+    # (out and fc_in: the table): its value at zero bytes is the fixed
+    # cost of a launch, its slope the stream's time per byte (the share of
+    # a launch that a graphed decode could not hide); q, affine, beside
+    at = {x["site"]: x for x in rows["K6"]}
+    sq, fc = at["out"], at["fc_in"]
+    slope = (fc["ms"] - sq["ms"]) / (fc["bytes"] - sq["bytes"])
+    fixed = {f"{x['site']}_{k}": x[k] for x in (at["q"], sq, fc)
+             for k in ("ms", "bound_ms", "bytes", "affine")}
+    fixed.update(fit_sites=["out", "fc_in"],
+                 fixed_us=(sq["ms"] - slope * sq["bytes"]) * 1e3,
+                 stream_bytes_per_s=1e3 / slope if slope > 0 else None)
     emit({"phase": "kernel_times_w4pack", "graphed": True,
           "int_mm_note": "K6 beside torch._int_mm (M padded to 32) on the "
                          "unpacked int8 weights: one int8 dot, not the "
-                         "same function", **rows})
+                         "same function", "k6_fixed_cost": fixed, **rows})
+    rows["k6_fixed_cost"] = fixed
     return rows
 
 
@@ -2292,6 +2377,7 @@ def main() -> int:
     del olive, olive_ep
     sp, _ = phase_stacked_prefill(torch, ovpw, olive_ids,
                                   "stacked_prefill_ovp_weights")
+    phase_profile(torch, sp, olive_ids, path="OVP weights stacked_prefill")
     del ovpw, sp
     torch.cuda.empty_cache()
     phase_insitu_olive(torch, gen)
@@ -2431,7 +2517,20 @@ def main() -> int:
     k8["bf16_mm_ms"] = sum(x["bf16_mm_ms"] for x in k8_rows)
     k8["bf16_mm_note"] = ("torch.mm in bf16 on the bf16 operands: rounds "
                           "its output, a reference point only")
+    k6 = next(x for x in kernels if x["name"].endswith("(K6)"))
+    k6["design"] = ("one launch on K1's staged split-K weight stream with "
+                    "a nibble-decode policy, the snap fused a stage ahead "
+                    "for both x ranges of a stage, the dots on int8 "
+                    "mma.sync (csrc/i8_stream.cuh)")
+    k6["plans"] = {x["site"]: {"mt": x["mt"], "splits": x["splits"]}
+                   for x in w4_rows["K6"]}
+    k6["fixed_cost"] = w4_rows["k6_fixed_cost"]
     k5 = next(x for x in kernels if x["name"].endswith("(K5)"))
+    k5["design"] = ("the snap pre-kernel (csrc/snap_i8.cuh), then wgmma: "
+                    "int8 values with the codes as A (csrc/i8_wgmma.cuh); "
+                    "OVP bytes with the weight tile as wgmma's "
+                    "register-held A, clamped in registers for the second "
+                    "dot, the codes as B (csrc/ovp_wgmma.cuh)")
     k5["snap"] = {"ms": sum(x["snap_ms"] for x in k5_rows),
                   "bound_ms": sum(x["snap_bound_ms"] for x in k5_rows),
                   "bound_by": "bytes",
