@@ -3,14 +3,16 @@
 ``from_jax_engine_params`` takes the reference's engine-params tree (as
 its ``serve/engine.py:build_engine_params`` makes it, leaves fetched with
 ``np.asarray``) and returns the port's tensors and layouts;
-``from_jax_kv`` does the same for the reference's stacked INT8 cache, so
-both engines can start from the same state. Only numpy crosses over: this
+``from_jax_kv`` does the same for the reference's stacked cache (INT8,
+or the raw bf16 / f32 baseline cache), so both engines can start from
+the same state. Only numpy crosses over: this
 module imports nothing of the reference package.
 
 Layouts that change:
 - weight stacks ``w_i8`` (L, K, N) -> the port's N-major (L, N, K), for
   int8 codebook values and OVP bytes (``ovp``) alike, at every site
-  (a fused ``qkv`` too);
+  (a fused ``qkv`` too), and so the dense "bf16" ``kernel`` stacks, in
+  their dtype;
 - "w4pack" stacks ``packed`` (L, K/2, N) -> (L, N, K/2), the same bytes
   (each still holds rows i and i + K/2 of one column); a per-layer
   ``scale`` or ``oscale`` given for the whole row (L, 1) is broadcast to
@@ -22,7 +24,8 @@ Layouts that change:
 - "w4pack" sites gain K8's term tables ``k8_terms`` and ``k8_unit``,
   made from each layer's ``grid`` as ``build_engine_params`` makes them;
 - KV codes (L, B, H, S/f, f*D) lane-folded -> flat (L, B, H, S, D), and
-  plane-major scales (L, B, H, f, S/f) -> (L, B, H, S), by position.
+  plane-major scales (L, B, H, f, S/f) -> (L, B, H, S), by position; a
+  raw cache is flat already (f = 1) and keeps its dtype.
 """
 
 from __future__ import annotations
@@ -41,8 +44,7 @@ __all__ = ["from_jax_engine_params", "from_jax_kv"]
 
 # reference site leaves that belong to paths this slice does not port,
 # with their ROADMAP Queue 1 item
-_UNPORTED = {"kscale": "8.3 (Conv1D sites)",
-             "kernel": "8.7 (bf16 weights)"}
+_UNPORTED = {"kscale": "5 (Conv1D sites)"}
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -70,7 +72,7 @@ def from_jax_engine_params(tree: Dict, device=None) -> Dict:
                     f"site {name!r} carries {key!r}: not ported yet "
                     f"(ROADMAP Queue 1 item {item})")
         out = {k: _tensor(v, dev) for k, v in site.items()}
-        for key in ("w_i8", "packed"):
+        for key in ("w_i8", "packed", "kernel"):
             if key in site:
                 out[key] = _tensor(np.transpose(np.asarray(site[key]),
                                                 (0, 2, 1)), dev)

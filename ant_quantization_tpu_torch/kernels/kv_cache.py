@@ -1,8 +1,12 @@
-"""INT8 KV-cache storage.
+"""KV-cache storage: INT8 codes, or raw values (the bf16 cache).
 
-Counterpart of the reference's ``kernels/kv_cache.py``. K/V are stored as
-int8 codes with one f32 scale per (layer, batch, head, position):
-symmetric absmax over the head dim, round half to even, clip to +-127.
+Counterpart of the reference's ``kernels/kv_cache.py``. An int8 cache
+stores K/V as int8 codes with one f32 scale per (layer, batch, head,
+position): symmetric absmax over the head dim, round half to even, clip
+to +-127. A cache of any other dtype (the reference's bf16 baseline,
+``kv_int8=False``) stores the values themselves, cast to f32 and then to
+the cache dtype as the reference casts them; its scales are kept, as
+there, but never written or read.
 
 The port's layout is flat and stacked over layers: codes
 ``(L, B, H, S, D)`` int8, scales ``(L, B, H, S)`` f32. The reference's
@@ -23,16 +27,19 @@ __all__ = ["QuantKV", "init_kv", "quantize_kv", "append_kv_stacked",
 
 
 class QuantKV(NamedTuple):
-    k: torch.Tensor        # (L, B, H, S, D) int8
-    v: torch.Tensor        # (L, B, H, S, D) int8
+    k: torch.Tensor        # (L, B, H, S, D) int8 (or raw bf16 / f32)
+    v: torch.Tensor        # (L, B, H, S, D) like k
     k_scale: torch.Tensor  # (L, B, H, S) f32
     v_scale: torch.Tensor  # (L, B, H, S) f32
 
 
 def init_kv(n_layers: int, batch: int, max_len: int, n_heads: int,
-            head_dim: int, device: torch.device) -> QuantKV:
+            head_dim: int, device: torch.device,
+            dtype=torch.int8) -> QuantKV:
+    """An empty cache whose k and v are ``dtype``: int8 codes, or the raw
+    values of the bf16 (or f32) cache."""
     shape = (n_layers, batch, n_heads, max_len)
-    z8 = lambda: torch.zeros(shape + (head_dim,), dtype=torch.int8,
+    z8 = lambda: torch.zeros(shape + (head_dim,), dtype=dtype,
                              device=device)
     zs = lambda: torch.zeros(shape, dtype=torch.float32, device=device)
     return QuantKV(z8(), z8(), zs(), zs())
@@ -53,11 +60,12 @@ def quantize_kv(x: torch.Tensor):
 
 def append_kv_stacked(cache: QuantKV, k: torch.Tensor, v: torch.Tensor,
                       layer: int, index) -> QuantKV:
-    """Write new (B, T, H, D) f32 keys/values for one layer, in place, at
+    """Write new (B, T, H, D) keys/values for one layer, in place, at
     positions ``index .. index+T-1``: ``index`` is an int shared by the
     batch, or per sequence a (B,) int tensor or a sequence of B ints
-    (sequence b's rows go to ``index[b] .. index[b]+T-1``). A write past
-    the end of the cache raises. Returns the same cache."""
+    (sequence b's rows go to ``index[b] .. index[b]+T-1``). An int8 cache
+    takes the quantized codes and scales, any other the raw values. A
+    write past the end of the cache raises. Returns the same cache."""
     B, T = k.shape[:2]
     S = cache.k.shape[3]
     if isinstance(index, int):
@@ -74,16 +82,20 @@ def append_kv_stacked(cache: QuantKV, k: torch.Tensor, v: torch.Tensor,
         if i < 0 or i + T > S:
             raise ValueError(f"write of {T} positions at {i} exceeds the "
                              f"cache length {S}")
+    raw = cache.k.dtype != torch.int8
     for codes, scales, x in ((cache.k, cache.k_scale, k),
                              (cache.v, cache.v_scale, v)):
-        q, s = quantize_kv(x.to(torch.float32).transpose(1, 2))
+        x = x.to(torch.float32).transpose(1, 2)
+        q, s = (x.to(codes.dtype), None) if raw else quantize_kv(x)
         if starts is None:
             codes[layer, :, :, index:index + T] = q
-            scales[layer, :, :, index:index + T] = s
+            if s is not None:
+                scales[layer, :, :, index:index + T] = s
             continue
         for b, i in enumerate(starts):
             codes[layer, b, :, i:i + T] = q[b]
-            scales[layer, b, :, i:i + T] = s[b]
+            if s is not None:
+                scales[layer, b, :, i:i + T] = s[b]
     return cache
 
 

@@ -60,8 +60,8 @@ __all__ = ["int8_codebook", "quantize_weights_w4_i8", "OVP_OFFSET",
            "ovp_encode_scalar", "ovp_clip", "ovp_decode_values",
            "pack_w4", "unpack_w4", "quantize_weights_w4",
            "dequant_w4_reference", "tf32_off", "f32_product",
-           "K8_RTOL", "TERM_BOUND", "bf16_terms", "w4_term_plan",
-           "w4_products", "quantized_matmul_w4",
+           "f32_out_product", "K8_RTOL", "TERM_BOUND", "bf16_terms",
+           "w4_term_plan", "w4_products", "quantized_matmul_w4",
            "quantized_matmul_w4_plain", "int8_matmul", "w8a8_snap",
            "fused_w8a8_matmul", "fused_w8a8_matmul_plain", "K8_COUNTS",
            "K9_COUNTS"]
@@ -121,12 +121,12 @@ def quantize_weights_w4_i8(w: torch.Tensor, grid, alpha,
     convention; it differs from the absmax on the asymmetric int grids),
     times the codebook's unit. Only per-output-channel (Linear) scales are
     ported; GPT-2's per-input-channel Conv1D sites come later (ROADMAP
-    Queue 1 item 8.3).
+    Queue 1 item 5).
     """
     if axis != 1:
         raise NotImplementedError(
             "per-input-channel (Conv1D, 'kscale') weights are not ported "
-            "yet (ROADMAP Queue 1 item 8.3)")
+            "yet (ROADMAP Queue 1 item 5)")
     dev = w.device
     g16 = np.asarray(grid, np.float32).reshape(-1)[:16]
     q16, unit, _ = int8_codebook(g16)
@@ -213,12 +213,12 @@ def quantize_weights_ovp_i8(w: torch.Tensor, grid, outliers, alpha,
     is ``alpha / max(grid)`` (the SIGNED max) times the unit. Runs on the
     device of ``w``. Only per-output-channel (Linear) scales are ported;
     GPT-2's per-input-channel Conv1D sites come later (ROADMAP Queue 1
-    item 8.3).
+    item 5).
     """
     if axis != 1:
         raise NotImplementedError(
             "per-input-channel (Conv1D, 'kscale') weights are not ported "
-            "yet (ROADMAP Queue 1 item 8.3)")
+            "yet (ROADMAP Queue 1 item 5)")
     dev = w.device
     g16 = np.asarray(grid, np.float32).reshape(-1)[:16]
     o16 = np.asarray(outliers, np.float32).reshape(-1)[:16]
@@ -328,6 +328,21 @@ def f32_product(a: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
     a, w = a.to(torch.float32), w_nk.to(torch.float32)
     with tf32_off():
         return a @ w.t()
+
+
+def f32_out_product(a: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
+    """a (M, K) @ w_nk (N, K).T as the reference's ``dot(.., preferred_
+    element_type=f32)`` on operands of one dtype: products exact, sums and
+    the result in f32. On a CUDA device two bf16 operands take cuBLAS's
+    bf16 tensor-core product with an f32 output (``torch.mm``'s
+    ``out_dtype``), which neither rounds the result to bf16 nor runs as an
+    f32 SGEMM at a fifteenth of the rate; everything else takes
+    :func:`f32_product`. The two differ only in the order of the f32
+    sums."""
+    if (a.is_cuda and a.dtype == torch.bfloat16
+            and w_nk.dtype == torch.bfloat16):
+        return torch.mm(a, w_nk.t(), out_dtype=torch.float32)
+    return f32_product(a, w_nk)
 
 
 # K8's hold: within this share of each output's sum of term magnitudes

@@ -2,7 +2,7 @@
 
 The config half of the reference's ``models/transformer_lm.py``, as plain
 Python. The model modules themselves come in a later slice (ROADMAP
-Queue 1 item 12).
+Queue 1 item 10).
 """
 
 from __future__ import annotations

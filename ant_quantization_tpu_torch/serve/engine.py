@@ -1,18 +1,19 @@
 """Quantized serving engine for the decoder LM family, main path.
 
 Counterpart of the reference's ``serve/engine.py`` for the weight modes
-"w4" (4-bit weights stored as int8 bytes) and "w4pack" (4-bit codes
-packed two to a byte), the INT8 KV cache and the int8 lm_head: prefill
-and greedy decode, with a write position shared by the batch or one per
-sequence (a bucket-padded batch of ragged prompts). The OPT geometry
-(split q/k/v, learned positions) and the BLOOM geometry (fused qkv, the
-embedding LayerNorm, ALiBi) are served. Both halves of the system are
-served:
+"w4" (4-bit weights stored as int8 bytes), "w4pack" (4-bit codes packed
+two to a byte) and "bf16" (dense weights in ``cfg.dtype``, the
+unquantized baseline), the INT8 and the bf16 KV cache (``kv_int8``) and
+the int8 and the plain lm_head: prefill and greedy decode, with a write
+position shared by the batch or one per sequence (a bucket-padded batch
+of ragged prompts). The OPT geometry (split q/k/v, learned positions)
+and the BLOOM geometry (fused qkv, the embedding LayerNorm, ALiBi) are
+served. Both halves of the system are served:
 
 - ANT: weights as int8 codebook values ("w4") or packed codes
   ("w4pack"), activations snapped onto an int8-exact codebook (``a_q``);
-  "w4pack" also serves without activation quantization (``act_bits=0``,
-  W4A16);
+  both also serve without activation quantization (``act_bits=0``,
+  W4A16), and "bf16" with the activation fake-quant alone;
 - OliVe: outlier-victim pairs (OVP). Under "w4", weights with outliers
   take the sign-offset OVP byte encoding (``ovp``) and activations with
   outliers carry per-layer concat-snap tables (``aovp_*``). "w4pack"
@@ -39,11 +40,17 @@ Routing follows the reference (``_prepare_stacked``):
   fails) fake-quantizes the activation in ``cfg.dtype`` and runs K8
   (``kernels/qmatmul.py``) on it, an f32-exact product against the grid
   values;
+- "bf16" sites (the reference's plain XLA dot, no kernel there either)
+  run the activation fake-quant where there is one and a library product
+  of ``cfg.dtype`` operands with an f32 result (``f32_out_product``), at
+  every M; so does "w4" without ``a_q``, against the int8 values;
 - attention takes the reference's route at every shape
-  (:func:`attention_route`): K2 (``kernels/attention.py``, one launch per
-  layer for any T) while one head's tile fits the reference's budget;
-  past it (a long cache) K7 for up to 16 queries on a flat cache, else
-  the reference's dequantizing fallback as torch ops.
+  (:func:`attention_route`): on the INT8 cache K2
+  (``kernels/attention.py``, one launch per layer for any T) while one
+  head's tile fits the reference's budget; past it (a long cache) K7 for
+  up to 16 queries on a flat cache, else the reference's dequantizing
+  fallback as torch ops. The bf16 cache always takes that einsum, read
+  raw.
 
 On a CUDA device the kernels run and nothing else; on the CPU their plain
 versions run. Features of the reference engine that this slice does not
@@ -65,8 +72,8 @@ from ..kernels.attention import (K7_MAX_T, _rel, int8_kv_attention,
                                  stacked_int8_kv_attention)
 from ..kernels.kv_cache import (QuantKV, append_kv_stacked, dequant_kv,
                                 init_kv)
-from ..kernels.qmatmul import (f32_product, int8_codebook, int8_matmul,
-                               ovp_clip, ovp_decode_values,
+from ..kernels.qmatmul import (f32_out_product, int8_codebook,
+                               int8_matmul, ovp_clip, ovp_decode_values,
                                ovp_encode_scalar, ovp_unit,
                                quantize_weights_ovp_i8, quantize_weights_w4,
                                quantize_weights_w4_i8, quantized_matmul_w4,
@@ -83,7 +90,7 @@ __all__ = ["EngineConfig", "quantize_lm_head", "quantize_activation",
            "quantize_activation_ovp", "weight_entry", "packed_weight_entry",
            "k8_plan_leaves", "act_entry", "stack_entries",
            "build_engine_params", "forward", "init_cache", "Engine",
-           "attention_route"]
+           "attention_route", "params_device"]
 
 _ATTN_SITES = ("qkv", "q", "k", "v", "out")
 # the reference's VMEM budget for one head's tile of its stacked attention
@@ -102,7 +109,7 @@ class EngineConfig:
     added in f32 per block of that many K rows), so it is part of their
     numbers, as in the reference."""
     lm: LMConfig
-    weight_mode: str = "w4"        # "w4" or "w4pack" ("bf16": not ported)
+    weight_mode: str = "w4"        # "w4", "w4pack" or "bf16"
     act_bits: int = 0              # 0 = no activation quant, else 4/8
     kv_int8: bool = True
     lm_head_int8: bool = False
@@ -132,14 +139,10 @@ def _not_ported(what: str, item: str):
 
 def _check_config(cfg: EngineConfig) -> None:
     c = cfg.lm
-    if cfg.weight_mode not in ("w4", "w4pack"):
-        raise _not_ported(f"weight_mode={cfg.weight_mode!r}", "8.7")
-    if not cfg.act_bits and cfg.weight_mode == "w4":
-        raise _not_ported("w4 without activation quantization", "8")
-    if not cfg.kv_int8:
-        raise _not_ported("the bf16 KV cache", "8.7")
+    if cfg.weight_mode not in ("w4", "w4pack", "bf16"):
+        raise ValueError(f"unknown weight_mode {cfg.weight_mode!r}")
     if cfg.tp_axis is not None or cfg.tp_size != 1:
-        raise _not_ported("tensor parallelism", "14")
+        raise _not_ported("tensor parallelism", "12")
     if c.activation not in ("relu", "gelu", "gelu_new"):
         raise ValueError(f"unknown activation {c.activation!r}")
 
@@ -265,7 +268,8 @@ def act_entry(cfg: EngineConfig, aq, ovp: bool,
     the grid and alpha, plus the outlier grid and, where it has an exact
     sign-offset unit, K4's tables (``ovp``: the site has activation
     outliers in any layer), or else the int8-exact codebook ``a_q`` and
-    its scale where the grid has one. K4's tables belong to "w4" only."""
+    its scale where the grid has one. K4's tables belong to "w4" only;
+    "bf16" takes neither (it serves the fake-quant alone)."""
     t = lambda a: torch.as_tensor(a, device=device)
     a_grid = np.asarray(_field(aq, "grid"), np.float32).reshape(
         -1)[:2 ** cfg.act_bits]
@@ -278,6 +282,8 @@ def act_entry(cfg: EngineConfig, aq, ovp: bool,
         u_a, exact_a = ovp_unit(a_grid, a_out16)
         if exact_a and cfg.weight_mode == "w4":
             e.update(_aovp_encode_tables(a_grid, a_out16, u_a, device))
+        return e
+    if cfg.weight_mode == "bf16":
         return e
     a_q16, a_unit, a_exact = int8_codebook(a_grid)
     if a_exact:
@@ -312,8 +318,8 @@ def stack_entries(site: str, es: list) -> Dict[str, torch.Tensor]:
     return out
 
 
-def build_engine_params(cfg: EngineConfig, params: Dict, quant: Dict,
-                        device=None) -> Dict:
+def build_engine_params(cfg: EngineConfig, params: Dict,
+                        quant: Optional[Dict] = None, device=None) -> Dict:
     """Per-layer float weights + calibrated quantizer states -> stacked
     engine params on ``device`` (default "cuda").
 
@@ -338,15 +344,25 @@ def build_engine_params(cfg: EngineConfig, params: Dict, quant: Dict,
     layer's q16 is arange(16) - 8. It raises ``ValueError`` on weight
     outliers and on Conv1D sites, as the reference does. With
     ``act_bits=0`` no activation leaves are built.
+
+    "bf16" keeps each site's dense ``kernel`` in ``cfg.dtype``, in the
+    port's (L, N, K) layout, and needs ``quant`` only for activation
+    quantization (``a_grid``, ``a_alpha`` and ``a_out``; without
+    ``quant`` it builds none, as the reference). Its Conv1D sites need no
+    per-input-channel scale and are served.
     """
     dev = resolve_device(device)
     _check_config(cfg)
+    dense = cfg.weight_mode == "bf16"
+    if quant is None and not dense:
+        raise ValueError(f"weight_mode {cfg.weight_mode!r} needs the "
+                         "quantizer states (quant)")
     c = cfg.lm
     sites = _site_names(c)
     conv1d = conv1d_site_names(c)
     site_ovp = dict.fromkeys(sites, False)
     site_act_ovp = dict.fromkeys(sites, False)
-    for i in range(c.n_layers):
+    for i in range(c.n_layers if quant is not None else 0):
         for site in sites:
             qn = _site_node(quant[f"h_{i}"], site)
             site_ovp[site] |= bool(np.any(_field(qn["weight_q"], "outliers")))
@@ -357,32 +373,38 @@ def build_engine_params(cfg: EngineConfig, params: Dict, quant: Dict,
     lns: Dict[str, Dict[str, list]] = {
         n: {"scale": [], "bias": []} for n in ("ln_1", "ln_2")}
     for i in range(c.n_layers):
-        p, q = params[f"h_{i}"], quant[f"h_{i}"]
+        p = params[f"h_{i}"]
+        q = None if quant is None else quant[f"h_{i}"]
         for n in lns:
             for k in ("scale", "bias"):
                 lns[n][k].append(np.asarray(p[n][k], np.float32))
         for site in sites:
-            if site in conv1d:
+            if site in conv1d and not dense:
                 if packed:
                     raise ValueError(
                         "w4pack assumes per-output-channel scales; GPT-2 "
                         "Conv1D sites are per-input-channel")
-                raise _not_ported("Conv1D (per-input-channel) sites", "8.3")
+                raise _not_ported("Conv1D (per-input-channel) sites", "5")
             if packed and site_ovp[site]:
                 raise ValueError(
                     "w4pack cannot represent OliVe outlier grids (abfloat "
                     "values exceed the 16-entry pack); use "
                     "weight_mode='w4', whose OVP encoding serves them")
-            node, qn = _site_node(p, site), _site_node(q, site)
+            node = _site_node(p, site)
+            qn = None if q is None else _site_node(q, site)
             kernel = torch.tensor(np.asarray(node["kernel"], np.float32),
                                   device=dev)
             bias = node.get("bias", np.zeros(kernel.shape[1], np.float32))
             e = {"bias": torch.tensor(np.asarray(bias, np.float32),
                                       device=dev)}
-            e.update(packed_weight_entry(kernel, qn["weight_q"]) if packed
-                     else weight_entry(kernel, qn["weight_q"],
-                                       site_ovp[site]))
-            if cfg.act_bits:
+            if dense:
+                e["kernel"] = kernel.t().contiguous().to(cfg.dtype)
+            elif packed:
+                e.update(packed_weight_entry(kernel, qn["weight_q"]))
+            else:
+                e.update(weight_entry(kernel, qn["weight_q"],
+                                      site_ovp[site]))
+            if cfg.act_bits and qn is not None:
                 e.update(act_entry(cfg, qn["input_q"], site_act_ovp[site],
                                    dev))
             entries[site].append(e)
@@ -419,8 +441,8 @@ def _lm_logits(top: Dict, x: torch.Tensor) -> torch.Tensor:
     takes a dynamic per-token absmax scale on x, an int8 x int8 product,
     then rescales by (x_scale * row_scale)."""
     if "wte_i8" not in top:
-        return f32_product(x.reshape(-1, x.shape[-1]), top["wte"]).reshape(
-            *x.shape[:-1], -1)
+        return f32_out_product(x.reshape(-1, x.shape[-1]),
+                               top["wte"]).reshape(*x.shape[:-1], -1)
     xf = x.to(torch.float32)
     x_scale = (torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-12)
                / _const(xf, 127.0))                           # (B, T, 1)
@@ -470,9 +492,10 @@ def _prepare_stacked(cfg: EngineConfig, ep: Dict,
     unfused route. Prefill-size M takes the stacked kernels only with
     ``stacked_prefill`` under "w4", and then site by site: sites with
     K4's tables or without ``a_q`` are left out and keep the torch
-    route. None also when the kernels are off or there is no activation
-    quantization."""
-    if not (cfg.stacked_kernel and cfg.act_bits):
+    route. None also when the kernels are off, under "bf16" or when there
+    is no activation quantization."""
+    if not (cfg.stacked_kernel and cfg.act_bits
+            and cfg.weight_mode in ("w4", "w4pack")):
         return None
     prefill = M > cfg.stacked_max_m
     if prefill and not (cfg.stacked_prefill and cfg.weight_mode == "w4"):
@@ -528,16 +551,14 @@ def _site_matmul_nobias(cfg: EngineConfig, ep: Dict, name: str,
                                     s["a_scale"], ovp=s["ovp"],
                                     block_k=cfg.stacked_block_k)
     site = ep["layers"][name]
+    if "kernel" in site:
+        # "bf16": the dense product of cfg.dtype operands, f32 result
+        return f32_out_product(_fake_quant(x2d, site, l).to(cfg.dtype),
+                               site["kernel"][l])
     if "packed" in site:
         # "w4pack": fake-quant in cfg.dtype, then K8 on those values
-        if "a_out" in site:
-            x2d = quantize_activation_ovp(x2d, site["a_grid"][l],
-                                          site["a_out"][l],
-                                          site["a_alpha"][l])
-        elif "a_grid" in site:
-            x2d = quantize_activation(x2d, site["a_grid"][l],
-                                      site["a_alpha"][l])
-        return quantized_matmul_w4(x2d, site["packed"][l], site["scale"][l],
+        return quantized_matmul_w4(_fake_quant(x2d, site, l),
+                                   site["packed"][l], site["scale"][l],
                                    site["grid"][l], site["k8_terms"][l],
                                    site["k8_unit"][l])
     w = site["w_i8"][l]
@@ -553,19 +574,29 @@ def _site_matmul_nobias(cfg: EngineConfig, ep: Dict, name: str,
         else:
             acc = int8_matmul(xq, w).to(torch.float32)
         return acc * (a_scale * site["oscale"][l])[None, :]
-    # OliVe activation outliers, or a grid without an int8-exact codebook:
-    # fake-quant, then the decoded weight values in mm_dtype
-    if "a_out" in site:
-        x2d = quantize_activation_ovp(x2d, site["a_grid"][l],
-                                      site["a_out"][l], site["a_alpha"][l])
-    else:
-        x2d = quantize_activation(x2d, site["a_grid"][l],
-                                  site["a_alpha"][l])
+    # OliVe activation outliers, a grid without an int8-exact codebook, or
+    # no activation quantization (W4A16): the fake-quant where there is
+    # one, then the decoded weight values in mm_dtype
+    x2d = _fake_quant(x2d, site, l)
     mm_dtype = torch.float32 if cfg.dtype == torch.float32 \
         else torch.bfloat16
     wv = ovp_decode_values(w) if "ovp" in site else w
-    y = f32_product(x2d.to(mm_dtype), wv.to(mm_dtype))
+    y = f32_out_product(x2d.to(mm_dtype), wv.to(mm_dtype))
     return y * site["oscale"][l][None, :]
+
+
+def _fake_quant(x2d: torch.Tensor, site: Dict, l: int) -> torch.Tensor:
+    """The reference's activation fake-quant of the unfused routes, in
+    x's dtype: OliVe's where the site has outliers (``a_out``), the plain
+    one where it has a grid, none without activation leaves
+    (``act_bits=0``)."""
+    if "a_out" in site:
+        return quantize_activation_ovp(x2d, site["a_grid"][l],
+                                       site["a_out"][l], site["a_alpha"][l])
+    if "a_grid" in site:
+        return quantize_activation(x2d, site["a_grid"][l],
+                                   site["a_alpha"][l])
+    return x2d
 
 
 def _site_matmul(cfg: EngineConfig, ep: Dict, name: str,
@@ -584,16 +615,21 @@ def _kv_fold(head_dim: int) -> int:
     return 128 // head_dim
 
 
-def attention_route(c: LMConfig, T: int, S: int) -> str:
+def attention_route(c: LMConfig, T: int, S: int,
+                    kv_int8: bool = True) -> str:
     """The reference's attention route for T queries against a cache of S
-    positions (``_attention_stacked`` and ``_attention``): "K2" while one
-    head's tile (k + v codes, q and out, the scores) leaves room in the
-    reference's 6 MiB budget for min(T, 8) queries; past that "K7" for up
-    to 16 queries on a cache the reference keeps flat (head_dim >= 128),
-    else "einsum", the dequantizing fallback. At head_dim 128 K2 stops at
-    S = 12,191 (a long ALiBi context: learned positions end at 2,050).
-    Where the reference cuts a prefill into query chunks of K2, the port
-    launches K2 once: the chunks are exact, so the results are the same."""
+    positions (``_attention_stacked`` and ``_attention``). The bf16 cache
+    (``kv_int8=False``) always takes "einsum". On the INT8 cache: "K2"
+    while one head's tile (k + v codes, q and out, the scores) leaves room
+    in the reference's 6 MiB budget for min(T, 8) queries; past that "K7"
+    for up to 16 queries on a cache the reference keeps flat (head_dim >=
+    128), else "einsum", the dequantizing fallback. At head_dim 128 K2
+    stops at S = 12,191 (a long ALiBi context: learned positions end at
+    2,050). Where the reference cuts a prefill into query chunks of K2,
+    the port launches K2 once: the chunks are exact, so the results are
+    the same."""
+    if not kv_int8:
+        return "einsum"
     f = _kv_fold(c.head_dim)
     s_tot = -(-S // f) * f
     fixed = 2 * 2 * s_tot * c.head_dim
@@ -608,13 +644,17 @@ def attention_route(c: LMConfig, T: int, S: int) -> str:
 def _attention_einsum(cfg: EngineConfig, q: torch.Tensor, kv: QuantKV,
                       l: int, pos0: torch.Tensor,
                       slopes: Optional[torch.Tensor]) -> torch.Tensor:
-    """The reference's dequantizing fallback (``_attention``) on layer l,
-    with its cast points: the cache dequantized in ``cfg.dtype``, f32
-    scores divided by f32(sqrt(D)), the ALiBi term, the f32-min mask, an
-    f32 softmax cast to ``cfg.dtype``, the product with v in
-    ``cfg.dtype``. TF32 is held off. q (B, T, H, D) -> (B, T, H, D)."""
+    """The reference's einsum route (``_attention``) on layer l, with its
+    cast points: the INT8 cache dequantized in ``cfg.dtype`` (the bf16
+    cache read as it is), f32 scores divided by f32(sqrt(D)), the ALiBi
+    term, the f32-min mask, an f32 softmax cast to ``cfg.dtype``, the
+    product with v in ``cfg.dtype``. TF32 is held off. q (B, T, H, D) ->
+    (B, T, H, D)."""
     B, T, H, D = q.shape
-    k, v = dequant_kv(QuantKV(*(a[l] for a in kv)), cfg.dtype)
+    if cfg.kv_int8:
+        k, v = dequant_kv(QuantKV(*(a[l] for a in kv)), cfg.dtype)
+    else:
+        k, v = kv.k[l], kv.v[l]
     S = k.shape[2]
     # the f32 scores are B x H x T x S (4.3 GB at BLOOM-7b1, bs 4, a
     # 512-query chunk of a 16,384-position cache): updated in place, and
@@ -692,7 +732,7 @@ def forward(cfg: EngineConfig, ep: Dict, ids: torch.Tensor, kv: QuantKV,
     d_attn = heads * hd
     M = B * T
     stk = _prepare_stacked(cfg, ep, M)
-    route = attention_route(c, T, kv.k.shape[3])
+    route = attention_route(c, T, kv.k.shape[3], cfg.kv_int8)
     for l in range(c.n_layers):
         h = _ln(x, lay["ln_1"]["scale"][l], lay["ln_1"]["bias"][l],
                 c.ln_eps)
@@ -722,13 +762,18 @@ def forward(cfg: EngineConfig, ep: Dict, ids: torch.Tensor, kv: QuantKV,
 
 
 def init_cache(cfg: EngineConfig, batch: int, device=None) -> QuantKV:
-    """An empty INT8 cache stacked over layers, on ``device`` (default
-    "cuda")."""
-    if not cfg.kv_int8:
-        raise _not_ported("the bf16 KV cache", "8.7")
+    """An empty cache stacked over layers, on ``device`` (default
+    "cuda"): INT8 codes, or with ``kv_int8=False`` the raw values in
+    ``cfg.dtype`` (the reference's flat baseline cache)."""
     c = cfg.lm
     return init_kv(c.n_layers, batch, cfg.max_seq, c.n_heads, c.head_dim,
-                   resolve_device(device))
+                   resolve_device(device),
+                   torch.int8 if cfg.kv_int8 else cfg.dtype)
+
+
+def params_device(ep: Dict) -> torch.device:
+    """The device that engine params live on (and their cache goes to)."""
+    return ep["top"]["ln_f"]["scale"].device
 
 
 def _flatten(tree: Dict, prefix=()):
@@ -740,8 +785,8 @@ def _flatten(tree: Dict, prefix=()):
 
 
 class Engine(nn.Module):
-    """Greedy serving engine: owns the engine params and the INT8 cache
-    as buffers and serves ``prefill`` / ``decode`` / ``generate``.
+    """Greedy serving engine: owns the engine params and the KV cache as
+    buffers and serves ``prefill`` / ``decode`` / ``generate``.
 
     ``ep`` comes from :func:`build_engine_params` or
     ``convert.from_jax_engine_params``; the cache is made on the same
@@ -756,8 +801,8 @@ class Engine(nn.Module):
         for path, t in _flatten(ep):
             self.register_buffer("__".join(path), t)
             self._paths.append(path)
-        dev = ep["top"]["ln_f"]["scale"].device
-        for name, t in zip(QuantKV._fields, init_cache(cfg, batch, dev)):
+        for name, t in zip(QuantKV._fields,
+                           init_cache(cfg, batch, params_device(ep))):
             self.register_buffer("kv__" + name, t)
         self.pos = 0
 

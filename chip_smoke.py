@@ -91,7 +91,27 @@ Phases, each printing one JSON line (numbers unrounded):
    bound, its plain version and ``torch._int_mm``;
 19. in situ, BLOOM: 2 layers on the long cache, every K7 call checked
    against its plain version, and K9 run and checked bit for bit at every
-   site matmul on the engine's own activations (no engine path calls K9).
+   site matmul on the engine's own activations (no engine path calls K9);
+20. scheduler: a ``ContinuousBatcher`` over the OPT-6.7B ANT W4A4 engine
+   (32 layers; 4 slots, buckets 32/128/512; 10 requests of 20-512
+   prompt tokens and 16-64 new tokens, 3 with an eos that fires early),
+   run with ticks_per_dispatch 1, 8, 8, 1: completed tokens and ticks per
+   second, K1 and K2 launches per tick and prefill, and every completion
+   against the same engine serving its prompt alone (identical tokens, or
+   a first divergence within ``margin_tol``);
+21. speculative: that engine as target with a 6-layer draft, k 4:
+   t_plain, t_verify, t_draft, ``generate`` at 1 and 8 rounds per call
+   (launches counted), K1 at M = 20 and K2 at T = 5 row-for-row against
+   M = 4 and T = 1, and draft = target accepting k in every round with
+   the stream of plain greedy decoding;
+22. w4a16: "w4" without activation quantization on the same int8 weights
+   (INT8 KV, int8 head), served as in 5 (K2 only), with its stream floor,
+   one decode step held against the same forward on ``f32_product``
+   (``hold_decode_step``) and a profile;
+23. bf16_baseline: ``weight_mode="bf16", act_bits=0, kv_int8=False`` and
+   the plain head, the baseline of bench.py, OPT-6.7B 32 layers, served
+   as in 5 (no kernel of the port launches), with its stream floor, a
+   decode step held as in 22 and a profile.
 
 The kernel checks (4) include K3 and K4 against their plain versions,
 bit for bit, at M 1, 2, 3, 4, 5, 16, 64 and 200 on K1's five (K, N), K4
@@ -111,7 +131,11 @@ output's sum of term magnitudes; K7 (S 2048 and 16,384,
 T 1, 4 and 16, ragged pos0, ALiBi on and off) within K2's tolerance; K9
 (fc_in and fc_out, M 1, 4, 64, 65, 257, 300 and 2048; K 4160 by N 4104
 at M 65 and 300; exact midpoint ties after the multiply by 1 / a_scale)
-bit for bit.
+bit for bit; and the library product of the plain bf16 products
+(``f32_out_product``: the dense sites, W4A16, the plain head) against an
+f32 product on the same bf16 operands at OPT-6.7B's sites and head, M 4
+and 2048, within K8_RTOL of |x| @ |w|, a bound that the f32 result
+rounded to bf16 breaks.
 
 Then the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -568,19 +592,19 @@ def phase_checks_ovp(torch, gen):
     x, w, sc, aq, asc, l = _k3_operands(torch, 4, *kn0, 2, gen, False)
     mids, ties, enc = _aovp_tables(torch, True, 2)
     pre = torch.full((2,), 0.25, device="cuda")
-    per_call = {}
+    per_call, attempts = {}, {}
     for tag, fn in (
             ("K3", lambda: ks.stacked_quant_matmul(l, x, w, sc, aq, asc,
                                                    ovp=True)),
             ("K4", lambda: ks.stacked_quant_matmul_aovp(
                 l, x, w, sc, pre, mids, ties, enc, w_ovp=True))):
         fn()
-        _, rows = _profiled(torch, fn)
+        rows, attempts[tag] = traced_kernels(torch, fn, 1)
         per_call[tag] = [{"name": k[:80], "count": c} for _, k, c in rows]
         if sum(c for _, _, c in rows) != 1:
             fail(f"{tag} ran {rows} on the device, not one kernel")
     emit({"phase": "checks_ovp", "checks": n_checks,
-          "kernels_per_call": per_call})
+          "kernels_per_call": per_call, "profiler_attempts": attempts})
     return errs
 
 
@@ -709,7 +733,7 @@ def phase_checks_w4pack(torch, gen):
         del x, w, got, want
     # device kernels per call: K6 one (no snap pre-kernel), K5 two (the
     # snap pre-kernel and the product) in both modes
-    per_call = {}
+    per_call, attempts = {}, {}
     q16 = torch.tensor(np.stack([np.arange(16) - 8] * 2).astype(np.int32),
                        device="cuda")
     w4 = torch.randint(0, 256, (2, d, d // 2), dtype=torch.uint8,
@@ -726,7 +750,7 @@ def phase_checks_w4pack(torch, gen):
             ("K5 int8", 2, lambda: ks.stacked_quant_matmul(
                 l5, x5, w5, sc5, aq5, asc5, ovp=False))):
         fn()
-        _, rows = _profiled(torch, fn)
+        rows, attempts[tag] = traced_kernels(torch, fn, want_n)
         per_call[tag] = [{"name": k[:80], "count": c} for _, k, c in rows]
         if sum(c for _, _, c in rows) != want_n:
             fail(f"{tag} ran {rows} on the device, not {want_n} kernels")
@@ -757,7 +781,7 @@ def phase_checks_w4pack(torch, gen):
                            max_err_over_size=((got - want).abs() / size
                                               ).max().item())
     emit({"phase": "checks_w4pack", "checks": n_checks,
-          "kernels_per_call": per_call})
+          "kernels_per_call": per_call, "profiler_attempts": attempts})
     return errs
 
 
@@ -1626,6 +1650,21 @@ def _profiled(torch, fn):
     return wall_us, sorted(rows, reverse=True)
 
 
+def traced_kernels(torch, fn, want: int):
+    """The device kernels of one call of ``fn`` (``_profiled``'s rows)
+    and the number of traces taken. The profiler now and then drops one
+    of a call's kernels from its trace, a lost event and not a call that
+    ran fewer kernels (the same call's other traces show them all), and
+    never adds one: a trace with fewer than ``want`` kernels is taken
+    again, at most three times in all; one with ``want`` or more ends
+    the search, and the caller holds its count to ``want``."""
+    for n in range(1, 4):
+        _, rows = _profiled(torch, fn)
+        if sum(c for _, _, c in rows) >= want:
+            break
+    return rows, n
+
+
 def phase_profile(torch, engine, ids, steps: int = 4, path: str = "ANT",
                   prefill=None):
     """Device time by kernel for one prefill (``prefill``: a (name, call)
@@ -2029,6 +2068,93 @@ def phase_checks_k9(torch, gen):
     return err
 
 
+def phase_checks_f32_out(torch, gen):
+    """The library product behind every plain product of bf16 operands
+    (``kernels/qmatmul.py:f32_out_product``: the dense "bf16" sites, the
+    W4A16 branch, the plain head) against ``f32_product`` (an f32 product
+    with TF32 off) on the same bf16 operands, at OPT-6.7B's site and head
+    shapes at decode (M = 4) and prefill (M = 2048): within K8_RTOL of
+    each output's |x| @ |w|. The bound must see a reduced-precision
+    result: ``f32_product``'s own result rounded to bf16 has to break it
+    at every shape. Both products timed at M = 2048."""
+    from ant_quantization_tpu_torch.kernels import qmatmul as kq
+    c = opt_engine_config(1, torch.bfloat16).lm
+    shapes = {**engine_layer_shapes(c), "head": (c.d_model, c.vocab_size)}
+    worst = 0.0
+    for M in (BATCH, BATCH * PREFILL):
+        for site, (K, N) in shapes.items():
+            x = torch.randn((M, K), device="cuda", generator=gen).to(
+                torch.bfloat16)
+            w = (torch.randn((N, K), device="cuda", generator=gen)
+                 / K ** 0.5).to(torch.bfloat16)
+            got = kq.f32_out_product(x, w)
+            want = kq.f32_product(x, w)
+            size = kq.f32_product(x.abs(), w.abs())
+            err = float(((got - want).abs() / size).max())
+            rounded = float(((want.to(torch.bfloat16).float() - want).abs()
+                             / size).max())
+            row = {"phase": "check", "kernel": "f32_out_product",
+                   "site": site, "M": M, "K": K, "N": N,
+                   "out_dtype": str(got.dtype).split(".")[-1],
+                   "max_err_over_size": err,
+                   "bf16_rounded_err_over_size": rounded,
+                   "pass": (got.dtype == torch.float32 and err <= K8_RTOL
+                            and rounded > K8_RTOL)}
+            if M > BATCH:
+                row["ms"] = cuda_ms(
+                    torch, lambda i: kq.f32_out_product(x, w), 5,
+                    graph=False)
+                row["f32_product_ms"] = cuda_ms(
+                    torch, lambda i: kq.f32_product(x, w), 5, graph=False)
+            emit(row)
+            if not row["pass"]:
+                fail(f"f32_out_product at {site} M={M}: {err} of |x|@|w| "
+                     f"(bf16 rounding {rounded}), bound {K8_RTOL}")
+            worst = max(worst, err)
+            del x, w, got, want, size
+    torch.cuda.empty_cache()
+    return worst
+
+
+# whole engines of bf16 activations: the median and largest |logit
+# difference| over the largest |logit| (the bf16 engine rule of the CPU
+# tests, tests/test_torch_engine_bf16.py)
+ENGINE_BF16_TOL = (0.02, 0.1)
+
+
+def hold_decode_step(torch, engine, phase: str) -> dict:
+    """One decode step of a served engine against the same forward with
+    every plain product of bf16 operands on ``f32_product`` (the same
+    function, its f32 sums in another order): within ENGINE_BF16_TOL of
+    the largest logit. Both calls write the step's K/V at the same
+    position, each its own, and leave ``engine.pos`` as it was."""
+    from ant_quantization_tpu_torch.kernels import qmatmul as kq
+    from ant_quantization_tpu_torch.serve import engine as teng
+    ep, kv = engine.engine_params(), engine.cache()
+    tok = torch.zeros((engine.batch, 1), dtype=torch.long,
+                      device=kv.k.device)
+    with torch.no_grad():
+        got, _ = teng.forward(engine.cfg, ep, tok, kv, engine.pos)
+        with mock.patch.object(teng, "f32_out_product", kq.f32_product):
+            want, _ = teng.forward(engine.cfg, ep, tok, kv, engine.pos)
+    d = (got - want).abs()
+    top = float(want.abs().max())
+    med, big = ENGINE_BF16_TOL
+    res = {"phase": "decode_step_hold", "path": phase, "pos": engine.pos,
+           "top_logit": top, "median_diff_over_top": float(d.median()) / top,
+           "max_diff_over_top": float(d.max()) / top,
+           "same_argmax": bool(torch.equal(got.argmax(-1),
+                                           want.argmax(-1))),
+           "tol": ENGINE_BF16_TOL}
+    res["pass"] = (bool(torch.isfinite(got).all())
+                   and res["median_diff_over_top"] <= med
+                   and res["max_diff_over_top"] <= big)
+    emit(res)
+    if not res["pass"]:
+        fail(f"{phase}: a decode step off the f32_product forward: {res}")
+    return res
+
+
 def phase_bloom_main(torch, gen, n_layers: int = 30):
     """BLOOM-7b1 at full width and depth (fused qkv at N = 12,288, embed_ln,
     ALiBi, GELU), ANT W4A4 + INT8 KV + int8 head, max_seq 2048, random
@@ -2328,6 +2454,444 @@ def phase_insitu_bloom(torch, gen):
     return res
 
 
+# ---- slice 9: the unquantized engine options and the serving layer ----
+
+# the scheduler phase's requests: prompt lengths over 20-512 (buckets 32,
+# 128 and 512; 20 takes K1 at its batch-1 prefill) and new tokens 16-64
+SCHED_PROMPTS = (20, 47, 100, 128, 200, 300, 384, 450, 512, 64)
+SCHED_NEW = (16, 64, 32, 48, 24, 64, 16, 40, 56, 32)
+SCHED_SLOTS, SCHED_BUCKETS = 4, (32, 128, 512)
+SCHED_EOS = 3            # requests given an eos that fires early
+SCHED_ORDER = (1, 8, 8, 1)   # ticks per dispatch of the runs, in turns
+SPEC_K, SPEC_DRAFT_LAYERS = 4, 6
+
+
+def dense_engine_params(torch, cfg, seed: int):
+    """Random "bf16" engine params built on the card one layer at a time
+    from a seeded generator: each site's dense kernel N(0, 1/K) in
+    ``cfg.dtype`` in the port's (L, N, K) layout, zero biases; the
+    LayerNorms and position table of ``random_engine_params``; a plain
+    head in ``cfg.dtype``, uniform in +-0.02 (the int8 head's range)."""
+    import numpy as np
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    c = cfg.lm
+    L = c.n_layers
+    layers = {}
+    for name, (K, N) in engine_layer_shapes(c).items():
+        w = torch.empty((L, N, K), dtype=cfg.dtype, device="cuda")
+        for l in range(L):
+            w[l] = (torch.randn((N, K), device="cuda", generator=gen)
+                    / float(np.sqrt(K))).to(cfg.dtype)
+        layers[name] = {"kernel": w,
+                        "bias": torch.zeros((L, N), device="cuda")}
+    rest = random_engine_params(torch, cfg, seed, sites=False)
+    layers.update(rest["layers"])
+    top = {k: v for k, v in rest["top"].items()
+           if k not in ("wte_i8", "wte_scale")}
+    top["wte"] = ((torch.rand((c.vocab_size, c.d_model), device="cuda",
+                              generator=gen) * 2 - 1) * 0.02).to(cfg.dtype)
+    return {"layers": layers, "top": top}
+
+
+def stream_floor(cfg, weight_bytes: int, head_bytes: int) -> dict:
+    """The least time of one decode step at bs BATCH: the weights, the
+    head and the KV of the positions attended, each read once, over
+    3.35 TB/s, at the mean context of the DECODE steps after a PREFILL
+    prompt (ctx = PREFILL + DECODE / 2)."""
+    c = cfg.lm
+    ctx = PREFILL + DECODE // 2
+    per_pos = (2 * c.head_dim * (2 if not cfg.kv_int8 else 1)
+               + (0 if not cfg.kv_int8 else 8))        # k + v (+ scales)
+    kv = c.n_layers * BATCH * c.n_heads * ctx * per_pos
+    total = weight_bytes + head_bytes + kv
+    return {"ctx": ctx, "weight_bytes": weight_bytes, "head_bytes": head_bytes,
+            "kv_bytes": kv, "bytes": total, "floor_ms": total / HBM_BPS * 1e3}
+
+
+def _site_bytes(c, per_weight: int) -> int:
+    return c.n_layers * per_weight * sum(
+        K * N for K, N in engine_layer_shapes(c).values())
+
+
+def phase_bf16_baseline(torch, gen, n_layers: int = 32):
+    """The unquantized baseline that Queue 1 item 2 divides by, bench.py's
+    ``weight_mode="bf16", act_bits=0, kv_int8=False`` (and the plain
+    head) at OPT-6.7B full width and depth, served as the main path: the
+    dense sites run the library's bf16 product with an f32 result and
+    attention the einsum on the raw bf16 cache, so no kernel of the port
+    launches. Its stream floor beside the readings; then a profile."""
+    from ant_quantization_tpu_torch.serve.engine import Engine
+    cfg = opt_engine_config(n_layers, torch.bfloat16, weight_mode="bf16",
+                            act_bits=0, kv_int8=False, lm_head_int8=False)
+    c = cfg.lm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = Engine(cfg, dense_engine_params(torch, cfg, seed=20), BATCH)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ids = torch.randint(0, c.vocab_size, (BATCH, PREFILL), device="cuda",
+                        generator=gen)
+    floor = stream_floor(cfg, _site_bytes(c, 2), 2 * c.vocab_size * c.d_model)
+    res = serve_path(torch, engine, ids, "bf16_baseline", {},
+                     {"param_build_s": build_s, "weight_mode": "bf16",
+                      "act_bits": 0, "kv_int8": False,
+                      "lm_head_int8": False, "stream_floor": floor})
+    hold_decode_step(torch, engine, "bf16_baseline")
+    phase_profile(torch, engine, ids, path="bf16 baseline")
+    del engine
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_w4a16(torch, gen, ant_ep):
+    """"w4" without activation quantization (W4A16): the ANT main path's
+    int8 weight stacks (shared, not copied) without their activation
+    leaves, INT8 KV and the int8 head, 32 layers. Every site runs the
+    reference's unfused branch (x in bf16 against the int8 values, the
+    library's bf16 product with an f32 result, then oscale), so K1 does
+    not launch; attention runs K2. Then a profile."""
+    from ant_quantization_tpu_torch.serve.engine import Engine
+    cfg = opt_engine_config(32, torch.bfloat16, act_bits=0)
+    c = cfg.lm
+    layers = {name: ({k: s[k] for k in ("w_i8", "oscale", "bias")}
+                     if "w_i8" in s else s)
+              for name, s in ant_ep["layers"].items()}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine = Engine(cfg, {"layers": layers, "top": ant_ep["top"]}, BATCH)
+    ids = torch.randint(0, c.vocab_size, (BATCH, PREFILL), device="cuda",
+                        generator=gen)
+    floor = stream_floor(cfg, _site_bytes(c, 1),
+                         c.vocab_size * (c.d_model + 4))
+    res = serve_path(torch, engine, ids, "w4a16",
+                     {"K2": c.n_layers * (1 + DECODE)},
+                     {"weight_mode": "w4", "act_bits": 0,
+                      "stream_floor": floor})
+    hold_decode_step(torch, engine, "w4a16")
+    phase_profile(torch, engine, ids, path="W4A16")
+    del engine
+    torch.cuda.empty_cache()
+    return res
+
+
+def margin_tol(top1: float) -> float:
+    """The logit margin below which two runs whose K2 sums differ in
+    order may pick different tokens: K2's bf16 tolerance at the top
+    logit."""
+    atol, rtol = K2_TOL["bf16"]
+    return atol + rtol * abs(top1)
+
+
+def _step_margin(torch, logits_row) -> tuple:
+    top2 = logits_row.float().topk(2).values.tolist()
+    return top2[0] - top2[1], margin_tol(top2[0])
+
+
+def first_divergence(got, want, margins):
+    """None when ``got`` equals ``want``; else (j, margin, tol) at the
+    first position that differs (the rest of the streams then differ
+    legitimately), the reference run's top-2 margin there and the
+    tolerance it is held to."""
+    for j, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            m, tol = margins[j]
+            return {"at": j, "got": a, "want": b, "margin": m, "tol": tol,
+                    "allowed": m <= tol}
+    if len(got) != len(want):
+        return {"at": min(len(got), len(want)), "length": [len(got),
+                                                           len(want)],
+                "allowed": False}
+    return None
+
+
+def phase_scheduler(torch, gen, cfg, ep):
+    """A ContinuousBatcher over the OPT-6.7B ANT W4A4 engine (32 layers):
+    SCHED_SLOTS slots, buckets SCHED_BUCKETS, the requests SCHED_PROMPTS
+    x SCHED_NEW, SCHED_EOS of them with an eos that fires early (the
+    first token of the request's own stream that it did not emit before,
+    from position 2 on). Runs with ticks_per_dispatch 1, 8, 8 and 1 (in
+    turns, so that drift shows). Each
+    completion is held against the same engine generating its prompt
+    alone (B = 1, no padding): identical tokens, or a first divergence
+    where that run's top-2 margin is within ``margin_tol`` (K2's split
+    span depends on B; at this cache length it is the same at B = 1 and
+    4, so none is expected). The launches of each run: K1 6 L per tick
+    and per prefill of M <= 64, K2 L per tick and per prefill."""
+    from ant_quantization_tpu_torch.serve import engine as eng
+    from ant_quantization_tpu_torch.serve.scheduler import (
+        ContinuousBatcher, Request)
+    c = cfg.lm
+    L, V = c.n_layers, c.vocab_size
+    prompts = [torch.randint(0, V, (n,), device="cuda",
+                             generator=gen).tolist() for n in SCHED_PROMPTS]
+    one = eng.Engine(cfg, ep, 1)
+    alone, margins = [], []
+    t0 = time.perf_counter()
+    for p, n in zip(prompts, SCHED_NEW):
+        logits = one.prefill(torch.tensor([p], device="cuda"))
+        toks, mg = [], []
+        for i in range(n):
+            toks.append(int(logits[0, -1].argmax()))
+            mg.append(_step_margin(torch, logits[0, -1]))
+            if i + 1 < n:
+                logits = one.decode(torch.tensor([[toks[-1]]],
+                                                 device="cuda"))
+        alone.append(toks)
+        margins.append(mg)
+    alone_s = time.perf_counter() - t0
+    del one
+    eos = [None] * len(prompts)
+    for i, toks in enumerate(alone):
+        if sum(e is not None for e in eos) == SCHED_EOS:
+            break
+        j = next((j for j in range(2, len(toks) - 1)
+                  if toks[j] not in toks[:j]), None)
+        if j is not None:
+            eos[i] = toks[j]
+    want = [toks[:toks.index(e) + 1] if e is not None else toks
+            for toks, e in zip(alone, eos)]
+    if not any(e is not None for e in eos):
+        fail("scheduler: no request's stream has a token to stop at")
+    runs = {}
+    for run, tpd in enumerate(SCHED_ORDER):
+        calls = {"ticks": 0, "prefills": 0, "k1_prefills": 0}
+
+        def fwd(ep_, ids_, kv_, pos0_, last_index=None):
+            T = ids_.shape[1]
+            if T == 1:
+                calls["ticks"] += 1
+            else:
+                calls["prefills"] += 1
+                calls["k1_prefills"] += int(
+                    ids_.shape[0] * T <= cfg.stacked_max_m)
+            return eng.forward(cfg, ep_, ids_, kv_, pos0_,
+                               last_index=last_index)
+
+        cb = ContinuousBatcher(cfg, ep, SCHED_SLOTS, SCHED_BUCKETS,
+                               forward_fn=fwd)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        rids = [cb.submit(Request(prompt=p, max_new_tokens=n, eos_id=e))
+                for p, n, e in zip(prompts, SCHED_NEW, eos)]
+        done = cb.run(ticks_per_dispatch=tpd)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        reset_counts()
+        by_id = {d.id: d for d in done}
+        divs = {}
+        for i, rid in enumerate(rids):
+            d = first_divergence(by_id[rid].tokens, want[i], margins[i])
+            reason = "eos" if eos[i] is not None else "length"
+            if d is None and by_id[rid].finish_reason != reason:
+                d = {"finish_reason": by_id[rid].finish_reason,
+                     "allowed": False}
+            if d is not None:
+                divs[i] = d
+        n_tok = sum(len(d.tokens) for d in done)
+        launches = {k: v["launches"] for k, v in counts.items()}
+        want_l = {k: 0 for k in launches}
+        want_l["K1"] = 6 * L * (calls["ticks"] + calls["k1_prefills"])
+        want_l["K2"] = L * (calls["ticks"] + calls["prefills"])
+        runs[run] = {
+            "ticks_per_dispatch": tpd, "wall_s": wall,
+            "completed": len(done), "tokens": n_tok,
+            "completed_tokens_per_s": n_tok / wall,
+            "ticks": calls["ticks"], "ticks_per_s": calls["ticks"] / wall,
+            "prefills": calls["prefills"],
+            "slot_occupancy": (n_tok - len(done)) / max(
+                1, calls["ticks"] * SCHED_SLOTS),
+            "finish_reasons": [by_id[r].finish_reason for r in rids],
+            "divergences": divs, "launches": launches,
+            "want_launches": want_l,
+            "plain_calls": {k: v["plain_calls"] for k, v in counts.items()},
+            "tokens_by_request": [by_id[r].tokens for r in rids]}
+    same = all(r["tokens_by_request"] == runs[0]["tokens_by_request"]
+               for r in runs.values())
+    res = {"phase": "scheduler", "model": "OPT-6.7B", "layers": L,
+           "slots": SCHED_SLOTS, "buckets": list(SCHED_BUCKETS),
+           "prompts": list(SCHED_PROMPTS), "max_new_tokens": list(SCHED_NEW),
+           "eos": eos, "alone_s": alone_s,
+           "margin_rule": "identical tokens, or a first divergence at a "
+                          "top-2 margin <= K2 atol + rtol * |top logit|",
+           "chunked_equals_per_tick": same,
+           "runs": {str(k): {kk: vv for kk, vv in v.items()
+                             if kk != "tokens_by_request"}
+                    for k, v in runs.items()}}
+    res["pass"] = all(
+        r["completed"] == len(prompts) and r["launches"] == r["want_launches"]
+        and not any(r["plain_calls"].values())
+        and all(d["allowed"] for d in r["divergences"].values())
+        for r in runs.values())
+    emit(res)
+    if not res["pass"]:
+        fail(f"scheduler: {res}")
+    return res
+
+
+def _fwd_ms(torch, eng, cfg, ep, kv, T: int, pos: int, blocks: int = 4,
+            block: int = 8) -> list:
+    """Host ms per ``forward`` of (BATCH, T) tokens at position ``pos``
+    (the same rows rewritten each call): ``blocks`` fenced blocks."""
+    tok = torch.zeros((BATCH, T), dtype=torch.int64, device="cuda")
+    for _ in range(2):
+        eng.forward(cfg, ep, tok, kv, pos)
+    out = []
+    for _ in range(blocks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(block):
+            eng.forward(cfg, ep, tok, kv, pos)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3 / block)
+    return out
+
+
+def plain_greedy(torch, eng, cfg, ep, ids, n: int):
+    """The target decoding alone, one token a step: tokens (B, n) and,
+    per sequence and step, the top-2 margin with its tolerance."""
+    B, T = ids.shape
+    kv = eng.init_cache(cfg, B, device="cuda")
+    logits, _ = eng.forward(cfg, ep, ids, kv, 0, last_index=T - 1)
+    toks, margins = [], [[] for _ in range(B)]
+    for i in range(n):
+        tok = logits[:, -1:].argmax(-1)
+        toks.append(tok)
+        for b in range(B):
+            margins[b].append(_step_margin(torch, logits[b, -1]))
+        if i + 1 < n:
+            logits, _ = eng.forward(cfg, ep, tok, kv, T + i)
+    return torch.cat(toks, 1).tolist(), margins
+
+
+def phase_speculative(torch, gen, cfg, ep):
+    """Speculative decoding: the OPT-6.7B ANT W4A4 target (32 layers)
+    with a draft of the same geometry at SPEC_DRAFT_LAYERS layers (random
+    weights, seed 1), k = SPEC_K, bs BATCH, a PREFILL-token prompt:
+    - t_plain, t_verify and t_draft: host ms per target forward at T = 1
+      and T = k + 1 and per draft forward at T = 1, at a fixed position;
+    - generate of DECODE tokens at rounds per call 1 and 8: wall, tokens
+      per second, accepted drafts per round; launches K1 6 L_t per verify
+      and 6 L_d per draft step, K2 L per forward;
+    - rows: K1 at M = B (k + 1) against the same rows at M = B, and K2's
+      split route at T = k + 1 against T = 1 at each position, bit for
+      bit;
+    - draft = target (one params tree, two caches): every round accepts
+      k for every sequence and the stream equals plain greedy decoding.
+      Where a kernel's rows are not bit-equal, the check falls back to
+      the margin rule of the scheduler phase and names the kernel."""
+    from ant_quantization_tpu_torch.kernels import attention as k2
+    from ant_quantization_tpu_torch.kernels import stacked as k1
+    from ant_quantization_tpu_torch.serve import engine as eng
+    from ant_quantization_tpu_torch.serve.speculative import (
+        SpeculativeDecoder)
+    c = cfg.lm
+    K, Lt = SPEC_K, c.n_layers
+    dcfg = opt_engine_config(SPEC_DRAFT_LAYERS, torch.bfloat16)
+    dep = random_engine_params(torch, dcfg, seed=1)
+    Ld = dcfg.lm.n_layers
+    ids = torch.randint(0, c.vocab_size, (BATCH, PREFILL), device="cuda",
+                        generator=gen)
+    kv = eng.init_cache(cfg, BATCH, device="cuda")
+    eng.forward(cfg, ep, ids, kv, 0, last_index=PREFILL - 1)
+    kvd = eng.init_cache(dcfg, BATCH, device="cuda")
+    eng.forward(dcfg, dep, ids, kvd, 0, last_index=PREFILL - 1)
+    times = {"t_plain": _fwd_ms(torch, eng, cfg, ep, kv, 1, PREFILL),
+             "t_verify": _fwd_ms(torch, eng, cfg, ep, kv, K + 1, PREFILL),
+             "t_draft": _fwd_ms(torch, eng, dcfg, dep, kvd, 1, PREFILL)}
+    # rows of K1 at M = B (k + 1) and of K2 at T = k + 1 (the cache now
+    # holds rows PREFILL .. PREFILL + k from the t_verify calls)
+    s = eng._prepare_stacked(cfg, ep, BATCH)["fc_in"]
+    x = torch.randn((BATCH * (K + 1), c.d_model), device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    y = k1.stacked_quant_matmul(0, x, s["w"], s["scales"], s["a_q"],
+                                s["a_scale"])
+    ys = torch.cat([k1.stacked_quant_matmul(
+        0, x[i:i + BATCH], s["w"], s["scales"], s["a_q"], s["a_scale"])
+        for i in range(0, x.shape[0], BATCH)])
+    k1_rows_equal = torch.equal(y, ys)
+    q = torch.randn((BATCH, c.n_heads, K + 1, c.head_dim), device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    p0 = torch.full((BATCH,), PREFILL, dtype=torch.int32, device="cuda")
+    o = k2.stacked_int8_kv_attention(Lt - 1, q, kv.k, kv.v, kv.k_scale,
+                                     kv.v_scale, p0, None)
+    o1 = torch.cat([k2.stacked_int8_kv_attention(
+        Lt - 1, q[:, :, t:t + 1].contiguous(), kv.k, kv.v, kv.k_scale,
+        kv.v_scale, p0 + t, None) for t in range(K + 1)], dim=2)
+    k2_rows_equal = torch.equal(o, o1)
+    del kv, kvd
+    gens = {}
+    for rpd in (1, 8):
+        spec = SpeculativeDecoder(cfg, ep, dcfg, dep, k=K)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = spec.generate(ids, DECODE, rounds_per_dispatch=rpd)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        reset_counts()
+        R = len(spec.accepted_hist)
+        launches = {k: v["launches"] for k, v in counts.items()}
+        want = {k: 0 for k in launches}
+        want["K1"] = 6 * (Lt + Ld * (K + 1)) * R
+        want["K2"] = Lt * (1 + R) + Ld * (1 + (K + 1) * R)
+        n_tok = sum(len(o_) for o_ in out)
+        gens[rpd] = {"rounds_per_dispatch": rpd, "wall_s": wall,
+                     "tokens": n_tok, "tokens_per_s": n_tok / wall,
+                     "rounds": R,
+                     "accepted_per_round_and_sequence":
+                         sum(spec.accepted_hist) / (R * BATCH),
+                     "launches": launches, "want_launches": want,
+                     "plain_calls": {k: v["plain_calls"]
+                                     for k, v in counts.items()},
+                     "streams": out}
+    same_rpd = gens[1]["streams"] == gens[8]["streams"]
+    # draft = target
+    want_toks, margins = plain_greedy(torch, eng, cfg, ep, ids, DECODE)
+    spec = SpeculativeDecoder(cfg, ep, cfg, ep, k=K)
+    got = spec.generate(ids, DECODE, rounds_per_dispatch=8)
+    divs = {}
+    for b in range(BATCH):
+        d = first_divergence(got[b], want_toks[b], margins[b])
+        if d is not None:
+            divs[b] = d
+    all_k = all(a == K * BATCH for a in spec.accepted_hist)
+    exact = k1_rows_equal and k2_rows_equal
+    lossless = (not divs and all_k) if exact else all(
+        d["allowed"] for d in divs.values())
+    res = {"phase": "speculative", "model": "OPT-6.7B", "target_layers": Lt,
+           "draft_layers": Ld, "k": K, "batch": BATCH,
+           "prefill_tokens": PREFILL, "new_tokens": DECODE,
+           **{k: statistics.median(v) for k, v in times.items()},
+           "block_ms": times,
+           "generate": {str(k): {kk: vv for kk, vv in v.items()
+                                 if kk != "streams"}
+                        for k, v in gens.items()},
+           "rounds_per_dispatch_invariant": same_rpd,
+           "k1_rows_m20_equal_m4": k1_rows_equal,
+           "k2_rows_t5_equal_t1": k2_rows_equal,
+           "draft_equals_target": {
+               "accepted_hist": spec.accepted_hist,
+               "accepts_k_every_round": all_k,
+               "stream_equals_plain_greedy": not divs,
+               "divergences": divs,
+               "rule": "exact" if exact else "margin (a kernel's rows "
+                                              "are not bit-equal)"}}
+    res["pass"] = (lossless and same_rpd and all(
+        g["launches"] == g["want_launches"]
+        and not any(g["plain_calls"].values()) for g in gens.values()))
+    emit(res)
+    if not res["pass"]:
+        fail(f"speculative: {res}")
+    del dep
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -2357,6 +2921,7 @@ def main() -> int:
     k568_err = phase_checks_w4pack(torch, gen)
     k7_err = phase_checks_k7(torch, gen)
     k9_err = phase_checks_k9(torch, gen)
+    phase_checks_f32_out(torch, gen)
     engine, counts, ids = phase_main(torch, gen)
     sites, k2_rows = phase_times(torch, engine)
     phase_profile(torch, engine, ids)
@@ -2402,6 +2967,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     k9_rows = phase_times_k9(torch, gen)
     insitu_bloom = phase_insitu_bloom(torch, gen)
+    torch.cuda.empty_cache()
+    ant_cfg = opt_engine_config(32, torch.bfloat16)
+    ant_ep = random_engine_params(torch, ant_cfg, seed=0)
+    sched = phase_scheduler(torch, gen, ant_cfg, ant_ep)
+    spec = phase_speculative(torch, gen, ant_cfg, ant_ep)
+    w4a16 = phase_w4a16(torch, gen, ant_ep)
+    del ant_ep
+    torch.cuda.empty_cache()
+    phase_bf16_baseline(torch, gen)
+    new_paths = {
+        **{f"scheduler run {k} (tpd {r['ticks_per_dispatch']})":
+           r["launches"] for k, r in sched["runs"].items()},
+        **{f"speculative rounds/call {k}": g["launches"]
+           for k, g in spec["generate"].items()},
+        "w4a16": {k: v["launches"] for k, v in w4a16["launches"].items()}}
 
     dec, pre = k2_rows
     kernels = [
@@ -2419,7 +2999,8 @@ def main() -> int:
          "ms": sum(s["ms"] for s in sites),
          "plain_ms": sum(s["plain_ms"] for s in sites),
          "bound_ms": sum(s["bound_ms"] for s in sites), "bound_by": "bytes",
-         "library_ms": sum(s["library_ms"] for s in sites)},
+         "library_ms": sum(s["library_ms"] for s in sites),
+         "launches_serving_paths": {k: v["K1"] for k, v in new_paths.items()}},
         {"name": "stacked_int8_kv_attention (K2)", "route": "cuda",
          "source": "ant_quantization_tpu_torch/csrc/int8_kv_attention.cu",
          "replaces": "ant_quantization_tpu/kernels/attention.py:207",
@@ -2436,7 +3017,8 @@ def main() -> int:
          "prefill": {k: pre[k] for k in ("T", "ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
          "library_note": "SDPA on the dequantized bf16 cache (causal at "
-                         "prefill)"},
+                         "prefill)",
+         "launches_serving_paths": {k: v["K2"] for k, v in new_paths.items()}},
     ]
     for tag, fname, src, line, launches in (
             ("K3", "stacked_quant_matmul ovp=True (K3)", "stacked_i8.cu",

@@ -172,22 +172,34 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
 
 
 def test_unported_features_raise():
+    """The unquantized options (dense bf16 weights, "w4" without
+    activation quantization, the bf16 cache) build; tensor parallelism
+    (ROADMAP Queue 1 item 12) and GPT-2's Conv1D sites (item 5) still
+    raise."""
     _, tcfg = _configs()
+    params, quant = _model(seed=5)
     for change in (dict(weight_mode="bf16"), dict(act_bits=0),
-                   dict(kv_int8=False), dict(tp_size=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            teng._check_config(dataclasses.replace(tcfg, **change))
-    # GPT-2's Conv1D (per-input-channel) sites, item 8.3: from the
-    # port's build_engine_params and from a reference tree that carries
-    # "kscale"
+                   dict(kv_int8=False)):
+        cfg = dataclasses.replace(tcfg, **change)
+        teng._check_config(cfg)
+        ep = teng.build_engine_params(cfg, params, quant, device="cpu")
+        kv = teng.init_cache(cfg, 1, device="cpu")
+        logits, _ = teng.forward(cfg, ep, torch.zeros((1, 3),
+                                                      dtype=torch.int64),
+                                 kv, 0)
+        assert logits.shape == (1, 3, 128), change
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
+        teng._check_config(dataclasses.replace(tcfg, tp_size=2))
+    # GPT-2's Conv1D (per-input-channel) sites: from the port's
+    # build_engine_params and from a reference tree that carries "kscale"
     conv = dataclasses.replace(tcfg, lm=dataclasses.replace(
         tcfg.lm, conv1d_sites=("fc_in",)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*8.3"):
-        teng.build_engine_params(conv, *_model(seed=5), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
+        teng.build_engine_params(conv, params, quant, device="cpu")
     jcfg, _ = _configs()
-    jep = _np_tree(jeng.build_engine_params(jcfg, *_model(seed=5)))
+    jep = _np_tree(jeng.build_engine_params(jcfg, params, quant))
     jep["layers"]["fc_in"]["kscale"] = jep["layers"]["fc_in"].pop("oscale")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*8.3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
         convert.from_jax_engine_params(jep, device="cpu")
 
 
@@ -197,6 +209,9 @@ def test_package_imports_no_jax():
     mods = ["ant_quantization_tpu_torch", "ant_quantization_tpu_torch._ext",
             "ant_quantization_tpu_torch.convert",
             "ant_quantization_tpu_torch.serve.engine",
+            "ant_quantization_tpu_torch.serve.sampling",
+            "ant_quantization_tpu_torch.serve.scheduler",
+            "ant_quantization_tpu_torch.serve.speculative",
             "ant_quantization_tpu_torch.kernels.stacked",
             "ant_quantization_tpu_torch.kernels.attention",
             "ant_quantization_tpu_torch.kernels.kv_cache",
