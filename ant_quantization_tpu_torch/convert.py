@@ -18,14 +18,17 @@ Layouts that change:
   ``scale`` or ``oscale`` given for the whole row (L, 1) is broadcast to
   (L, N), the same values;
 - ``a_q`` int8 -> f32 (the kernel's operand type; same values);
-- every other site leaf (``oscale``, ``bias``, ``ovp``, ``a_grid``,
+- every other site leaf (``oscale``, a GPT-2 Conv1D site's ``kscale``
+  (L, K), ``bias``, ``ovp``, ``a_grid``,
   ``a_alpha``, ``a_out``, the ``aovp_*`` tables of K4, and "w4pack"'s
   ``grid``, ``q16`` and ``affine4``) keeps its values and dtype;
 - "w4pack" sites gain K8's term tables ``k8_terms`` and ``k8_unit``,
   made from each layer's ``grid`` as ``build_engine_params`` makes them;
 - KV codes (L, B, H, S/f, f*D) lane-folded -> flat (L, B, H, S, D), and
-  plane-major scales (L, B, H, f, S/f) -> (L, B, H, S), by position; a
-  raw cache is flat already (f = 1) and keeps its dtype.
+  plane-major scales (L, B, H, f, S/f) -> (L, B, H, S), by position: the
+  reference folds f = 128 / head_dim positions into a row at head_dim
+  64 (f = 2, GPT-2) and 32, and keeps head_dim 80 and 128 flat (f = 1);
+  a raw cache is flat already (f = 1) and keeps its dtype.
 """
 
 from __future__ import annotations
@@ -41,11 +44,6 @@ from .models.transformer_lm import ALL_SITES
 from .serve.engine import k8_plan_leaves
 
 __all__ = ["from_jax_engine_params", "from_jax_kv"]
-
-# reference site leaves that belong to paths this slice does not port,
-# with their ROADMAP Queue 1 item
-_UNPORTED = {"kscale": "5 (Conv1D sites)"}
-
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
     a = np.asarray(a)
@@ -66,11 +64,6 @@ def from_jax_engine_params(tree: Dict, device=None) -> Dict:
             continue
         if name not in ALL_SITES:
             raise ValueError(f"unknown site {name!r}")
-        for key, item in _UNPORTED.items():
-            if key in site:
-                raise NotImplementedError(
-                    f"site {name!r} carries {key!r}: not ported yet "
-                    f"(ROADMAP Queue 1 item {item})")
         out = {k: _tensor(v, dev) for k, v in site.items()}
         for key in ("w_i8", "packed", "kernel"):
             if key in site:
@@ -101,7 +94,10 @@ def from_jax_engine_params(tree: Dict, device=None) -> Dict:
 def from_jax_kv(kv: Sequence, head_dim: int, device=None) -> QuantKV:
     """The reference's stacked cache ``(k, v, k_scale, v_scale)`` (numpy)
     -> the port's flat :class:`QuantKV` on ``device`` (default
-    "cuda")."""
+    "cuda"). A lane-folded cache (f positions per row of f * head_dim
+    codes, position p at row p // f, lanes [(p % f) D, (p % f + 1) D);
+    its scales plane-major, p at [p % f, p // f]) is unfolded by
+    position."""
     dev = resolve_device(device)
     k, v, ks, vs = (np.asarray(a) for a in kv)
     L, B, H = k.shape[:3]

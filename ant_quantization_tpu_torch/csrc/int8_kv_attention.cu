@@ -34,7 +34,7 @@
 // per block into shared memory and read as A fragments with ldmatrix.
 // K and V tiles of 64 positions arrive as int8
 // through cp.async with their scales beside them, are widened to bf16 in
-// shared memory (rows padded to 272 bytes, so the ldmatrix reads of 8 rows
+// shared memory (rows padded to D + 8 bf16, so the ldmatrix reads of 8 rows
 // hit distinct banks), and are read with ldmatrix (K) and ldmatrix.trans
 // (V, the col-major B operand of the PV product). The score accumulators
 // are scaled by k_scale, given the ALiBi term and masked (on the tiles
@@ -56,16 +56,20 @@
 
 namespace {
 
-constexpr int D = 128;        // head_dim (the wrapper checks)
 constexpr int QB = 64;        // queries per block, 16 per warp
 constexpr int KT = 64;        // key positions per tile
 constexpr int NT = 128;       // threads per block
-constexpr int BSTR = D + 8;   // bf16 row stride of the widened tiles
 constexpr float NEG_BIG = -3.4028234663852886e+38f;  // f32 min
 
 constexpr int NP = 3;         // bf16 terms of each f32 operand
 
+// head_dim D: 64, 80 or 128 (the entry point refuses others). A row of a
+// widened tile is D + 8 bf16 (2 D + 16 bytes: a multiple of 16, and 8
+// rows of one ldmatrix start in 8 distinct 16-byte bank groups at each of
+// the three).
+template <int D>
 struct Smem {
+  static constexpr int BSTR = D + 8;  // bf16 row stride of the widened tiles
   __nv_bfloat16 q[NP][QB * BSTR]; // qs = f32(q) * qscale, three terms
   int8_t k8[KT * D];              // cp.async landing zone, int8
   int8_t v8[KT * D];
@@ -147,7 +151,9 @@ __device__ __forceinline__ float quad_sum(float v) {
 // Fragment layouts (m16n8k16, g = lane / 4, t = lane % 4): an A fragment
 // holds rows g and g + 8 at columns 2t, 2t + 1 (regs 0, 1) and 2t + 8,
 // 2t + 9 (regs 2, 3); a C fragment rows g (c0, c1) and g + 8 (c2, c3) at
-// columns 2t, 2t + 1.
+// columns 2t, 2t + 1. QK^T takes D / 16 k-steps of 16 dims, PV D / 8
+// n-tiles of 8 output dims (D = 64: 4 and 8; 80: 5 and 10; 128: 8, 16).
+template <int D>
 __global__ void __launch_bounds__(NT)
 prefill_kernel(const void* __restrict__ q, int q_bf16,
                const int8_t* __restrict__ kc, const int8_t* __restrict__ vc,
@@ -155,8 +161,11 @@ prefill_kernel(const void* __restrict__ q, int q_bf16,
                const int* __restrict__ pos0, const float* __restrict__ slopes,
                void* out, int out_bf16, int B, int H, int T, int S,
                float qscale) {
+  static_assert(D % 16 == 0, "");
+  constexpr int BSTR = Smem<D>::BSTR;
+  constexpr int NC = D / 16;  // 16-byte chunks of an int8 row; k-steps
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw);
   // blocks run the last query tiles (the most key tiles) of every head
   // first, so the long blocks do not trail at the end of the grid
   const int n_bh = B * H, n_qb = gridDim.x / n_bh;
@@ -167,7 +176,7 @@ prefill_kernel(const void* __restrict__ q, int q_bf16,
   const long bh = (long)b * H + h;
   const long row0 = bh * S;  // first position of (b, h) in the layer
   const int p0 = pos0[b];
-  const float slope = slopes[h];
+  const float slope = slopes ? slopes[h] : 0.0f;  // null: no ALiBi
   const int t_last = min(t0 + QB, T) - 1;
   const int n_tiles = min(p0 + t_last, S - 1) / KT + 1;
   const int r0 = t0 + 16 * warp + g;  // this thread's query rows r0, r0 + 8
@@ -203,8 +212,8 @@ prefill_kernel(const void* __restrict__ q, int q_bf16,
 
   auto issue = [&](int tile) {  // the int8 codes of one tile, async
     const int k0 = tile * KT;
-    for (int i = tid; i < KT * (D / 16); i += NT) {
-      const int j = i >> 3, c = i & 7, pos = k0 + j;
+    for (int i = tid; i < KT * NC; i += NT) {
+      const int j = i / NC, c = i % NC, pos = k0 + j;
       const bool ok = pos < S;
       const long off = (row0 + (ok ? pos : 0)) * D + c * 16;
       cp_async16(&sm.k8[j * D + c * 16], kc + off, ok);
@@ -221,9 +230,9 @@ prefill_kernel(const void* __restrict__ q, int q_bf16,
     }
   };
 
-  float o[16][4];
+  float o[D / 8][4];
 #pragma unroll
-  for (int n = 0; n < 16; ++n)
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
@@ -234,8 +243,8 @@ prefill_kernel(const void* __restrict__ q, int q_bf16,
     const int k0 = it * KT;
     asm volatile("cp.async.wait_all;\n" ::);
     __syncthreads();  // tile `it` landed; the previous tile's readers done
-    for (int i = tid; i < KT * (D / 16); i += NT) {
-      const int j = i >> 3, c = i & 7;
+    for (int i = tid; i < KT * NC; i += NT) {
+      const int j = i / NC, c = i % NC;
       const int4 kw = *reinterpret_cast<const int4*>(&sm.k8[j * D + c * 16]);
       const int4 vw = *reinterpret_cast<const int4*>(&sm.v8[j * D + c * 16]);
       uint4* kd = reinterpret_cast<uint4*>(&sm.kb[j * BSTR + c * 16]);
@@ -266,7 +275,7 @@ prefill_kernel(const void* __restrict__ q, int q_bf16,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {  // dims 16 kk .. + 15
+    for (int kk = 0; kk < NC; ++kk) {  // dims 16 kk .. + 15
       uint32_t a[NP][4];
 #pragma unroll
       for (int p = 0; p < NP; ++p) ldsm_x4(a[p], &sm.q[p][a_off + 16 * kk]);
@@ -313,7 +322,7 @@ prefill_kernel(const void* __restrict__ q, int q_bf16,
         s[j][e] = p * sm.vsc[8 * j + 2 * t4 + (e & 1)];
       }
 #pragma unroll
-    for (int n = 0; n < 16; ++n)
+    for (int n = 0; n < D / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
 
@@ -329,7 +338,7 @@ prefill_kernel(const void* __restrict__ q, int q_bf16,
         for (int p = 0; p < NP; ++p) pa[p][e] = t3[p];
       }
 #pragma unroll
-      for (int np = 0; np < 8; ++np) {  // output dims 16 np .. + 15
+      for (int np = 0; np < NC; ++np) {  // output dims 16 np .. + 15
         uint32_t r[4];
         ldsm_x4_t(r, &sm.vb[(16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) *
                                 BSTR + 16 * np + 8 * (lane >> 4)]);
@@ -349,7 +358,7 @@ prefill_kernel(const void* __restrict__ q, int q_bf16,
     if (r >= T) continue;
     const long base = (bh * T + r) * D + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < 16; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       const float a = o[n][2 * hh] / l, c = o[n][2 * hh + 1] / l;
       if (out_bf16)
         *reinterpret_cast<__nv_bfloat162*>(
@@ -362,6 +371,28 @@ prefill_kernel(const void* __restrict__ q, int q_bf16,
   }
 }
 
+template <int D>
+cudaError_t launch_prefill(const void* q, int q_bf16, const int8_t* kl,
+                           const int8_t* vl, const float* ksl,
+                           const float* vsl, const int* pos0,
+                           const float* slopes, void* out, int out_bf16,
+                           int B, int H, int T, int S, float qscale,
+                           cudaStream_t st) {
+  static bool attr_set = false;  // one per head_dim
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        prefill_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)sizeof(Smem<D>));
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const int grid = (T + QB - 1) / QB * B * H;
+  prefill_kernel<D><<<grid, NT, sizeof(Smem<D>), st>>>(
+      q, q_bf16, kl, vl, ksl, vsl, pos0, slopes, out, out_bf16, B, H, T, S,
+      qscale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -372,17 +403,18 @@ const char* aq_error_string(int code) {
 
 // q (B, H, T, D) f32, or bf16 when q_bf16 (converted exactly); kc, vc (L,
 // B, H, S, D) int8; ks, vs (L, B, H, S) f32; pos0 (B,) int32; slopes (H,)
-// f32; out (B, H, T, D) bf16 or f32. For T <= 16 the scratch part_o (B, H,
-// n_split, T, D) f32 and part_m, part_l (B, H, n_split, T) f32, n_split =
-// ceil(S / span), span a multiple of 64; unused above. All on the device,
-// contiguous; D == 128. Returns a cudaError_t.
+// f32 or null (no ALiBi); out (B, H, T, D) bf16 or f32. For T <= 16 the
+// scratch part_o (B, H, n_split, T, D) f32 and part_m, part_l (B, H,
+// n_split, T) f32, n_split = ceil(S / span), span a multiple of 64; unused
+// above. All on the device, contiguous; D is 64, 80 or 128 (any other:
+// cudaErrorInvalidValue). Returns a cudaError_t.
 int stacked_int8_kv_attention(const void* q, int q_bf16, const int8_t* kc,
                               const int8_t* vc, const float* ks,
                               const float* vs, const int* pos0,
                               const float* slopes, float* part_o,
                               float* part_m, float* part_l, void* out,
                               int out_bf16, int l, int B, int H, int T, int S,
-                              int span, float qscale, void* stream) {
+                              int D, int span, float qscale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const long lo = (long)l * B * H * S;
   const int8_t* kl = kc + lo * D;
@@ -392,20 +424,23 @@ int stacked_int8_kv_attention(const void* q, int q_bf16, const int8_t* kc,
   if (T <= 16)
     return (int)kvsplit::launch(q, q_bf16, kl, vl, ksl, vsl, pos0, slopes,
                                 part_o, part_m, part_l, out, out_bf16, B, H,
-                                T, S, span, qscale, st);
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        prefill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)sizeof(Smem));
-    if (err != cudaSuccess) return (int)err;
-    attr_set = true;
+                                T, S, D, span, qscale, st);
+  switch (D) {
+    case 64:
+      return (int)launch_prefill<64>(q, q_bf16, kl, vl, ksl, vsl, pos0,
+                                     slopes, out, out_bf16, B, H, T, S,
+                                     qscale, st);
+    case 80:
+      return (int)launch_prefill<80>(q, q_bf16, kl, vl, ksl, vsl, pos0,
+                                     slopes, out, out_bf16, B, H, T, S,
+                                     qscale, st);
+    case 128:
+      return (int)launch_prefill<128>(q, q_bf16, kl, vl, ksl, vsl, pos0,
+                                      slopes, out, out_bf16, B, H, T, S,
+                                      qscale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  const int grid = (T + QB - 1) / QB * B * H;
-  prefill_kernel<<<grid, NT, sizeof(Smem), st>>>(q, q_bf16, kl, vl, ksl, vsl,
-                                                 pos0, slopes, out, out_bf16,
-                                                 B, H, T, S, qscale);
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -20,21 +20,22 @@ const char* aq_error_string(int code) {
 }
 
 // q (B, H, T, D) f32, or bf16 when q_bf16, 1 <= T <= 16; kc, vc (B, H, S,
-// D) int8; ks, vs (B, H, S) f32; pos0 (B,) int32; slopes (H,) f32;
-// scratch part_o (B, H, n_split, T, D) f32 and part_m, part_l (B, H,
-// n_split, T) f32 with n_split = ceil(S / span); out (B, H, T, D) bf16 or
-// f32. All on the device, contiguous; D == 128; span a multiple of 64.
-// Returns a cudaError_t.
+// D) int8; ks, vs (B, H, S) f32; pos0 (B,) int32; slopes (H,) f32 or null
+// (no ALiBi); scratch part_o (B, H, n_split, T, D) f32 and part_m,
+// part_l (B, H, n_split, T) f32 with n_split = ceil(S / span); out (B, H,
+// T, D) bf16 or f32. All on the device, contiguous; D is 64, 80 or 128
+// (any other: cudaErrorInvalidValue); span a multiple of 64. Returns a
+// cudaError_t.
 int int8_kv_attention_split(const void* q, int q_bf16, const int8_t* kc,
                             const int8_t* vc, const float* ks,
                             const float* vs, const int* pos0,
                             const float* slopes, float* part_o,
                             float* part_m, float* part_l, void* out,
-                            int out_bf16, int B, int H, int T, int S,
+                            int out_bf16, int B, int H, int T, int S, int D,
                             int span, float qscale, void* stream) {
   return (int)kvsplit::launch(q, q_bf16, kc, vc, ks, vs, pos0, slopes,
                               part_o, part_m, part_l, out, out_bf16, B, H, T,
-                              S, span, qscale, (cudaStream_t)stream);
+                              S, D, span, qscale, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -17,7 +17,7 @@
 //   - pass 1: block (split, h, b) takes the positions [split * span,
 //     (split + 1) * span) up to pos0[b] + T - 1, the last one any query of
 //     the call sees, for all T queries of head h. It walks them in tiles of
-//     KT positions staged in shared memory as int8 (K rows padded to 132
+//     KT positions staged in shared memory as int8 (K rows padded to D + 8
 //     bytes), with an online softmax, and writes its partial max m, sum of
 //     exp l and unnormalized output o per query. A split wholly past the
 //     last visible position exits at once; the masked tail of the others is
@@ -32,6 +32,13 @@
 // splits fills the SMs several times. Summation orders differ from the
 // plain version: the result agrees within a tolerance that the callers
 // state, not bit for bit.
+//
+// head_dim D is a template parameter, instantiated for 64 (GPT-2, OPT-125m
+// and -1.3b, BLOOM-560m), 80 (BLOOM-3b) and 128; launch() refuses any
+// other. The block is 128 threads at every D: the score pass is one
+// thread per (key, half of the dims) for the 64 keys of a tile, and the
+// PV pass, the partial store and the combine give thread t the columns
+// t, t + 128, ... below D.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,10 +51,9 @@
 namespace {
 namespace kvsplit {
 
-constexpr int D = 128;      // head_dim (the wrappers check)
-constexpr int KT = 64;      // key positions per tile
-constexpr int KSTR = 132;   // padded shared row stride of the K tile, bytes
-constexpr int NTHREADS = D;
+constexpr int KT = 64;         // key positions per tile
+constexpr int NTHREADS = 128;  // two per key of a tile
+constexpr int MAX_T = 16;      // queries per call, at most
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -66,7 +72,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 // q (B, H, T, D) f32, or bf16 when q_bf16 (converted exactly); kc, vc
 // (B, H, S, D); ks, vs (B, H, S); part_o (B, H, n_split, T, D); part_m,
 // part_l (B, H, n_split, T). QT >= T.
-template <int QT>
+template <int D, int QT>
 __global__ void __launch_bounds__(NTHREADS)
 split_kernel(const void* __restrict__ q, int q_bf16,
              const int8_t* __restrict__ kc, const int8_t* __restrict__ vc,
@@ -75,6 +81,14 @@ split_kernel(const void* __restrict__ q, int q_bf16,
              float* __restrict__ part_o, float* __restrict__ part_m,
              float* __restrict__ part_l, int H, int T, int S, int span,
              float qscale) {
+  static_assert(D % 16 == 0 && NTHREADS == 2 * KT, "");
+  // the K tile's shared row stride in bytes. The score thread (key j,
+  // half hf) reads the 4-byte words hf, hf + 2, hf + 4, ... of row j: with
+  // D + 8 bytes (D / 4 + 2 words, 2 mod 4) the 32 threads of a warp (16
+  // keys, both halves) hit 32 distinct banks at D = 64, 80 and 128
+  constexpr int KSTR = D + 8;
+  constexpr int NW = D / 8;          // 4-byte words of a half row
+  constexpr int DC = (D + NTHREADS - 1) / NTHREADS;  // columns per thread
   __shared__ float q_s[QT][D];
   __shared__ __align__(16) int8_t k_s[KT * KSTR];
   __shared__ __align__(16) int8_t v_s[KT][D];
@@ -115,11 +129,13 @@ split_kernel(const void* __restrict__ q, int q_bf16,
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.0f;
   }
-  const float slope = slopes[h];
+  const float slope = slopes ? slopes[h] : 0.0f;  // null: no ALiBi
 
-  float acc[QT];
+  float acc[QT][DC];
 #pragma unroll
-  for (int r = 0; r < QT; ++r) acc[r] = 0.0f;
+  for (int r = 0; r < QT; ++r)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[r][c] = 0.0f;
 
   for (int k0 = s_begin; k0 < s_end; k0 += KT) {
     __syncthreads();  // the previous tile's readers are done
@@ -141,21 +157,21 @@ split_kernel(const void* __restrict__ q, int q_bf16,
     }
     __syncthreads();
 
-    {  // scores: thread (key j, half hf)
+    {  // scores: thread (key j, half hf) takes the words 2 c + hf
       const int j = tid >> 1, hf = tid & 1, pos = k0 + j;
-      int kr[16];
-      const int* krow = reinterpret_cast<const int*>(k_s + j * KSTR + hf * 64);
+      int kr[NW];
+      const int* krow = reinterpret_cast<const int*>(k_s + j * KSTR);
 #pragma unroll
-      for (int c = 0; c < 16; ++c) kr[c] = krow[c];
+      for (int c = 0; c < NW; ++c) kr[c] = krow[2 * c + hf];
 #pragma unroll
       for (int r = 0; r < QT; ++r) {
-        const float* qrow = &q_s[r][hf * 64];
+        const float* qrow = &q_s[r][4 * hf];
         float dot = 0.0f;
 #pragma unroll
-        for (int c = 0; c < 16; ++c) {
+        for (int c = 0; c < NW; ++c) {
 #pragma unroll
           for (int e = 0; e < 4; ++e)  // little-endian bytes of the word
-            dot += qrow[4 * c + e] * (float)(int8_t)(kr[c] >> (8 * e));
+            dot += qrow[8 * c + e] * (float)(int8_t)(kr[c] >> (8 * e));
         }
         dot += __shfl_xor_sync(0xffffffffu, dot, 1);
         if (hf == 0) {
@@ -188,26 +204,38 @@ split_kernel(const void* __restrict__ q, int q_bf16,
     __syncthreads();
 
 #pragma unroll
-    for (int r = 0; r < QT; ++r) {  // PV: thread tid owns column d = tid
-      float a = acc[r] * corr_s[r];
+    for (int c = 0; c < DC; ++c) {  // PV: thread tid owns d = tid + 128 c
+      const int d = tid + NTHREADS * c;
+      if (d >= D) break;
+#pragma unroll
+      for (int r = 0; r < QT; ++r) {
+        float a = acc[r][c] * corr_s[r];
 #pragma unroll 8
-      for (int j = 0; j < KT; ++j) a += p_s[r][j] * (float)v_s[j][tid];
-      acc[r] = a;
+        for (int j = 0; j < KT; ++j) a += p_s[r][j] * (float)v_s[j][d];
+        acc[r][c] = a;
+      }
     }
   }
 
   const long part = bh * n_split + split;
 #pragma unroll
-  for (int r = 0; r < QT; ++r)
-    if (r < T) part_o[(part * T + r) * D + tid] = acc[r];
+  for (int c = 0; c < DC; ++c) {
+    const int d = tid + NTHREADS * c;
+    if (d >= D) break;
+#pragma unroll
+    for (int r = 0; r < QT; ++r)
+      if (r < T) part_o[(part * T + r) * D + d] = acc[r][c];
+  }
   if (tid < T) {
     part_m[part * T + tid] = m_s[tid];
     part_l[part * T + tid] = l_s[tid];
   }
 }
 
-// One block of D threads per (h, b): thread d combines column d of every
-// query over the splits that pass 1 wrote, in order.
+// One block of NTHREADS threads per (h, b): thread t combines the columns
+// d = t, t + 128, ... below D of every query over the splits that pass 1
+// wrote, in order.
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
 combine_kernel(const float* __restrict__ part_o,
                const float* __restrict__ part_m,
@@ -216,57 +244,82 @@ combine_kernel(const float* __restrict__ part_o,
                int n_split) {
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int d = threadIdx.x;
   const long bh = (long)b * H + h;
   const int kmax = min(pos0[b] + T - 1, S - 1);
   const int n_rel = min(kmax / span + 1, n_split);
-  for (int t = 0; t < T; ++t) {
-    float M = -INFINITY;
-    for (int i = 0; i < n_rel; ++i)
-      M = fmaxf(M, part_m[(bh * n_split + i) * T + t]);
-    float num = 0.0f, den = 0.0f;
-    for (int i = 0; i < n_rel; ++i) {
-      const long part = bh * n_split + i;
-      const float w = expf(part_m[part * T + t] - M);  // 0 where m_i = -inf
-      num += w * part_o[(part * T + t) * D + d];
-      den += w * part_l[part * T + t];
+  for (int d = threadIdx.x; d < D; d += NTHREADS) {
+    for (int t = 0; t < T; ++t) {
+      float M = -INFINITY;
+      for (int i = 0; i < n_rel; ++i)
+        M = fmaxf(M, part_m[(bh * n_split + i) * T + t]);
+      float num = 0.0f, den = 0.0f;
+      for (int i = 0; i < n_rel; ++i) {
+        const long part = bh * n_split + i;
+        const float w = expf(part_m[part * T + t] - M);  // 0 where m_i = -inf
+        num += w * part_o[(part * T + t) * D + d];
+        den += w * part_l[part * T + t];
+      }
+      const float o = num / den;
+      const long off = (bh * T + t) * D + d;
+      if (out_bf16)
+        reinterpret_cast<__nv_bfloat16*>(out)[off] = __float2bfloat16(o);
+      else
+        reinterpret_cast<float*>(out)[off] = o;
     }
-    const float o = num / den;
-    const long off = (bh * T + t) * D + d;
-    if (out_bf16)
-      reinterpret_cast<__nv_bfloat16*>(out)[off] = __float2bfloat16(o);
-    else
-      reinterpret_cast<float*>(out)[off] = o;
   }
 }
 
-// Both passes on one layer's (B, H, S, D) cache; n_split = ceil(S / span)
-// splits of scratch. 1 <= T <= 16, span a multiple of KT.
-inline cudaError_t launch(const void* q, int q_bf16, const int8_t* kc,
-                          const int8_t* vc, const float* ks, const float* vs,
-                          const int* pos0, const float* slopes,
-                          float* part_o, float* part_m, float* part_l,
-                          void* out, int out_bf16, int B, int H, int T,
-                          int S, int span, float qscale, cudaStream_t st) {
-  if (T < 1 || T > 16 || span < KT || span % KT) return cudaErrorInvalidValue;
+template <int D>
+cudaError_t launch_d(const void* q, int q_bf16, const int8_t* kc,
+                     const int8_t* vc, const float* ks, const float* vs,
+                     const int* pos0, const float* slopes, float* part_o,
+                     float* part_m, float* part_l, void* out, int out_bf16,
+                     int B, int H, int T, int S, int span, float qscale,
+                     cudaStream_t st) {
   const int n_split = (S + span - 1) / span;
   const dim3 grid(n_split, H, B);
 #define KVSPLIT_PASS1(QT)                                                    \
-  split_kernel<QT><<<grid, NTHREADS, 0, st>>>(q, q_bf16, kc, vc, ks, vs,     \
-                                              pos0, slopes, part_o, part_m,  \
-                                              part_l, H, T, S, span, qscale)
+  split_kernel<D, QT><<<grid, NTHREADS, 0, st>>>(                            \
+      q, q_bf16, kc, vc, ks, vs, pos0, slopes, part_o, part_m, part_l, H, T, \
+      S, span, qscale)
   if (T == 1)
     KVSPLIT_PASS1(1);
   else if (T <= 4)
     KVSPLIT_PASS1(4);
   else
-    KVSPLIT_PASS1(16);
+    KVSPLIT_PASS1(MAX_T);
 #undef KVSPLIT_PASS1
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  combine_kernel<<<dim3(H, B), NTHREADS, 0, st>>>(
+  combine_kernel<D><<<dim3(H, B), NTHREADS, 0, st>>>(
       part_o, part_m, part_l, pos0, out, out_bf16, H, T, S, span, n_split);
   return cudaGetLastError();
+}
+
+// Both passes on one layer's (B, H, S, D) cache; n_split = ceil(S / span)
+// splits of scratch. 1 <= T <= 16, span a multiple of KT, D 64, 80 or 128.
+inline cudaError_t launch(const void* q, int q_bf16, const int8_t* kc,
+                          const int8_t* vc, const float* ks, const float* vs,
+                          const int* pos0, const float* slopes,
+                          float* part_o, float* part_m, float* part_l,
+                          void* out, int out_bf16, int B, int H, int T,
+                          int S, int D, int span, float qscale,
+                          cudaStream_t st) {
+  if (T < 1 || T > MAX_T || span < KT || span % KT)
+    return cudaErrorInvalidValue;
+#define KVSPLIT_D(DD)                                                        \
+  case DD:                                                                   \
+    return launch_d<DD>(q, q_bf16, kc, vc, ks, vs, pos0, slopes, part_o,     \
+                        part_m, part_l, out, out_bf16, B, H, T, S, span,     \
+                        qscale, st)
+  switch (D) {
+    KVSPLIT_D(64);
+    KVSPLIT_D(80);
+    KVSPLIT_D(128);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef KVSPLIT_D
 }
 
 }  // namespace kvsplit

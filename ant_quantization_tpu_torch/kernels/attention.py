@@ -15,8 +15,11 @@ On a CUDA tensor each wrapper launches its hand-written Hopper kernel
 (``csrc/int8_kv_attention.cu``: one launch for any T, with the positions
 split across blocks for T <= 16 and the products on the bf16 tensor cores
 above; ``csrc/int8_kv_attention_split.cu``: T <= 16, the positions split
-across blocks; the split pass is ``csrc/kv_split.cuh`` in both); on a CPU
-tensor it runs its plain version, which repeats the reference kernel's
+across blocks; the split pass is ``csrc/kv_split.cuh`` in both), built
+for the head_dims of ``HEAD_DIMS`` (64: GPT-2, OPT-125m and -1.3b,
+BLOOM-560m; 80: BLOOM-3b; 128); any other head_dim raises
+``NotImplementedError`` on the card. On a CPU tensor it runs its plain
+version, which repeats the reference kernel's
 arithmetic in plain PyTorch. :func:`attention_oracle` is the reference's
 test oracle (it divides by sqrt(D) where the kernels multiply).
 :func:`stacked_int8_kv_attention_hilo` repeats the tensor-core arithmetic
@@ -37,7 +40,7 @@ from .. import _ext
 __all__ = ["stacked_int8_kv_attention", "stacked_int8_kv_attention_plain",
            "int8_kv_attention", "int8_kv_attention_plain",
            "attention_oracle", "stacked_int8_kv_attention_hilo",
-           "split_ranges", "COUNTS", "K7_COUNTS", "K7_MAX_T"]
+           "split_ranges", "COUNTS", "K7_COUNTS", "K7_MAX_T", "HEAD_DIMS"]
 
 # launches of each CUDA kernel, and calls of its plain version
 COUNTS = {"launches": 0, "plain_calls": 0}        # K2
@@ -51,6 +54,7 @@ K7_MAX_T = 16       # K7 serves at most this many queries per call;
 _KT = 64            # key positions per tile of the kernels
 _SPAN_MAX = 512     # positions per split block, at most
 _SPLIT_BLOCKS = 16 * 132   # split blocks to aim for: 16 per H100 SM
+HEAD_DIMS = (64, 80, 128)  # the head_dims the CUDA kernels are built for
 
 
 def _qscale(D: int) -> float:
@@ -145,33 +149,34 @@ def _kernel_q(q: torch.Tensor) -> torch.Tensor:
 
 def _checked_operands(q, k, v, k_scale, v_scale, pos0, slopes, out_dtype,
                       cache_shape):
-    """Check the operands of either kernel; returns the slopes (zeros when
-    None)."""
+    """Check the operands of either kernel; returns the slopes' device
+    pointer, 0 when there are none (the kernels then add no ALiBi term)."""
     B, H, T, D = q.shape
     dev = q.device
-    if D != 128:
+    if D not in HEAD_DIMS:
         raise NotImplementedError(
-            f"the CUDA kernel is written for head_dim 128, got {D}")
+            f"the CUDA kernels are built for head_dim {HEAD_DIMS}, got {D}: "
+            "not served yet (ROADMAP Queue 2, head_dims served)")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"out_dtype {out_dtype} not supported")
-    if slopes is None:
-        slopes = torch.zeros(H, dtype=torch.float32, device=dev)
-    _check_tensors((("q", q, q.dtype, (B, H, T, D)),
-                    ("k", k, torch.int8, cache_shape + (D,)),
-                    ("v", v, torch.int8, cache_shape + (D,)),
-                    ("k_scale", k_scale, torch.float32, cache_shape),
-                    ("v_scale", v_scale, torch.float32, cache_shape),
-                    ("pos0", pos0, torch.int32, (B,)),
-                    ("slopes", slopes, torch.float32, (H,))), dev)
-    return slopes
+    checks = [("q", q, q.dtype, (B, H, T, D)),
+              ("k", k, torch.int8, cache_shape + (D,)),
+              ("v", v, torch.int8, cache_shape + (D,)),
+              ("k_scale", k_scale, torch.float32, cache_shape),
+              ("v_scale", v_scale, torch.float32, cache_shape),
+              ("pos0", pos0, torch.int32, (B,))]
+    if slopes is not None:
+        checks.append(("slopes", slopes, torch.float32, (H,)))
+    _check_tensors(checks, dev)
+    return 0 if slopes is None else slopes.data_ptr()
 
 
-def _split_scratch(B, H, T, S, dev):
+def _split_scratch(B, H, T, S, D, dev):
     """The split pass's span and its scratch: per split the unnormalized
     output, and the max and sum of exp."""
     span = _span(B, H, S)
     n_split = -(-S // span)
-    part_o = torch.empty((B, H, n_split, T, 128), dtype=torch.float32,
+    part_o = torch.empty((B, H, n_split, T, D), dtype=torch.float32,
                          device=dev)
     part_ml = torch.empty((2, B, H, n_split, T), dtype=torch.float32,
                           device=dev)
@@ -196,12 +201,12 @@ def _launch(l, q, k, v, k_scale, v_scale, pos0, slopes, out_dtype):
     B, H, T, D = q.shape
     L, _, _, S, _ = k.shape
     dev = q.device
-    slopes = _checked_operands(q, k, v, k_scale, v_scale, pos0, slopes,
-                               out_dtype, (L, B, H, S))
+    slopes_ptr = _checked_operands(q, k, v, k_scale, v_scale, pos0, slopes,
+                                   out_dtype, (L, B, H, S))
     lib = _ext.load(_SOURCE)
-    fn = _entry(lib, "stacked_int8_kv_attention", 6)
+    fn = _entry(lib, "stacked_int8_kv_attention", 7)
     if T <= K7_MAX_T:
-        span, part_o, part_ml = _split_scratch(B, H, T, S, dev)
+        span, part_o, part_ml = _split_scratch(B, H, T, S, D, dev)
         parts = (part_o.data_ptr(), part_ml[0].data_ptr(),
                  part_ml[1].data_ptr())
     else:
@@ -209,8 +214,8 @@ def _launch(l, q, k, v, k_scale, v_scale, pos0, slopes, out_dtype):
     out = torch.empty((B, H, T, D), dtype=out_dtype, device=dev)
     code = fn(q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
               v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-              pos0.data_ptr(), slopes.data_ptr(), *parts, out.data_ptr(),
-              int(out_dtype == torch.bfloat16), l, B, H, T, S, span,
+              pos0.data_ptr(), slopes_ptr, *parts, out.data_ptr(),
+              int(out_dtype == torch.bfloat16), l, B, H, T, S, D, span,
               _qscale(D), _ext.stream_ptr(dev))
     _ext.check(lib, code, "stacked_int8_kv_attention")
     COUNTS["launches"] += 1
@@ -225,8 +230,9 @@ def stacked_int8_kv_attention(l: int, q: torch.Tensor, k: torch.Tensor,
     """Causal attention of q against layer ``l`` of the stacked cache.
 
     l:                layer index (Python int)
-    q:                (B, H, T, D) float; query t sits at pos0[b] + t
-    k, v:             (L, B, H, S, D) int8 codes
+    q:                (B, H, T, D) float, D in ``HEAD_DIMS`` on the card;
+                      query t sits at pos0[b] + t
+    k, v:             (L, B, H, S, D) int8 codes (the port's flat cache)
     k_scale, v_scale: (L, B, H, S) f32 per-position scales
     pos0:             (B,) int32 first query position per sequence
     slopes:           optional (H,) f32 ALiBi slopes
@@ -248,17 +254,17 @@ def _launch_split(q, k, v, k_scale, v_scale, pos0, slopes, out_dtype):
     dev = q.device
     if not 1 <= T <= K7_MAX_T:
         raise ValueError(f"K7 takes 1 to {K7_MAX_T} queries, got {T}")
-    slopes = _checked_operands(q, k, v, k_scale, v_scale, pos0, slopes,
-                               out_dtype, (B, H, S))
+    slopes_ptr = _checked_operands(q, k, v, k_scale, v_scale, pos0, slopes,
+                                   out_dtype, (B, H, S))
     lib = _ext.load(_SPLIT_SOURCE)
-    fn = _entry(lib, "int8_kv_attention_split", 5)
-    span, part_o, part_ml = _split_scratch(B, H, T, S, dev)
+    fn = _entry(lib, "int8_kv_attention_split", 6)
+    span, part_o, part_ml = _split_scratch(B, H, T, S, D, dev)
     out = torch.empty((B, H, T, D), dtype=out_dtype, device=dev)
     code = fn(q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
               v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-              pos0.data_ptr(), slopes.data_ptr(), part_o.data_ptr(),
+              pos0.data_ptr(), slopes_ptr, part_o.data_ptr(),
               part_ml[0].data_ptr(), part_ml[1].data_ptr(), out.data_ptr(),
-              int(out_dtype == torch.bfloat16), B, H, T, S, span,
+              int(out_dtype == torch.bfloat16), B, H, T, S, D, span,
               _qscale(D), _ext.stream_ptr(dev))
     _ext.check(lib, code, "int8_kv_attention_split")
     K7_COUNTS["launches"] += 1
@@ -273,8 +279,8 @@ def int8_kv_attention(q: torch.Tensor, k_i8: torch.Tensor,
     """K7: causal attention of up to ``K7_MAX_T`` queries against one
     layer's cache.
 
-    q:                (B, H, T, D) float, T <= 16; query t sits at
-                      pos0[b] + t
+    q:                (B, H, T, D) float, T <= 16, D in ``HEAD_DIMS`` on
+                      the card; query t sits at pos0[b] + t
     k_i8, v_i8:       (B, H, S, D) int8 codes (a layer of the stacked
                       cache: ``cache.k[l]`` is a contiguous view)
     k_scale, v_scale: (B, H, S) f32 per-position scales

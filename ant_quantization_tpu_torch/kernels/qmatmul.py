@@ -81,12 +81,20 @@ def int8_matmul(a: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
     A library call (``torch._int_mm``), used outside any kernel: for the
     prefill-size matmuls and the int8 lm_head, as the reference leaves
     those dots to XLA. On CUDA ``_int_mm`` needs M > 16 and K, N multiples
-    of 8, so M is padded with zero rows."""
-    M = a.shape[0]
+    of 8, so M is padded with zero rows, and on every device the last N %
+    8 output columns (GPT-2's vocabulary of 50,257 at the head) are an f64
+    product of the same codes, exact (each sum is below K 127^2 < 2^53)."""
+    M, N = a.shape[0], w_nk.shape[0]
     if a.is_cuda and (M <= 16 or M % 8):
         Mp = max(32, -(-M // 8) * 8)
         a = torch.cat([a, a.new_zeros((Mp - M, a.shape[1]))])
-    return torch._int_mm(a, w_nk.t())[:M]
+    n8 = N - N % 8
+    out = torch._int_mm(a, w_nk[:n8].t())[:M] if n8 else None
+    if n8 == N:
+        return out
+    tail = (a[:M].to(torch.float64) @ w_nk[n8:].to(torch.float64).t()).to(
+        torch.int32)
+    return tail if out is None else torch.cat([out, tail], dim=1)
 
 
 def int8_codebook(grid16) -> tuple[np.ndarray, float, bool]:
@@ -115,29 +123,41 @@ def quantize_weights_w4_i8(w: torch.Tensor, grid, alpha,
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Quantize a (K, N) f32 weight onto a 16-entry grid.
 
-    Returns ``(w_i8 (K, N) int8, scale (N,) f32)`` with the dequantized
-    weight equal to ``w_i8 * scale[None, :]``. The per-channel scale is
-    ``alpha / max(grid)``, the SIGNED max (the reference quantizer's
-    convention; it differs from the absmax on the asymmetric int grids),
-    times the codebook's unit. Only per-output-channel (Linear) scales are
-    ported; GPT-2's per-input-channel Conv1D sites come later (ROADMAP
-    Queue 1 item 5).
+    Returns ``(w_i8 (K, N) int8, scale f32)`` with the dequantized weight
+    equal to ``w_i8 * scale`` broadcast along ``axis``, the per-channel
+    dim: 1 (per output channel, Linear semantics; scale (N,)) or 0 (per
+    input channel, GPT-2's Conv1D semantics; scale (K,), which the engine
+    keeps as ``kscale``). The engine stores ``w_i8`` transposed, (N, K),
+    so a ``kscale`` runs along the LAST axis of the port's weight (along
+    K: ``w_i8[l] * kscale[l][None, :]``). The per-channel scale is ``alpha
+    / max(grid)``, the SIGNED max (the reference quantizer's convention;
+    it differs from the absmax on the asymmetric int grids), times the
+    codebook's unit.
     """
-    if axis != 1:
-        raise NotImplementedError(
-            "per-input-channel (Conv1D, 'kscale') weights are not ported "
-            "yet (ROADMAP Queue 1 item 5)")
+    if axis not in (0, 1):
+        raise ValueError(f"axis must be 0 or 1, got {axis}")
     dev = w.device
     g16 = np.asarray(grid, np.float32).reshape(-1)[:16]
     q16, unit, _ = int8_codebook(g16)
-    vmax = torch.tensor(float(np.max(g16)), dtype=torch.float32, device=dev)
-    alpha_t = torch.tensor(np.asarray(alpha, np.float32), device=dev)
-    scale = alpha_t.reshape(-1).expand(w.shape[1]) / vmax
-    codes = snap_codes(w.to(torch.float32) / scale[None, :],
+    scale = _channel_scale(w, alpha, float(np.max(g16)), axis)
+    codes = snap_codes(w.to(torch.float32) / _along(scale, axis),
                        torch.tensor(g16, device=dev))
     w_i8 = torch.as_tensor(q16, device=dev)[codes.long()]
     unit_t = torch.tensor(np.float32(unit), device=dev)
     return w_i8, scale * unit_t
+
+
+def _channel_scale(w: torch.Tensor, alpha, vmax: float,
+                   axis: int) -> torch.Tensor:
+    """alpha / vmax per channel of ``w`` along ``axis``, in f32."""
+    alpha_t = torch.tensor(np.asarray(alpha, np.float32), device=w.device)
+    vmax_t = torch.tensor(vmax, dtype=torch.float32, device=w.device)
+    return alpha_t.reshape(-1).expand(w.shape[axis]) / vmax_t
+
+
+def _along(scale: torch.Tensor, axis: int) -> torch.Tensor:
+    """A per-channel scale broadcast against a (K, N) weight."""
+    return scale[None, :] if axis == 1 else scale[:, None]
 
 
 # OVP: OliVe weights in one int8 stream.
@@ -207,18 +227,17 @@ def quantize_weights_ovp_i8(w: torch.Tensor, grid, outliers, alpha,
     """OVP-quantize a (K, N) f32 weight and store it sign-offset encoded.
 
     Snap onto the grid || outliers concat, zero the victims along
-    ``pair_axis`` (0: pairs along K), encode. Returns ``(w_enc (K, N)
-    int8, scale (N,) f32)`` with the dequantized weight equal to
-    ``ovp_decode_values(w_enc) * scale[None, :]``. The per-channel scale
-    is ``alpha / max(grid)`` (the SIGNED max) times the unit. Runs on the
-    device of ``w``. Only per-output-channel (Linear) scales are ported;
-    GPT-2's per-input-channel Conv1D sites come later (ROADMAP Queue 1
-    item 5).
+    ``pair_axis`` (0: pairs along K, the Linear sites; 1: along N, GPT-2's
+    Conv1D sites), encode. Returns ``(w_enc (K, N) int8, scale f32)`` with
+    the dequantized weight equal to ``ovp_decode_values(w_enc) * scale``
+    broadcast along ``axis`` (1: scale (N,), per output channel; 0: scale
+    (K,), per input channel, kept as ``kscale``, which runs along the
+    last axis of the engine's transposed (N, K) weight). The per-channel
+    scale is ``alpha / max(grid)`` (the SIGNED max) times the unit. Runs
+    on the device of ``w``.
     """
-    if axis != 1:
-        raise NotImplementedError(
-            "per-input-channel (Conv1D, 'kscale') weights are not ported "
-            "yet (ROADMAP Queue 1 item 5)")
+    if axis not in (0, 1):
+        raise ValueError(f"axis must be 0 or 1, got {axis}")
     dev = w.device
     g16 = np.asarray(grid, np.float32).reshape(-1)[:16]
     o16 = np.asarray(outliers, np.float32).reshape(-1)[:16]
@@ -227,11 +246,9 @@ def quantize_weights_ovp_i8(w: torch.Tensor, grid, outliers, alpha,
         raise ValueError(
             "no exact sign-offset OVP unit for this grid/outlier pair: "
             "these weights cannot be served losslessly in 'w4'")
-    vmax = torch.tensor(float(np.max(g16)), dtype=torch.float32, device=dev)
-    alpha_t = torch.tensor(np.asarray(alpha, np.float32), device=dev)
-    scale = alpha_t.reshape(-1).expand(w.shape[1]) / vmax
+    scale = _channel_scale(w, alpha, float(np.max(g16)), axis)
     full = torch.tensor(np.concatenate([g16, o16]), device=dev)
-    q, _ = snap_concat(w.to(torch.float32) / scale[None, :], full)
+    q, _ = snap_concat(w.to(torch.float32) / _along(scale, axis), full)
     q = apply_ovp(q, pair_axis=pair_axis)          # victims -> 0
     # integer-domain value -> encoded byte, one compare per codebook value
     vals = np.unique(np.concatenate([g16, o16, [0.0]]))

@@ -6,9 +6,10 @@ two to a byte) and "bf16" (dense weights in ``cfg.dtype``, the
 unquantized baseline), the INT8 and the bf16 KV cache (``kv_int8``) and
 the int8 and the plain lm_head: prefill and greedy decode, with a write
 position shared by the batch or one per sequence (a bucket-padded batch
-of ragged prompts). The OPT geometry (split q/k/v, learned positions)
-and the BLOOM geometry (fused qkv, the embedding LayerNorm, ALiBi) are
-served. Both halves of the system are served:
+of ragged prompts). The OPT geometry (split q/k/v, learned positions),
+the BLOOM geometry (fused qkv, the embedding LayerNorm, ALiBi) and the
+GPT-2 geometry (fused qkv, learned positions, Conv1D sites quantized per
+input channel) are served. Both halves of the system are served:
 
 - ANT: weights as int8 codebook values ("w4") or packed codes
   ("w4pack"), activations snapped onto an int8-exact codebook (``a_q``);
@@ -25,8 +26,8 @@ Routing follows the reference (``_prepare_stacked``):
   kernel (``kernels/stacked.py``): K4 at sites with aovp tables, K3 at
   OVP-weight sites with ``a_q``, K1 at the other "w4" sites, K6 at
   "w4pack" sites with ``a_q``. The rule is all-or-nothing: one site with
-  neither ``a_q`` nor aovp tables sends every site of the step to the
-  unfused route;
+  neither ``a_q`` nor aovp tables, or a Conv1D site (``kscale``), sends
+  every site of the step to the unfused route;
 - prefill-size matmuls under "w4" run plain torch ops: with ``a_q``, a
   midpoint snap of ``x / a_scale`` and int8 x int8 -> int32 library
   products (two for OVP weights, combined as 16 a - 15 b in f32);
@@ -40,6 +41,10 @@ Routing follows the reference (``_prepare_stacked``):
   fails) fake-quantizes the activation in ``cfg.dtype`` and runs K8
   (``kernels/qmatmul.py``) on it, an f32-exact product against the grid
   values;
+- a Conv1D site under "w4" (``kscale``, GPT-2) takes, at every M, the
+  activation fake-quant and an f32 product against its dequantized f32
+  weight (``w_i8`` or the OVP values times ``kscale`` along K), as the
+  reference leaves it to XLA;
 - "bf16" sites (the reference's plain XLA dot, no kernel there either)
   run the activation fake-quant where there is one and a library product
   of ``cfg.dtype`` operands with an f32 result (``f32_out_product``), at
@@ -72,9 +77,9 @@ from ..kernels.attention import (K7_MAX_T, _rel, int8_kv_attention,
                                  stacked_int8_kv_attention)
 from ..kernels.kv_cache import (QuantKV, append_kv_stacked, dequant_kv,
                                 init_kv)
-from ..kernels.qmatmul import (f32_out_product, int8_codebook,
-                               int8_matmul, ovp_clip, ovp_decode_values,
-                               ovp_encode_scalar, ovp_unit,
+from ..kernels.qmatmul import (f32_out_product, f32_product,
+                               int8_codebook, int8_matmul, ovp_clip,
+                               ovp_decode_values, ovp_encode_scalar, ovp_unit,
                                quantize_weights_ovp_i8, quantize_weights_w4,
                                quantize_weights_w4_i8, quantized_matmul_w4,
                                tf32_off, w4_term_plan)
@@ -218,21 +223,27 @@ def _site_node(tree: Dict, site: str):
     return tree["attn"][site] if site in _ATTN_SITES else tree[site]
 
 
-def weight_entry(kernel: torch.Tensor, wq, ovp: bool) -> Dict:
+def weight_entry(kernel: torch.Tensor, wq, ovp: bool,
+                 conv1d: bool = False) -> Dict:
     """One site-layer's weight leaves from its (K, N) f32 kernel (on the
     device the leaves go to) and its weight quantizer state: the OVP
     encoding when the site has outliers in any layer (``ovp``), else int8
-    codebook values; ``w_i8`` in the port's (N, K) layout."""
+    codebook values; ``w_i8`` in the port's (N, K) layout. A Linear site
+    is scaled per output channel (``oscale`` (N,)); a GPT-2 Conv1D site
+    (``conv1d``) per input channel with its OVP pairs along the output
+    axis, as the reference quantizes it, and keeps ``kscale`` (K,), which
+    runs along the last axis of ``w_i8``."""
+    axis, pair_axis, key = (0, 1, "kscale") if conv1d else (1, 0, "oscale")
     e = {}
     if ovp:
-        w_i8, oscale = quantize_weights_ovp_i8(
+        w_i8, scale = quantize_weights_ovp_i8(
             kernel, _field(wq, "grid"), _field(wq, "outliers"),
-            _field(wq, "alpha"))
+            _field(wq, "alpha"), pair_axis=pair_axis, axis=axis)
         e["ovp"] = torch.zeros((), dtype=torch.int32, device=kernel.device)
     else:
-        w_i8, oscale = quantize_weights_w4_i8(kernel, _field(wq, "grid"),
-                                              _field(wq, "alpha"))
-    e["w_i8"], e["oscale"] = w_i8.t().contiguous(), oscale
+        w_i8, scale = quantize_weights_w4_i8(kernel, _field(wq, "grid"),
+                                             _field(wq, "alpha"), axis=axis)
+    e["w_i8"], e[key] = w_i8.t().contiguous(), scale
     return e
 
 
@@ -339,6 +350,10 @@ def build_engine_params(cfg: EngineConfig, params: Dict,
     fake-quantizes with them (``a_out``) and, when each layer's concat
     grid has an exact sign-offset unit, carries K4's tables.
 
+    GPT-2's Conv1D sites (``conv1d_sites``) are quantized per input
+    channel under "w4" and keep ``kscale`` (L, K) in place of ``oscale``
+    (``weight_entry``); their activation leaves are built as at any site.
+
     "w4pack" packs every site (``packed_weight_entry``; ``packed`` in the
     port's (L, N, K/2) layout) and marks a site ``affine4`` when every
     layer's q16 is arange(16) - 8. It raises ``ValueError`` on weight
@@ -379,12 +394,11 @@ def build_engine_params(cfg: EngineConfig, params: Dict,
             for k in ("scale", "bias"):
                 lns[n][k].append(np.asarray(p[n][k], np.float32))
         for site in sites:
-            if site in conv1d and not dense:
-                if packed:
-                    raise ValueError(
-                        "w4pack assumes per-output-channel scales; GPT-2 "
-                        "Conv1D sites are per-input-channel")
-                raise _not_ported("Conv1D (per-input-channel) sites", "5")
+            if site in conv1d and packed:
+                raise ValueError(
+                    "w4pack assumes per-output-channel scales; GPT-2 "
+                    "Conv1D sites are per-input-channel and serve under "
+                    "weight_mode='w4'")
             if packed and site_ovp[site]:
                 raise ValueError(
                     "w4pack cannot represent OliVe outlier grids (abfloat "
@@ -403,7 +417,7 @@ def build_engine_params(cfg: EngineConfig, params: Dict,
                 e.update(packed_weight_entry(kernel, qn["weight_q"]))
             else:
                 e.update(weight_entry(kernel, qn["weight_q"],
-                                      site_ovp[site]))
+                                      site_ovp[site], site in conv1d))
             if cfg.act_bits and qn is not None:
                 e.update(act_entry(cfg, qn["input_q"], site_act_ovp[site],
                                    dev))
@@ -504,7 +518,7 @@ def _prepare_stacked(cfg: EngineConfig, ep: Dict,
     for name, s in ep["layers"].items():
         if name not in ALL_SITES:
             continue
-        if "aovp_enc" in s:
+        if "aovp_enc" in s and "oscale" in s:
             if prefill:
                 continue
             # full OliVe: OVP activations (and maybe OVP weights) -> K4
@@ -515,7 +529,7 @@ def _prepare_stacked(cfg: EngineConfig, ep: Dict,
                 "prescale": prescale, "mids": s["aovp_mids"],
                 "ties": s["aovp_ties"], "enc": s["aovp_enc"]}
             continue
-        if "a_q" not in s:
+        if "a_q" not in s or "oscale" not in s:
             if prefill:
                 continue
             return None
@@ -562,6 +576,14 @@ def _site_matmul_nobias(cfg: EngineConfig, ep: Dict, name: str,
                                    site["grid"][l], site["k8_terms"][l],
                                    site["k8_unit"][l])
     w = site["w_i8"][l]
+    if "kscale" in site:
+        # a GPT-2 Conv1D site: its per-input-channel scale runs along K,
+        # so the reference serves it as the fake-quant (never the int8
+        # snap) and an f32 product against the dequantized f32 weight,
+        # whatever cfg.dtype is; int8 x f32 promotes in one pass
+        wv = ovp_decode_values(w) if "ovp" in site else w
+        return f32_product(_fake_quant(x2d, site, l),
+                           wv * site["kscale"][l][None, :])
     if "a_q" in site:
         a_scale = site["a_scale"][l]
         xq = snap_value(x2d.to(torch.float32) / a_scale,
@@ -622,12 +644,13 @@ def attention_route(c: LMConfig, T: int, S: int,
     (``kv_int8=False``) always takes "einsum". On the INT8 cache: "K2"
     while one head's tile (k + v codes, q and out, the scores) leaves room
     in the reference's 6 MiB budget for min(T, 8) queries; past that "K7"
-    for up to 16 queries on a cache the reference keeps flat (head_dim >=
-    128), else "einsum", the dequantizing fallback. At head_dim 128 K2
-    stops at S = 12,191 (a long ALiBi context: learned positions end at
-    2,050). Where the reference cuts a prefill into query chunks of K2,
-    the port launches K2 once: the chunks are exact, so the results are
-    the same."""
+    for up to 16 queries on a cache the reference keeps flat (head_dim
+    128 and 80; it folds 64 into rows of 128 lanes), else "einsum", the
+    dequantizing fallback. At head_dim 128 K2 stops at S = 12,191 (a long
+    ALiBi context: learned positions end at 2,050; GPT-2's at 1,024, where
+    head_dim 64 stays on K2). Where the reference cuts a prefill into
+    query chunks of K2, the port launches K2 once: the chunks are exact,
+    so the results are the same."""
     if not kv_int8:
         return "einsum"
     f = _kv_fold(c.head_dim)

@@ -111,7 +111,25 @@ Phases, each printing one JSON line (numbers unrounded):
 23. bf16_baseline: ``weight_mode="bf16", act_bits=0, kv_int8=False`` and
    the plain head, the baseline of bench.py, OPT-6.7B 32 layers, served
    as in 5 (no kernel of the port launches), with its stream floor, a
-   decode step held as in 22 and a profile.
+   decode step held as in 22 and a profile;
+24. gpt2_main: GPT-2 XL at full width and depth (48 layers, d_model 1600,
+   25 heads of 64, d_ff 6400, vocab 50,257, every site Conv1D, quantized
+   per input channel on the card into ``kscale``), ANT W4A4 + INT8 KV +
+   int8 head, served as in 5: the reference's all-or-nothing rule sends
+   every decode site to the Conv1D route (the fake-quant and an f32
+   product against the dequantized f32 weight), so K1 launches 0 times
+   and K2 48 per forward at head_dim 64; its two stream floors; K2 times
+   at head_dim 64 on its cache and the Conv1D route's times per layer at
+   M 4 and 2048 (the route, its dequantization and its f32 product alone);
+   a profile;
+25. gpt2_olive: the same geometry at GPT2_OLIVE_LAYERS (12) layers under
+   full OliVe (OVP weights paired along the output axis, OVP activations
+   at alpha about 2.5 times each input's RMS), served as in 5, then its
+   OVP shares, which must be above 0, and a profile;
+26. in situ, GPT-2: GPT-2 XL width at 2 layers, every K2 call checked
+   against its plain version on the engine's activations and cache, and
+   the greedy tokens of a run on K2's plain version reported;
+27. K7 times at head_dim 80: one BLOOM-3b decode layer at S 16,384.
 
 The kernel checks (4) include K3 and K4 against their plain versions,
 bit for bit, at M 1, 2, 3, 4, 5, 16, 64 and 200 on K1's five (K, N), K4
@@ -128,7 +146,12 @@ case; the OVP mode also at block_k 64, 128, 256 and 4096; each call the
 snap pre-kernel and one product kernel) bit for bit,
 K8 (M 4 and 2048, bf16 and f32 x, flint, int and unsigned float grids) within K8_RTOL of each
 output's sum of term magnitudes; K7 (S 2048 and 16,384,
-T 1, 4 and 16, ragged pos0, ALiBi on and off) within K2's tolerance; K9
+T 1, 4 and 16, ragged pos0, ALiBi on and off) within K2's tolerance; K2
+and K7 at head_dim 64 (GPT-2 XL: H 25, K2 at S 608) and 80 (BLOOM-3b: H
+32, K2 at S 2048 with ALiBi), K2 at T 1, 4, 16, 17 and 512, K7 at S
+16,384, T 1, 4 and 16, within K2's tolerance, each call one launch and
+one launch's device kernels (the split pass and its combine, or the
+prefill kernel); K9
 (fc_in and fc_out, M 1, 4, 64, 65, 257, 300 and 2048; K 4160 by N 4104
 at M 65 and 300; exact midpoint ties after the multiply by 1 / a_scale)
 bit for bit; and the library product of the plain bf16 products
@@ -1286,10 +1309,7 @@ def k2_bound(B, H, T, D, S, pos0, q_bytes=4, out_bytes=2):
 def phase_times(torch, engine):
     """Kernel, plain and library times at the main path's decode shapes,
     on the engine's own 32-layer stacks and cache."""
-    import torch.nn.functional as F
-    from ant_quantization_tpu_torch.kernels import attention as k2
     from ant_quantization_tpu_torch.kernels import stacked as k1
-    from ant_quantization_tpu_torch.kernels.kv_cache import dequant_kv
     from ant_quantization_tpu_torch.ops.snap import snap_value
     ep, kv = engine.engine_params(), engine.cache()
     L = engine.cfg.lm.n_layers
@@ -1317,15 +1337,29 @@ def phase_times(torch, engine):
         sites.append({"site": name, "M": M, "K": K, "N": N, "ms": t_k,
                       "plain_ms": t_p, "library_ms": t_l, "bound_ms": bound,
                       "bytes": byts, "ops": ops})
-    B, H, D = BATCH, engine.cfg.lm.n_heads, engine.cfg.lm.head_dim
-    S = kv.k.shape[3]
-    k2_rows = []
+    k2_rows = k2_time_rows(torch, kv, L, gen)
+    emit({"phase": "kernel_times", "graphed": True, "K1_sites": sites,
+          "K2": k2_rows})
+    return sites, k2_rows
+
+
+def k2_time_rows(torch, kv, L: int, gen) -> list:
+    """K2 per launch on an engine's own L-layer cache (B, H, S, D from its
+    shape; no ALiBi), layers rotated: decode (T = 1 at position PREFILL +
+    DECODE - 1) and prefill (T = PREFILL at 0), q in bf16 as the engine
+    passes it, beside its plain version, ``k2_bound`` and SDPA on the
+    layer's dequantized bf16 cache (causal at prefill)."""
+    import torch.nn.functional as F
+    from ant_quantization_tpu_torch.kernels import attention as k2
+    from ant_quantization_tpu_torch.kernels.kv_cache import dequant_kv
+    _, B, H, S, D = kv.k.shape
+    rows = []
     for T, p in ((1, PREFILL + DECODE - 1), (PREFILL, 0)):
         pos0 = torch.full((B,), p, dtype=torch.int32, device="cuda")
         # q in bf16, as the engine passes it
         q = torch.randn((B, H, T, D), device="cuda", generator=gen).to(
             torch.bfloat16)
-        n_l = L if T == 1 else 4
+        n_l = L if T == 1 else min(4, L)
         iters = 2 * n_l
         t_k = cuda_ms(torch, lambda i: k2.stacked_int8_kv_attention(
             i % n_l, q, kv.k, kv.v, kv.k_scale, kv.v_scale, pos0), iters)
@@ -1336,21 +1370,15 @@ def phase_times(torch, engine):
             kl, vl = dequant_kv(type(kv)(*(a[l] for a in kv)), torch.bfloat16)
             kd.append(kl[:, :, :p + T])
             vd.append(vl[:, :, :p + T])
-        if T == 1:
-            t_l = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
-                q, kd[i % n_l], vd[i % n_l]), iters)
-        else:
-            t_l = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
-                q, kd[i % n_l], vd[i % n_l], is_causal=True), iters)
+        t_l = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
+            q, kd[i % n_l], vd[i % n_l], is_causal=T > 1), iters)
         del kd, vd
         byts, ops, bound, by = k2_bound(B, H, T, D, S, [p] * B, q_bytes=2)
-        k2_rows.append({"T": T, "pos0": p, "B": B, "H": H, "S": S,
-                        "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
-                        "bound_ms": bound, "bound_by": by, "bytes": byts,
-                        "ops": ops})
-    emit({"phase": "kernel_times", "graphed": True, "K1_sites": sites,
-          "K2": k2_rows})
-    return sites, k2_rows
+        rows.append({"T": T, "pos0": p, "B": B, "H": H, "S": S, "D": D,
+                     "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                     "bound_ms": bound, "bound_by": by, "bytes": byts,
+                     "ops": ops})
+    return rows
 
 
 def ovp_bound(M, K, N, dots: int, table_bytes: int):
@@ -2306,18 +2334,28 @@ def phase_times_k7(torch, engine):
     written position: beside its byte bound, its plain version, and SDPA
     on the layer's dequantized bf16 cache with the ALiBi bias as its mask
     (the same function)."""
+    from ant_quantization_tpu_torch.models.transformer_lm import alibi_slopes
+    kv = engine.cache()
+    slopes = torch.tensor(alibi_slopes(kv.k.shape[2]), dtype=torch.float32,
+                          device="cuda")
+    row = k7_time_row(torch, kv, int(engine.pos) - 1, slopes)
+    emit({"phase": "kernel_times_k7", "graphed": True,
+          "library_note": "SDPA on the layer's dequantized bf16 cache, the "
+                          "ALiBi bias as attn_mask", "K7": row})
+    return row
+
+
+def k7_time_row(torch, kv, p: int, slopes) -> dict:
+    """K7 at T = 1 and pos0 ``p`` on the layers of a stacked cache ``kv``
+    (L, B, H, S, D), rotated, beside ``k2_bound``, its plain version and
+    SDPA on the dequantized bf16 cache with the ALiBi bias as its mask."""
     import torch.nn.functional as F
     from ant_quantization_tpu_torch.kernels import attention as k2
     from ant_quantization_tpu_torch.kernels.kv_cache import dequant_kv
-    from ant_quantization_tpu_torch.models.transformer_lm import alibi_slopes
-    kv = engine.cache()
     L, B, H, S, D = kv.k.shape
-    p = int(engine.pos) - 1
     gen = torch.Generator(device="cuda")
     gen.manual_seed(19)
     pos0 = torch.full((B,), p, dtype=torch.int32, device="cuda")
-    slopes = torch.tensor(alibi_slopes(H), dtype=torch.float32,
-                          device="cuda")
     q = torch.randn((B, H, 1, D), device="cuda", generator=gen)
     lay = lambda i: (kv.k[i % L], kv.v[i % L], kv.k_scale[i % L],
                      kv.v_scale[i % L])
@@ -2338,13 +2376,9 @@ def phase_times_k7(torch, engine):
         qb, kd[i % n_l], vd[i % n_l], attn_mask=bias), 2 * n_l)
     del kd, vd
     byts, ops, bound, by = k2_bound(B, H, 1, D, S, [p] * B)
-    row = {"T": 1, "pos0": p, "B": B, "H": H, "S": S, "ms": t_k,
-           "plain_ms": t_p, "library_ms": t_l, "bound_ms": bound,
-           "bound_by": by, "bytes": byts, "ops": ops}
-    emit({"phase": "kernel_times_k7", "graphed": True,
-          "library_note": "SDPA on the layer's dequantized bf16 cache, the "
-                          "ALiBi bias as attn_mask", "K7": row})
-    return row
+    return {"T": 1, "pos0": p, "B": B, "H": H, "S": S, "D": D, "ms": t_k,
+            "plain_ms": t_p, "library_ms": t_l, "bound_ms": bound,
+            "bound_by": by, "bytes": byts, "ops": ops}
 
 
 def phase_times_k9(torch, gen):
@@ -2892,6 +2926,430 @@ def phase_speculative(torch, gen, cfg, ep):
     return res
 
 
+# head_dims beside 128 that K2 and K7 serve, at their models' shapes:
+# (head_dim, heads, K2's cache length, ALiBi) for GPT-2 XL at the main
+# path's max_seq and BLOOM-3b at bloom_main's
+HEADDIM_CASES = ((64, 25, MAX_SEQ, False), (80, 32, BLOOM_MAX_SEQ, True))
+
+
+def phase_checks_headdim(torch, gen):
+    """K2 and K7 against their plain versions at head_dim 64 (GPT-2 XL: B
+    4, H 25, S 608) and 80 (BLOOM-3b: B 4, H 32, S 2048, ALiBi): K2 at T 1,
+    4 and 16 (positions split across blocks) and 17 and 512 (bf16 tensor
+    cores), pos0 0 and ragged with a last query at S - 1, bf16 q with bf16
+    output and f32 with f32; K7 on one layer at S 16,384, T 1, 4 and 16,
+    ragged pos0, ALiBi on and off. Within K2_TOL, each call one launch;
+    the profiler sees one launch's kernels per call (the split pass and
+    its combine up to 16 queries, one kernel above)."""
+    from ant_quantization_tpu_torch.kernels import attention as k2
+    from ant_quantization_tpu_torch.models.transformer_lm import alibi_slopes
+    errs = {"K2": {}, "K7": {}}
+    per_call, attempts = {}, {}
+    n_checks = 0
+
+    def check(kernel, D, fn, plain, counts, tag, **info):
+        nonlocal n_checks
+        before = counts["launches"]
+        got = fn()
+        if counts["launches"] != before + 1:
+            fail(f"{kernel} did not launch once at head_dim {D}: {info}")
+        want = plain()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = k2_close(torch, got, want, tag)
+        emit({"phase": "check", "kernel": kernel, "head_dim": D, **info,
+              "out": tag, "max_abs_err": err, "atol_rtol": K2_TOL[tag],
+              "pass": ok})
+        if not ok:
+            fail(f"{kernel} differs from its plain version at head_dim {D}: "
+                 f"{info} {tag} err {err}")
+        e = errs[kernel].setdefault(D, {"bf16": 0.0, "f32": 0.0})
+        e[tag] = max(e[tag], err)
+        n_checks += 1
+
+    def per_call_kernels(key, fn, want_n):
+        fn()
+        rows, attempts[key] = traced_kernels(torch, fn, want_n)
+        per_call[key] = [{"name": k[:80], "count": c} for _, k, c in rows]
+        if sum(c for _, _, c in rows) != want_n:
+            fail(f"{key} ran {rows} on the device, not {want_n} kernels")
+
+    B, L = BATCH, 2
+    dts = (("bf16", torch.bfloat16), ("f32", torch.float32))
+    for D, H, S, alibi in HEADDIM_CASES:
+        slopes = torch.tensor(alibi_slopes(H), dtype=torch.float32,
+                              device="cuda")
+        sl = slopes if alibi else None
+        k, v = (torch.randint(-127, 128, (L, B, H, S, D), dtype=torch.int8,
+                              device="cuda", generator=gen)
+                for _ in range(2))
+        ks, vs = (torch.rand((L, B, H, S), device="cuda", generator=gen)
+                  * 0.02 for _ in range(2))
+        for T in (1, 4, 16, 17, 512):
+            q32 = torch.randn((B, H, T, D), device="cuda", generator=gen)
+            for p0 in ([0] * B, [0, 17, S // 2 if T < 256 else 50, S - T]):
+                pos0 = torch.tensor(p0, dtype=torch.int32, device="cuda")
+                for tag, dt in dts:
+                    args = (1, q32.to(dt), k, v, ks, vs, pos0, sl)
+                    check("K2", D,
+                          lambda: k2.stacked_int8_kv_attention(
+                              *args, out_dtype=dt),
+                          lambda: k2.stacked_int8_kv_attention_plain(
+                              *args, out_dtype=dt),
+                          k2.COUNTS, tag, H=H, S=S, T=T, pos0=p0,
+                          alibi=alibi)
+            args = (1, q32.to(torch.bfloat16), k, v, ks, vs, pos0, sl)
+            per_call_kernels(f"K2 D={D} T={T}",
+                             lambda: k2.stacked_int8_kv_attention(*args),
+                             2 if T <= k2.K7_MAX_T else 1)
+        del k, v, ks, vs
+        S = BLOOM_LONG_SEQ
+        k, v = (torch.randint(-127, 128, (B, H, S, D), dtype=torch.int8,
+                              device="cuda", generator=gen)
+                for _ in range(2))
+        ks, vs = (torch.rand((B, H, S), device="cuda", generator=gen) * 0.02
+                  for _ in range(2))
+        p0 = [0, 77, S // 2 + 5, S - 16][:B]
+        pos0 = torch.tensor(p0, dtype=torch.int32, device="cuda")
+        for T in (1, 4, 16):
+            q32 = torch.randn((B, H, T, D), device="cuda", generator=gen)
+            for sl in (None, slopes):
+                for tag, dt in dts:
+                    args = (q32.to(dt), k, v, ks, vs, pos0, sl)
+                    check("K7", D,
+                          lambda: k2.int8_kv_attention(*args, out_dtype=dt),
+                          lambda: k2.int8_kv_attention_plain(
+                              *args, out_dtype=dt),
+                          k2.K7_COUNTS, tag, H=H, S=S, T=T, pos0=p0,
+                          alibi=sl is not None)
+        args = (q32[:, :, :1].to(torch.bfloat16), k, v, ks, vs, pos0, slopes)
+        per_call_kernels(f"K7 D={D} T=1",
+                         lambda: k2.int8_kv_attention(*args), 2)
+        del k, v, ks, vs
+    emit({"phase": "checks_headdim", "checks": n_checks,
+          "kernels_per_call": per_call, "profiler_attempts": attempts})
+    return errs
+
+
+# GPT-2 XL (models/transformer_lm.py:gpt2_config("xl"): 48 layers, d_model
+# 1600, 25 heads of 64, d_ff 6400, vocab 50,257, fused qkv, learned
+# positions, gelu_new, every site Conv1D) under "w4" at the main path's
+# batch, prompt, steps and max_seq
+GPT2_MODEL = "GPT-2 XL"
+# gpt2_olive's depth: its decode takes about 0.8 s per step at 48 layers
+# (the concat snap as some 30,000 small torch kernels per step, host-bound),
+# which took the whole script past 600 s; its width and every phase of it
+# stay
+GPT2_OLIVE_LAYERS = 12
+
+
+def gpt2_engine_config(n_layers: int, dtype):
+    import dataclasses
+    from ant_quantization_tpu_torch.models.transformer_lm import gpt2_config
+    from ant_quantization_tpu_torch.serve.engine import EngineConfig
+    lm = dataclasses.replace(gpt2_config("xl"), n_layers=n_layers,
+                             max_seq=MAX_SEQ)
+    return EngineConfig(lm=lm, weight_mode="w4", act_bits=4, kv_int8=True,
+                        lm_head_int8=True, max_seq=MAX_SEQ, dtype=dtype)
+
+
+def gpt2_engine_params(torch, cfg, seed: int, olive: bool):
+    """GPT-2 engine params built on the card from a seeded generator, one
+    site-layer at a time, through the functions that
+    ``build_engine_params`` runs for each Conv1D site-layer (weight_entry
+    with ``conv1d``, act_entry, stack_entries): normal weights with std
+    1/sqrt(K), quantized per INPUT channel at alpha = 2.5 times each input
+    row's std, kept as ``kscale`` (K,). ANT (``olive`` False): the signed
+    flint weight grid; signed flint A4 inputs at alpha 3. Full OliVe: OliVe
+    int grids at qkv and flint elsewhere with their outliers, OVP pairs
+    along the output axis; OVP activations (``olive_act_state``, signed:
+    gelu_new's output is) at OLIVE_A_ALPHA."""
+    import numpy as np
+    from ant_quantization_tpu_torch.numerics import codebooks as cb
+    from ant_quantization_tpu_torch.serve import engine as eng
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    c = cfg.lm
+    dev = torch.device("cuda")
+    layers = {}
+    for name, (K, N) in engine_layer_shapes(c).items():
+        if olive:
+            mode = "int" if name == "qkv" else "flint"
+            wq = {"grid": _pad16(cb.olive_grid(mode, 4, True)),
+                  "outliers": _pad16(cb.olive_outlier_values(4, True))}
+            aq = olive_act_state(True, OLIVE_A_ALPHA.get(name, 2.5))
+        else:
+            wq = {"grid": cb.ant_grid("flint", 4, True)}
+            aq = {"grid": cb.ant_grid("flint", 4, True),
+                  "alpha": np.float32(3.0)}
+        es = []
+        for _ in range(c.n_layers):
+            w = torch.randn((K, N), device=dev, generator=gen) / float(
+                np.sqrt(K))
+            wq["alpha"] = (2.5 * w.std(dim=1)).cpu().numpy()      # (K,)
+            e = {"bias": torch.zeros((N,), device=dev)}
+            e.update(eng.weight_entry(w, wq, ovp=olive, conv1d=True))
+            e.update(eng.act_entry(cfg, aq, ovp=olive, device=dev))
+            es.append(e)
+            del w
+        layers[name] = eng.stack_entries(name, es)
+        del es
+    rest = random_engine_params(torch, cfg, seed, sites=False)
+    layers.update(rest["layers"])
+    return {"layers": layers, "top": rest["top"]}
+
+
+def gpt2_stream_floor(cfg) -> dict:
+    """GPT-2 XL's decode stream floor in two forms, over 3.35 TB/s: the
+    reference's route (the int8 codes read, the f32 dequantized weight
+    written and read again at every Conv1D site, the INT8 KV at S =
+    MAX_SEQ with its scales, the int8 head) and what a fused route would
+    read (the codes, the KV, the head)."""
+    c = cfg.lm
+    w = c.n_layers * sum(K * N for K, N in engine_layer_shapes(c).values())
+    kv = 2 * c.n_layers * BATCH * c.n_heads * MAX_SEQ * (c.head_dim + 4)
+    head = c.vocab_size * (c.d_model + 4)
+    ref = w + 2 * 4 * w + kv + head
+    fused = w + kv + head
+    return {"weight_codes_bytes": w, "f32_weight_bytes": 4 * w,
+            "kv_bytes": kv, "head_bytes": head,
+            "reference_route_bytes": ref,
+            "reference_route_ms": ref / HBM_BPS * 1e3,
+            "fused_route_bytes": fused,
+            "fused_route_ms": fused / HBM_BPS * 1e3}
+
+
+def phase_gpt2_main(torch, gen, n_layers: int = 48):
+    """GPT-2 XL at full width and depth under ANT W4A4 (every site Conv1D,
+    per-input-channel ``kscale``), INT8 KV and the int8 head: served as in
+    5. Decode follows the reference's all-or-nothing rule, so no stacked
+    product kernel runs (K1 0); every site takes the fake-quant and an f32
+    product against its dequantized weight; attention runs K2 at head_dim
+    64 (48 launches per forward)."""
+    from ant_quantization_tpu_torch.serve.engine import Engine, attention_route
+    cfg = gpt2_engine_config(n_layers, torch.bfloat16)
+    c = cfg.lm
+    routes = {T: attention_route(c, T, cfg.max_seq) for T in (1, PREFILL)}
+    if set(routes.values()) != {"K2"} or c.head_dim != 64:
+        fail(f"gpt2_main: attention routes {routes} at head_dim "
+             f"{c.head_dim}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ep = gpt2_engine_params(torch, cfg, seed=11, olive=False)
+    engine = Engine(cfg, ep, BATCH)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ids = torch.randint(0, c.vocab_size, (BATCH, PREFILL), device="cuda",
+                        generator=gen)
+    want = {"K2": c.n_layers * (1 + DECODE)}
+    res = serve_path(torch, engine, ids, "gpt2_main", want,
+                     {"param_build_s": build_s, "head_dim": c.head_dim,
+                      "conv1d_sites": "all",
+                      "stream_floor": gpt2_stream_floor(cfg)},
+                     model=GPT2_MODEL)
+    return engine, res["launches"], ids
+
+
+def gpt2_ovp_shares(torch, engine, tok, steps: int = 8) -> dict:
+    """The share of OVP outliers and victims of a full-OliVe GPT-2 engine:
+    in each site's weight bytes (|byte| > 64; the victims are the zeroed
+    partners along the OUTPUT axis, axis 0 of the port's (N, K) stack),
+    and in the activations that the Conv1D route's fake-quant snaps over
+    ``steps`` further decode steps (snapped values beyond 32, and their
+    zeroed partners along the feature axis), with their RMS."""
+    from ant_quantization_tpu_torch.ops.ovp import victim_mask
+    from ant_quantization_tpu_torch.ops.snap import snap_concat
+    from ant_quantization_tpu_torch.serve import engine as eng
+    ep = engine.engine_params()
+    out = {"weights": {}}
+    for name in engine_layer_shapes(engine.cfg.lm):
+        w = ep["layers"][name]["w_i8"]
+        m = w.abs() > 64
+        v = victim_mask(m, pair_axis=1)
+        n = w.numel()
+        out["weights"][name] = {
+            "outliers": torch.count_nonzero(m & ~v).item() / n,
+            "victims": torch.count_nonzero(v).item() / n, "values": n}
+        del m, v
+    tally = [0, 0, 0, 0.0]
+    fq = eng.quantize_activation_ovp
+
+    def fq_watch(x, grid16, out16, alpha):
+        scale = (alpha / grid16.max()).to(torch.float32)
+        full = torch.cat([grid16.float(), out16.float()])
+        q, _ = snap_concat(x.float() / scale, full)
+        m = q.abs() > 32
+        v = victim_mask(m, pair_axis=-1)
+        tally[0] += int((m & ~v).sum())
+        tally[1] += int(v.sum())
+        tally[2] += q.numel()
+        tally[3] += x.float().pow(2).sum().item()
+        return fq(x, grid16, out16, alpha)
+
+    with mock.patch.object(eng, "quantize_activation_ovp", fq_watch):
+        for _ in range(steps):
+            tok = engine.decode(tok)[:, -1].argmax(-1, keepdim=True)
+    reset_counts()
+    o, v, n, sq = tally
+    out["decode_activations_total"] = {"outliers": o / n, "victims": v / n,
+                                       "values": n, "rms": (sq / n) ** 0.5}
+    d = out["weights"]
+    n = sum(x["values"] for x in d.values())
+    out["weights_total"] = {k: sum(x[k] * x["values"] for x in d.values())
+                            / n for k in ("outliers", "victims")}
+    return out
+
+
+def phase_gpt2_olive(torch, gen, n_layers: int = GPT2_OLIVE_LAYERS):
+    """GPT-2 XL under full OliVe W4A4 (OVP weights paired along out at
+    every Conv1D site, OVP activations), INT8 KV and the int8 head, served
+    as in 5 (K2 only; no stacked kernel at a Conv1D site); then the
+    observed OVP shares, which must be above 0."""
+    from ant_quantization_tpu_torch.serve.engine import Engine
+    cfg = gpt2_engine_config(n_layers, torch.bfloat16)
+    c = cfg.lm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = Engine(cfg, gpt2_engine_params(torch, cfg, seed=12, olive=True),
+                    BATCH)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ids = torch.randint(0, c.vocab_size, (BATCH, PREFILL), device="cuda",
+                        generator=gen)
+    want = {"K2": c.n_layers * (1 + DECODE)}
+    res = serve_path(torch, engine, ids, "gpt2_olive", want,
+                     {"param_build_s": build_s,
+                      "act_alpha": {n: OLIVE_A_ALPHA.get(n, 2.5)
+                                    for n in engine_layer_shapes(c)}},
+                     model=GPT2_MODEL)
+    shares = gpt2_ovp_shares(torch, engine, ids[:, :1])
+    emit({"phase": "gpt2_olive_ovp_shares", **shares})
+    if not (shares["weights_total"]["outliers"] > 0
+            and shares["weights_total"]["victims"] > 0
+            and shares["decode_activations_total"]["outliers"] > 0
+            and shares["decode_activations_total"]["victims"] > 0):
+        fail(f"the GPT-2 OliVe path saw no outliers or victims: {shares}")
+    return engine, res["launches"], ids
+
+
+def phase_times_gpt2(torch, engine):
+    """On the gpt2_main engine: K2 at head_dim 64 on its own 48-layer
+    cache (decode and prefill, ``k2_time_rows``); and the Conv1D site
+    route of one GPT-2 XL layer at M = 4 and 2048 on bf16 x, as the engine
+    passes it: the whole route (``_site_matmul_nobias``: fake-quant, the
+    dequantization, the f32 product), the dequantization alone (int8 x the
+    f32 ``kscale``, one f32 weight written) and the f32 product alone on
+    dequantized weights, layers rotated. Its bytes: the int8 codes read and
+    the f32 weight written and read again."""
+    from ant_quantization_tpu_torch.kernels.qmatmul import f32_product
+    from ant_quantization_tpu_torch.serve import engine as eng
+    ep, cfg = engine.engine_params(), engine.cfg
+    L = cfg.lm.n_layers
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    k2_rows = k2_time_rows(torch, engine.cache(), L, gen)
+    site_rows = []
+    for M in (BATCH, BATCH * PREFILL):
+        for name, (K, N) in engine_layer_shapes(cfg.lm).items():
+            s = ep["layers"][name]
+            x = torch.randn((M, K), device="cuda", generator=gen).to(
+                cfg.dtype)
+            n_l = L if M == BATCH else min(4, L)
+            iters = 2 * n_l
+            t_route = cuda_ms(torch, lambda i: eng._site_matmul_nobias(
+                cfg, ep, name, x, i % n_l, None), iters)
+            t_deq = cuda_ms(torch, lambda i: s["w_i8"][i % n_l]
+                            * s["kscale"][i % n_l][None, :], iters)
+            wv = [s["w_i8"][l] * s["kscale"][l][None, :]
+                  for l in range(min(4, L))]
+            t_mm = cuda_ms(torch, lambda i: f32_product(x, wv[i % len(wv)]),
+                           iters)
+            del wv
+            site_rows.append({
+                "site": name, "M": M, "K": K, "N": N, "route_ms": t_route,
+                "dequant_ms": t_deq, "f32_product_ms": t_mm,
+                "route_bytes": K * N * 9,
+                "fused_bytes": K * N + 4 * K + M * K * 2 + 4 * M * N,
+                "f32_product_bound_ms": 2 * M * K * N / F32_FLOPS * 1e3})
+    per_layer = {M: {k: sum(r[k] for r in site_rows if r["M"] == M)
+                     for k in ("route_ms", "dequant_ms", "f32_product_ms",
+                               "route_bytes", "fused_bytes",
+                               "f32_product_bound_ms")}
+                 for M in (BATCH, BATCH * PREFILL)}
+    emit({"phase": "kernel_times_gpt2", "graphed": True, "K2_head_dim_64":
+          k2_rows, "kscale_sites": site_rows, "kscale_per_layer": per_layer,
+          "library_note": "K2: SDPA on the layer's dequantized bf16 cache"})
+    return k2_rows, per_layer
+
+
+def phase_times_k7_bloom3b(torch, gen):
+    """K7 at head_dim 80: one BLOOM-3b decode layer (B 4, H 32, D 80) at S
+    = 16,384 with ALiBi, pos0 at the bloom_long path's last decode
+    position, on a random two-layer cache (``k7_time_row``)."""
+    from ant_quantization_tpu_torch.kernels.kv_cache import QuantKV
+    from ant_quantization_tpu_torch.models.transformer_lm import (
+        alibi_slopes, bloom_config)
+    c = bloom_config("3b")
+    shape = (2, BATCH, c.n_heads, BLOOM_LONG_SEQ)
+    kv = QuantKV(*(torch.randint(-127, 128, shape + (c.head_dim,),
+                                 dtype=torch.int8, device="cuda",
+                                 generator=gen) for _ in range(2)),
+                 *(torch.rand(shape, device="cuda", generator=gen) * 0.02
+                   for _ in range(2)))
+    slopes = torch.tensor(alibi_slopes(c.n_heads), dtype=torch.float32,
+                          device="cuda")
+    row = k7_time_row(torch, kv, BLOOM_LONG_PROMPT + DECODE - 1, slopes)
+    emit({"phase": "kernel_times_k7_bloom3b", "graphed": True,
+          "model": "BLOOM-3b", "K7": row})
+    del kv
+    return row
+
+
+def phase_insitu_gpt2(torch, gen):
+    """GPT-2 XL width at 2 layers (ANT, Conv1D sites), prefill + 8 greedy
+    steps: every K2 call checked against its plain version on the
+    engine's real activations and cache (K2_TOL), then a run on K2's plain
+    version, whose greedy tokens and logits are reported beside it (K2 is
+    not bit-exact, so a difference of its sums may move a quantized value
+    downstream, as ``phase_insitu`` explains)."""
+    from ant_quantization_tpu_torch.kernels import attention as k2
+    from ant_quantization_tpu_torch.kernels import stacked as k1
+    from ant_quantization_tpu_torch.serve import engine as eng
+    cfg = gpt2_engine_config(2, torch.bfloat16)
+    ep = gpt2_engine_params(torch, cfg, seed=13, olive=False)
+    ids = torch.randint(0, cfg.lm.vocab_size, (BATCH, PREFILL),
+                        device="cuda", generator=gen)
+    stats = {}
+    k2_checked = _checked(torch, stats, "K2", k2.stacked_int8_kv_attention,
+                          k2.stacked_int8_kv_attention_plain,
+                          lambda out, want, a: k2_close(torch, out, want,
+                                                        "bf16"))
+    reset_counts()
+    ta, la = _greedy(torch, eng, cfg, ep, ids, k1.stacked_quant_matmul,
+                     k2_checked)
+    counts = read_counts()
+    tb, lb = _greedy(torch, eng, cfg, ep, ids, k1.stacked_quant_matmul,
+                     k2.stacked_int8_kv_attention_plain)
+    reset_counts()
+    res = {"phase": "in_situ_gpt2", "model": GPT2_MODEL, "layers": 2,
+           "dtype": "bfloat16", "decode_steps": 8, "per_call": stats,
+           "k2_atol_rtol": K2_TOL["bf16"],
+           "launches": {k: v["launches"] for k, v in counts.items()},
+           "k2_plain_tokens_identical": torch.equal(ta, tb),
+           "k2_plain_logits_max_abs_err": (la - lb).abs().max().item(),
+           "logits_finite": bool(torch.isfinite(la).all())}
+    res["pass"] = (stats["K2"]["calls"] == 2 * 9
+                   and stats["K2"]["failed"] == 0
+                   and res["launches"]["K2"] == 2 * 9
+                   and res["launches"]["K1"] == 0 and res["logits_finite"])
+    emit(res)
+    if not res["pass"]:
+        fail(f"in-situ GPT-2 check: {res}")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -2920,6 +3378,7 @@ def main() -> int:
     k34_err = phase_checks_ovp(torch, gen)
     k568_err = phase_checks_w4pack(torch, gen)
     k7_err = phase_checks_k7(torch, gen)
+    hd_err = phase_checks_headdim(torch, gen)
     k9_err = phase_checks_k9(torch, gen)
     phase_checks_f32_out(torch, gen)
     engine, counts, ids = phase_main(torch, gen)
@@ -2968,6 +3427,17 @@ def main() -> int:
     k9_rows = phase_times_k9(torch, gen)
     insitu_bloom = phase_insitu_bloom(torch, gen)
     torch.cuda.empty_cache()
+    gpt2, gpt2_counts, gpt2_ids = phase_gpt2_main(torch, gen)
+    gpt2_k2_rows, kscale_per_layer = phase_times_gpt2(torch, gpt2)
+    phase_profile(torch, gpt2, gpt2_ids, path="GPT-2 XL")
+    del gpt2
+    torch.cuda.empty_cache()
+    gpt2o, gpt2o_counts, gpt2o_ids = phase_gpt2_olive(torch, gen)
+    phase_profile(torch, gpt2o, gpt2o_ids, path="GPT-2 XL OliVe")
+    del gpt2o
+    torch.cuda.empty_cache()
+    phase_insitu_gpt2(torch, gen)
+    k7_3b_row = phase_times_k7_bloom3b(torch, gen)
     ant_cfg = opt_engine_config(32, torch.bfloat16)
     ant_ep = random_engine_params(torch, ant_cfg, seed=0)
     sched = phase_scheduler(torch, gen, ant_cfg, ant_ep)
@@ -3018,7 +3488,17 @@ def main() -> int:
                                          "bound_by", "library_ms")},
          "library_note": "SDPA on the dequantized bf16 cache (causal at "
                          "prefill)",
-         "launches_serving_paths": {k: v["K2"] for k, v in new_paths.items()}},
+         "launches_serving_paths": {k: v["K2"] for k, v in new_paths.items()},
+         "launches_gpt2": {"gpt2_main": gpt2_counts["K2"]["launches"],
+                           "gpt2_olive": gpt2o_counts["K2"]["launches"]},
+         "head_dims": [128, 64, 80],
+         "max_abs_err_by_head_dim": {128: k2_err, **hd_err["K2"]},
+         "head_dim_64": {
+             "at": "GPT-2 XL: B=4 H=25 D=64, cache S=608 (gpt2_main's)",
+             **{("decode" if r["T"] == 1 else "prefill"): {
+                 k: r[k] for k in ("T", "pos0", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}
+                for r in gpt2_k2_rows}}},
     ]
     for tag, fname, src, line, launches in (
             ("K3", "stacked_quant_matmul ovp=True (K3)", "stacked_i8.cu",
@@ -3138,7 +3618,15 @@ def main() -> int:
         "bound_ms": k7_row["bound_ms"], "bound_by": k7_row["bound_by"],
         "library_ms": k7_row["library_ms"],
         "library_note": "SDPA on the dequantized bf16 cache, ALiBi as its "
-                        "mask"})
+                        "mask",
+        "head_dims": [128, 64, 80],
+        "max_abs_err_by_head_dim": {128: k7_err, **hd_err["K7"]},
+        "head_dim_80": {
+            "at": f"one BLOOM-3b decode layer: B={k7_3b_row['B']} "
+                  f"H={k7_3b_row['H']} T=1 D=80 at position "
+                  f"{k7_3b_row['pos0']}, cache S={k7_3b_row['S']}, ALiBi",
+            **{k: k7_3b_row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}}})
     k9_at = {f"{x['site']} M={x['M']}": x for x in k9_rows}
     k9_main = k9_at["fc_in M=4"]
     kernels.append({
@@ -3160,6 +3648,7 @@ def main() -> int:
         "library_note": "torch._int_mm (M padded to 32) on the snapped "
                         "codes: the product without the snap"})
     emit({"kernels": kernels, "card": smi, "hbm_copy_bytes_per_s": hbm,
+          "gpt2_kscale_route_per_layer": kscale_per_layer,
           "seconds": time.perf_counter() - t_start})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -173,34 +173,60 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
 
 def test_unported_features_raise():
     """The unquantized options (dense bf16 weights, "w4" without
-    activation quantization, the bf16 cache) build; tensor parallelism
-    (ROADMAP Queue 1 item 12) and GPT-2's Conv1D sites (item 5) still
-    raise."""
+    activation quantization, the bf16 cache) and GPT-2's Conv1D sites
+    (per-input-channel ``kscale``, ROADMAP Queue 1 item 5, from the port's
+    build_engine_params and from a reference tree) build and serve;
+    tensor parallelism (item 12) still raises, and so does a head_dim that
+    the attention kernels are not built for, on the card's path."""
     _, tcfg = _configs()
     params, quant = _model(seed=5)
+    for i in range(_GEOM["n_layers"]):
+        # a Conv1D site's weight state is per input channel: one alpha
+        w = params[f"h_{i}"]["fc_in"]["kernel"]
+        quant[f"h_{i}"]["fc_in"]["weight_q"] = _state(
+            np.float32(0.9 * np.abs(w).max()), cb.ant_grid("flint", 4, True))
+    conv = dataclasses.replace(tcfg, lm=dataclasses.replace(
+        tcfg.lm, conv1d_sites=("fc_in",)))
+    jcfg, _ = _configs()
+    jconv = dataclasses.replace(jcfg, lm=dataclasses.replace(
+        jcfg.lm, conv1d_sites=("fc_in",)))
+    jep = _np_tree(jeng.build_engine_params(jconv, params, quant))
+    assert "kscale" in jep["layers"]["fc_in"]
+    built = {"conv1d": teng.build_engine_params(conv, params, quant,
+                                                device="cpu"),
+             "conv1d_converted": convert.from_jax_engine_params(
+                 jep, device="cpu")}
     for change in (dict(weight_mode="bf16"), dict(act_bits=0),
-                   dict(kv_int8=False)):
-        cfg = dataclasses.replace(tcfg, **change)
-        teng._check_config(cfg)
-        ep = teng.build_engine_params(cfg, params, quant, device="cpu")
+                   dict(kv_int8=False), "conv1d", "conv1d_converted"):
+        if isinstance(change, str):
+            cfg, ep = conv, built[change]
+            site = ep["layers"]["fc_in"]
+            assert site["kscale"].shape == (2, 256)
+            assert "oscale" not in site
+        else:
+            cfg = dataclasses.replace(tcfg, **change)
+            teng._check_config(cfg)
+            ep = teng.build_engine_params(cfg, params, quant, device="cpu")
         kv = teng.init_cache(cfg, 1, device="cpu")
         logits, _ = teng.forward(cfg, ep, torch.zeros((1, 3),
                                                       dtype=torch.int64),
                                  kv, 0)
         assert logits.shape == (1, 3, 128), change
+        assert bool(torch.isfinite(logits).all()), change
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
         teng._check_config(dataclasses.replace(tcfg, tp_size=2))
-    # GPT-2's Conv1D (per-input-channel) sites: from the port's
-    # build_engine_params and from a reference tree that carries "kscale"
-    conv = dataclasses.replace(tcfg, lm=dataclasses.replace(
-        tcfg.lm, conv1d_sites=("fc_in",)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
-        teng.build_engine_params(conv, params, quant, device="cpu")
-    jcfg, _ = _configs()
-    jep = _np_tree(jeng.build_engine_params(jcfg, params, quant))
-    jep["layers"]["fc_in"]["kscale"] = jep["layers"]["fc_in"].pop("oscale")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
-        convert.from_jax_engine_params(jep, device="cpu")
+    # a head_dim the CUDA kernels are not built for: both wrappers' card
+    # paths raise before they build or launch anything
+    B, H, S, D = 1, 2, 64, 96
+    q = torch.zeros((B, H, 1, D))
+    kc = torch.zeros((1, B, H, S, D), dtype=torch.int8)
+    sc = torch.zeros((1, B, H, S))
+    pos0 = torch.zeros((B,), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
+        tk2._launch(0, q, kc, kc, sc, sc, pos0, None, torch.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
+        tk2._launch_split(q, kc[0], kc[0], sc[0], sc[0], pos0, None,
+                          torch.float32)
 
 
 def test_package_imports_no_jax():

@@ -160,5 +160,5 @@ def test_quantize_weights_ovp_i8_refuses():
     w = torch.zeros(4, 2)
     with pytest.raises(ValueError, match="no exact sign-offset OVP unit"):
         tq.quantize_weights_ovp_i8(w, g, o * np.float32(1.1), 1.0)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tq.quantize_weights_ovp_i8(w, g, o, 1.0, pair_axis=1, axis=0)
+    with pytest.raises(ValueError, match="axis must be 0 or 1"):
+        tq.quantize_weights_ovp_i8(w, g, o, 1.0, pair_axis=1, axis=2)
