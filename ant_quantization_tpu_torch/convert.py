@@ -1,5 +1,12 @@
-"""Carry engine state across from the JAX reference.
+"""Carry engine, model and quantizer state across from the JAX reference.
 
+``from_jax_quant`` takes the reference's quant collection (its
+``QuantState`` leaves fetched with ``np.asarray``) and returns the port's
+tree of :class:`~.calibrate.spec.QuantState` (same keys,
+``h_{i}/attn/{q,k,v,qkv,out}|{fc_in,fc_out}/{weight_q,input_q}``);
+``from_jax_lm_params`` takes the reference model's params tree and
+returns the port's ``TransformerLM`` state dict (the flax path joined by
+dots; every leaf keeps its layout, the kernels (in, out) as there).
 ``from_jax_engine_params`` takes the reference's engine-params tree (as
 its ``serve/engine.py:build_engine_params`` makes it, leaves fetched with
 ``np.asarray``) and returns the port's tensors and layouts;
@@ -33,17 +40,20 @@ Layouts that change:
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Sequence
 
 import numpy as np
 import torch
 
 from ._ext import resolve_device
+from .calibrate.spec import QuantState
 from .kernels.kv_cache import QuantKV
 from .models.transformer_lm import ALL_SITES
 from .serve.engine import k8_plan_leaves
 
-__all__ = ["from_jax_engine_params", "from_jax_kv"]
+__all__ = ["from_jax_engine_params", "from_jax_kv", "from_jax_quant",
+           "from_jax_lm_params"]
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
     a = np.asarray(a)
@@ -107,3 +117,35 @@ def from_jax_kv(kv: Sequence, head_dim: int, device=None) -> QuantKV:
     scales = lambda a: _tensor(
         np.swapaxes(a, -1, -2).reshape(L, B, H, S).astype(np.float32), dev)
     return QuantKV(codes(k), codes(v), scales(ks), scales(vs))
+
+
+def from_jax_quant(tree: Dict, device=None) -> Dict:
+    """The reference's quant collection (nested dicts whose leaves are its
+    QuantState with numpy fields) -> the port's tree of QuantState on
+    ``device`` (default "cuda"), same keys, same values and dtypes."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return QuantState(**{f.name: _tensor(getattr(node, f.name), dev)
+                             for f in dataclasses.fields(QuantState)})
+
+    return walk(tree)
+
+
+def from_jax_lm_params(params: Dict, device=None) -> Dict[str, torch.Tensor]:
+    """The reference model's params tree (numpy leaves) -> the port's
+    ``TransformerLM`` state dict on ``device`` (default "cuda")."""
+    dev = resolve_device(device)
+    out = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+            else:
+                out[".".join(path + (k,))] = _tensor(v, dev)
+
+    walk(params, ())
+    return out

@@ -81,10 +81,16 @@ def int8_matmul(a: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
     A library call (``torch._int_mm``), used outside any kernel: for the
     prefill-size matmuls and the int8 lm_head, as the reference leaves
     those dots to XLA. On CUDA ``_int_mm`` needs M > 16 and K, N multiples
-    of 8, so M is padded with zero rows, and on every device the last N %
-    8 output columns (GPT-2's vocabulary of 50,257 at the head) are an f64
-    product of the same codes, exact (each sum is below K 127^2 < 2^53)."""
-    M, N = a.shape[0], w_nk.shape[0]
+    of 8, so M is padded with zero rows and K with zero columns of both
+    operands (exact: a zero column adds nothing), and on every device the
+    last N % 8 output columns (GPT-2's vocabulary of 50,257 at the head)
+    are an f64 product of the same codes, exact (each sum is below
+    K 127^2 < 2^53)."""
+    M, N, K = a.shape[0], w_nk.shape[0], a.shape[1]
+    if a.is_cuda and K % 8:
+        pad = -K % 8
+        a = torch.cat([a, a.new_zeros((M, pad))], dim=1)
+        w_nk = torch.cat([w_nk, w_nk.new_zeros((N, pad))], dim=1)
     if a.is_cuda and (M <= 16 or M % 8):
         Mp = max(32, -(-M // 8) * 8)
         a = torch.cat([a, a.new_zeros((Mp - M, a.shape[1]))])

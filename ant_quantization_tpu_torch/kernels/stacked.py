@@ -54,13 +54,30 @@ same order and which the tests hold against the JAX reference and
 The port's weight stack is N-major, ``(L, N, K)`` int8, so that one output
 column's K weights are contiguous (``convert.py`` transposes the
 reference's ``(L, K, N)`` stacks).
+
+Any K is served, as the reference's kernels fit any K. Where a kernel
+needs a K quantum (K1 16, K5 64, K6 16 bytes of each packed half) or
+equal f32 segments of whole stages (K3, K4, K5's OVP mode: ``_fit(K,
+block_k)``-row blocks cut into sub-chunks of at most 256 rows, K4 one
+per block; the last sub-chunk of a block may be shorter), the operands
+are padded with zeros: x per call, the weight stack once per layout,
+cached beside the stack (``_padded``). A zero weight column adds nothing
+to an int32 sum, whatever x's pad snaps to, so the numbers are those of
+the unpadded product. OVP segments are padded each to one length in
+place (:func:`ovp_layout`), so every segment's int32 dot and the f32
+order of the blocks stay the reference's, and OVP pairs (2i, 2i + 1)
+stay whole (segments start at even offsets). The plain versions of K3
+and K4 take the same layout; presets (K a multiple of 64, blocks of 1024
+rows) need none.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import _ext
 from ..ops.ovp import victim_mask
@@ -146,7 +163,7 @@ def k34_plan(M: int, K: int, N: int, seg: int, fold: int, aovp: bool,
              w_ovp: bool = True) -> dict:
     """K3's (``aovp`` False) or K4's launch plan on K1's stream
     (``csrc/ovp_stream.cuh``), for segments of ``seg`` rows in f32 blocks
-    of ``fold`` segments (``_check_segments``; K4: one). A segment is
+    of ``fold`` segments (``ovp_layout``; K4: one). A segment is
     ``ss`` whole stages (``seg`` is a multiple of ``K1_STEP`` or all of
     K). The grid is :func:`_stream_grid`'s over ``K34_MT``, but K is split
     only between f32 blocks, ``units`` of them: every segment's int32 dots
@@ -252,18 +269,84 @@ def _blocked_sum(p: torch.Tensor, per_block: int) -> torch.Tensor:
     return acc
 
 
-def _check_segments(K: int, block_k: int, sub: int) -> tuple[int, int]:
-    """(segment rows, segments per block) the kernels take for K: the
-    reference's ``_fit(K, block_k)`` blocks, cut into ``sub``-row
-    segments. A segment must be 16-512 rows with seg/16 dividing 32, or a
-    multiple of 512."""
+def ovp_layout(K: int, block_k: int, sub: int
+               ) -> tuple[int, int, Optional[torch.Tensor]]:
+    """(seg, fold, dst) of K3 (``sub`` 256), K4 (``sub`` K) and K5's OVP
+    mode at K: the reference's f32 blocks of ``_fit(K, block_k)`` rows,
+    each cut into sub-chunks of ``min(block, sub)`` rows (the last one of
+    a block maybe shorter), as ``fold`` segments of ``seg`` rows per
+    block. ``dst`` is None where the kernels take the segments as they
+    are: all of one length, a multiple of 64, and a multiple of 512 or a
+    divisor of it, and whole 128-byte stages or all of K. Otherwise every
+    segment is padded to ``seg``, the smallest of 128, 256 and 512 (else a
+    multiple of 512) that holds the longest, and ``dst`` gives each
+    original row's padded position (K' = K / block x fold x seg)."""
     bk = _fit(K, block_k)
-    seg = min(bk, sub)
-    if bk % seg or seg % 16 or not (seg % 512 == 0 or 512 % seg == 0):
-        raise ValueError(f"K = {K} with block_k = {block_k} gives blocks "
-                         f"of {bk} rows, which the kernels cannot cut into "
-                         "equal segments")
-    return seg, bk // seg
+    step = min(bk, sub)
+    lens = [min(step, bk - s) for s in range(0, bk, step)]
+    seg, fold = lens[0], len(lens)
+    if (all(n == seg for n in lens) and seg % 64 == 0
+            and (seg % 512 == 0 or 512 % seg == 0)
+            and (seg % K1_STEP == 0 or seg == K)):
+        return seg, fold, None
+    top = max(lens)
+    seg = next((p for p in (128, 256, 512) if p >= top),
+               -(-top // 512) * 512)
+    dst = torch.cat([torch.arange(n) + (b * fold + i) * seg
+                     for b in range(K // bk) for i, n in enumerate(lens)])
+    return seg, fold, dst
+
+
+# padded weight stacks, by stack and layout; an entry lives as long as
+# its stack
+_PADDED: WeakIdKeyDictionary = WeakIdKeyDictionary()
+
+
+def _padded(w: torch.Tensor, key: tuple, make) -> torch.Tensor:
+    """``make()``'s padded copy of the stack ``w``, made once per layout
+    ``key``."""
+    cache = _PADDED.get(w)
+    if cache is None:
+        cache = _PADDED[w] = {}
+    if key not in cache:
+        cache[key] = make()
+    return cache[key]
+
+
+def _scatter_k(t: torch.Tensor, dst: torch.Tensor, k_pad: int,
+               fill: int = 0) -> torch.Tensor:
+    """t (..., K) -> (..., k_pad), column j at dst[j], the rest ``fill``."""
+    out = torch.full((*t.shape[:-1], k_pad), fill, dtype=t.dtype,
+                     device=t.device)
+    out[..., dst.to(t.device)] = t
+    return out
+
+
+def _ovp_operands(x: torch.Tensor, w: torch.Tensor, block_k: int,
+                  sub: int):
+    """(x, w, seg, fold) in K3's / K4's layout at w's K (``ovp_layout``):
+    the operands themselves where no padding is needed."""
+    K = w.shape[2]
+    seg, fold, dst = ovp_layout(K, block_k, sub)
+    if dst is None:
+        return x, w, seg, fold
+    k_pad = (K // _fit(K, block_k)) * fold * seg
+    wp = _padded(w, ("ovp", block_k, sub),
+                 lambda: _scatter_k(w, dst, k_pad))
+    return _scatter_k(x, dst, k_pad), wp, seg, fold
+
+
+def _end_padded(x: torch.Tensor, w: torch.Tensor, quantum: int):
+    """x and w zero-padded along K to a multiple of ``quantum`` (the int32
+    products of K1 and K5's int8 mode, whose order is free)."""
+    K = w.shape[2]
+    if K % quantum == 0:
+        return x, w
+    k_pad = -(-K // quantum) * quantum
+    dst = torch.arange(K)
+    return (_scatter_k(x, dst, k_pad),
+            _padded(w, ("end", quantum),
+                    lambda: _scatter_k(w, dst, k_pad)))
 
 
 def stacked_quant_matmul_plain(l: int, x: torch.Tensor, w: torch.Tensor,
@@ -280,8 +363,7 @@ def stacked_quant_matmul_plain(l: int, x: torch.Tensor, w: torch.Tensor,
                     a_q[l].to(torch.float32)).to(torch.int8)
     if not ovp:
         return int8_matmul(xq, w[l]).to(torch.float32) * scales[l]
-    K = w.shape[2]
-    seg, per_block = _check_segments(K, block_k, _SUB)
+    xq, w, seg, per_block = _ovp_operands(xq, w, block_k, _SUB)
     d1, d2 = _segment_dots(xq, (w[l], ovp_clip(w[l])), seg)
     p = (16 * d1 - 15 * d2).to(torch.float32)      # exact int32 values
     return _blocked_sum(p, per_block) * scales[l]
@@ -303,7 +385,9 @@ def _fn(lib, name: str, n_ptr: int, n_int: int):
     return fn
 
 
-def _launch(l, x, w, scales, a_q, a_scale, ovp, block_k):
+def _launch(l, x, w, scales, a_q, a_scale, ovp, seg_fold):
+    """K1, K3 (``ovp``: ``seg_fold`` its segments and f32 fold) or, above
+    ``PREFILL_M`` rows, K5, on operands already laid out for them."""
     L, N, K = w.shape
     M = x.shape[0]
     G = a_q.shape[1]
@@ -319,13 +403,13 @@ def _launch(l, x, w, scales, a_q, a_scale, ovp, block_k):
     if scales.shape != (L, N) or a_scale.shape != (L,) or a_q.shape[0] != L:
         raise ValueError("scales (L, N), a_q (L, G), a_scale (L,) expected")
     if M > PREFILL_M:
-        return _launch_prefill(l, x, w, scales, a_q, a_scale, ovp, block_k)
+        return _launch_prefill(l, x, w, scales, a_q, a_scale, ovp, seg_fold)
     if x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("x and w must be 16-byte aligned")
     lib = _ext.load(_SOURCE)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     if ovp:
-        seg, per_block = _check_segments(K, block_k, _SUB)
+        seg, per_block = seg_fold
         plan = k34_plan(M, K, N, seg, per_block, aovp=False)
         ws, count = _split_args(plan, plan["ws"], dev)
         fn = _fn(lib, "stacked_i8_ovp_matmul", 8, 10)
@@ -373,14 +457,14 @@ def k5_ovp_plan(M: int, K: int, N: int, seg: int, fold: int) -> dict:
             "regs": 2 * acc + acc + 2 * 2 * 4}
 
 
-def _launch_prefill(l, x, w, scales, a_q, a_scale, ovp, block_k):
+def _launch_prefill(l, x, w, scales, a_q, a_scale, ovp, seg_fold):
     """K5: the snap pre-kernel, then the int8 tensor-core product."""
     L, N, K = w.shape
     M = x.shape[0]
     dev = x.device
     if K % _K5_BK:
         raise ValueError(f"K = {K} must be a multiple of {_K5_BK} for K5")
-    seg, per_block = _check_segments(K, block_k, _SUB) if ovp else (K, 1)
+    seg, per_block = seg_fold if ovp else (K, 1)
     if ovp:
         k5_ovp_plan(M, K, N, seg, per_block)
     lib = _ext.load(_PREFILL_SOURCE)
@@ -439,8 +523,16 @@ def stacked_quant_matmul(l: int, x: torch.Tensor, w: torch.Tensor,
     if not 0 <= l < w.shape[0]:
         raise IndexError(f"layer {l} outside a stack of {w.shape[0]}")
     if x.is_cuda:
-        return _launch(l, x.to(torch.float32).contiguous(), w, scales, a_q,
-                       a_scale, ovp, block_k)
+        x = x.to(torch.float32)
+        seg_fold = None
+        if ovp:
+            x, w, seg, fold = _ovp_operands(x, w, block_k, _SUB)
+            seg_fold = (seg, fold)
+        else:
+            x, w = _end_padded(x, w, _K5_BK if x.shape[0] > PREFILL_M
+                               else 16)
+        return _launch(l, x.contiguous(), w, scales, a_q, a_scale, ovp,
+                       seg_fold)
     return stacked_quant_matmul_plain(l, x, w, scales, a_q, a_scale, ovp,
                                       block_k)
 
@@ -493,6 +585,35 @@ def _launch_p4(l, x, w, scales, a_q, a_scale, q16, affine):
     return out
 
 
+def _p4_padded(x: torch.Tensor, w: torch.Tensor, q16: torch.Tensor,
+               affine: bool):
+    """x (M, K) and packed w (L, N, K/2) with each half of K padded to a
+    multiple of 16: x's halves with zeros, w's bytes with each layer's
+    code of 0 in both nibbles (8 affine, else the index of 0 in q16[l])."""
+    h = w.shape[2]
+    if h % 16 == 0:
+        return x, w
+    h_pad = -(-h // 16) * 16
+
+    def make():
+        L = w.shape[0]
+        if affine:
+            zero = torch.full((L,), 8, dtype=torch.int64, device=w.device)
+        else:
+            is0 = q16 == 0
+            if not bool(is0.any(dim=1).all()):
+                raise ValueError("K6 pads K/2 to a multiple of 16 with the "
+                                 "code of 0, which a layer's q16 lacks")
+            zero = is0.to(torch.int64).argmax(dim=1)
+        byte = (zero | (zero << 4)).to(torch.uint8)
+        pad = byte[:, None, None].expand(L, w.shape[1], h_pad - h)
+        return torch.cat([w, pad], dim=2)
+
+    zx = x.new_zeros((x.shape[0], h_pad - h))
+    xp = torch.cat([x[:, :h], zx, x[:, h:], zx], dim=1)
+    return xp, _padded(w, ("p4", h_pad, affine), make)
+
+
 def stacked_quant_matmul_p4(l: int, x: torch.Tensor, w: torch.Tensor,
                             scales: torch.Tensor, a_q: torch.Tensor,
                             a_scale: torch.Tensor, q16: torch.Tensor,
@@ -513,8 +634,9 @@ def stacked_quant_matmul_p4(l: int, x: torch.Tensor, w: torch.Tensor,
     if not 0 <= l < w.shape[0]:
         raise IndexError(f"layer {l} outside a stack of {w.shape[0]}")
     if x.is_cuda:
-        return _launch_p4(l, x.to(torch.float32).contiguous(), w, scales,
-                          a_q, a_scale, q16, affine)
+        x, w = _p4_padded(x.to(torch.float32), w, q16, affine)
+        return _launch_p4(l, x.contiguous(), w, scales, a_q, a_scale, q16,
+                          affine)
     return stacked_quant_matmul_p4_plain(l, x, w, scales, a_q, a_scale, q16,
                                          affine)
 
@@ -548,8 +670,8 @@ def stacked_quant_matmul_aovp_plain(l: int, x: torch.Tensor,
                                     block_k: int = 1024) -> torch.Tensor:
     """Plain PyTorch version of :func:`stacked_quant_matmul_aovp`."""
     K4_COUNTS["plain_calls"] += 1
-    K = w.shape[2]
-    seg, _ = _check_segments(K, block_k, K)        # one segment per block
+    # one segment per f32 block
+    x, w, seg, _ = _ovp_operands(x, w, block_k, w.shape[2])
     cxf = aovp_encode(x.to(torch.float32) / prescale[l], mids[l], ties[l],
                       enc[l])
     cx = cxf.to(torch.int8)
@@ -567,8 +689,7 @@ def stacked_quant_matmul_aovp_plain(l: int, x: torch.Tensor,
     return _blocked_sum(part, 1) * scales[l]
 
 
-def _launch_aovp(l, x, w, scales, prescale, mids, ties, enc, w_ovp,
-                 block_k):
+def _launch_aovp(l, x, w, scales, prescale, mids, ties, enc, w_ovp, seg):
     L, N, K = w.shape
     M = x.shape[0]
     G1 = mids.shape[1]
@@ -592,7 +713,6 @@ def _launch_aovp(l, x, w, scales, prescale, mids, ties, enc, w_ovp,
         raise ValueError(f"K4 takes at most 32 table entries, got {G1 + 1}")
     if x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("x and w must be 16-byte aligned")
-    seg, _ = _check_segments(K, block_k, K)
     plan = k34_plan(M, K, N, seg, 1, aovp=True, w_ovp=w_ovp)
     ws, count = _split_args(plan, plan["ws"], dev)
     lib = _ext.load(_AOVP_SOURCE)
@@ -630,7 +750,9 @@ def stacked_quant_matmul_aovp(l: int, x: torch.Tensor, w: torch.Tensor,
     if not 0 <= l < w.shape[0]:
         raise IndexError(f"layer {l} outside a stack of {w.shape[0]}")
     if x.is_cuda:
-        return _launch_aovp(l, x.to(torch.float32).contiguous(), w, scales,
-                            prescale, mids, ties, enc, w_ovp, block_k)
+        x, w, seg, _ = _ovp_operands(x.to(torch.float32), w, block_k,
+                                     w.shape[2])
+        return _launch_aovp(l, x.contiguous(), w, scales, prescale, mids,
+                            ties, enc, w_ovp, seg)
     return stacked_quant_matmul_aovp_plain(l, x, w, scales, prescale, mids,
                                            ties, enc, w_ovp, block_k)

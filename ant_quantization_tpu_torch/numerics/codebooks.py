@@ -1,7 +1,8 @@
 """ANT and OliVe codebook (value-grid) construction, numpy only.
 
 A copy of the reference's ``numerics/codebooks.py``: the ANT half
-(``ant_grid`` and the value functions it calls) and the OliVe half
+(``ant_grid`` and the value functions it calls, ``ANT_MODES`` and
+``grid_size``, which the calibration search indexes) and the OliVe half
 (``olive_grid`` and its normal and outlier grids). Grids depend only on
 (bit, signed, mode), so they are built once on the host.
 
@@ -17,7 +18,14 @@ import numpy as np
 
 __all__ = ["ant_normalize", "int_values", "pot_values", "apot_values",
            "float_values", "flint_values", "ant_grid", "olive_int_values",
-           "olive_flint_values", "olive_outlier_values", "olive_grid"]
+           "olive_flint_values", "olive_outlier_values", "olive_grid",
+           "ANT_MODES", "grid_size"]
+
+# The candidate types of ANT's adaptive type search, in the order the
+# search tries them: the chosen type is a stable argmin of their scores,
+# so on a tie the earlier type wins.
+ANT_MODES = ("int", "flint", "pot", "float", "float1", "float2", "float3",
+             "float4", "apot")
 
 
 def _value_bits(bit: int, signed: bool) -> int:
@@ -239,3 +247,8 @@ def olive_grid(mode: str, bit: int, signed: bool) -> np.ndarray:
     if mode == "flint":
         return olive_flint_values(bit, signed)
     raise ValueError(f"unknown OliVe mode {mode!r}")
+
+
+def grid_size(bit: int) -> int:
+    """Size of a (padded) ANT grid."""
+    return 2 ** bit

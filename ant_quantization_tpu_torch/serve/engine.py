@@ -159,9 +159,21 @@ def _site_names(c: LMConfig) -> tuple:
 
 
 def _field(state, name: str) -> np.ndarray:
-    """A quantizer state's field, from a mapping or an object."""
+    """A quantizer state's field, from a mapping or an object, as numpy
+    (a tensor on any device is fetched: the fields are small)."""
     v = state[name] if isinstance(state, dict) else getattr(state, name)
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
     return np.asarray(v)
+
+
+def _f32(v, dev: torch.device) -> torch.Tensor:
+    """A float leaf of the params tree as an f32 tensor on ``dev``: a
+    tensor is moved (and stays where it is when it is there already),
+    numpy is copied over."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().to(device=dev, dtype=torch.float32)
+    return torch.tensor(np.asarray(v, np.float32), device=dev)
 
 
 def _const(like: torch.Tensor, value: float) -> torch.Tensor:
@@ -334,13 +346,17 @@ def build_engine_params(cfg: EngineConfig, params: Dict,
     """Per-layer float weights + calibrated quantizer states -> stacked
     engine params on ``device`` (default "cuda").
 
-    ``params`` mirrors the reference model's tree with numpy leaves
+    ``params`` mirrors the reference model's tree
     (``h_{i}/attn/{q,k,v,out}/{kernel,bias}``, or ``h_{i}/attn/qkv`` for
     a fused qkv, ``h_{i}/{fc_in,fc_out}``, ``h_{i}/{ln_1,ln_2}``,
     ``wte/embedding``, ``wpe/embedding`` for learned positions,
     ``embed_ln`` for BLOOM, ``ln_f``); ``quant`` holds, per site,
-    ``weight_q`` and ``input_q``
-    states with numpy ``grid``, ``alpha`` and ``outliers``. The result's
+    ``weight_q`` and ``input_q`` states with ``grid``, ``alpha`` and
+    ``outliers``. Leaves are numpy arrays or tensors on any device (the
+    port's ``TransformerLM`` gives ``models.transformer_lm.params_tree``,
+    its calibration the quant tree): weights on ``device`` stay there,
+    others are copied to it; the states' small leaves are read on the
+    host. The result's
     site leaves equal the reference's bit for bit (``w_i8`` transposed to
     the port's (L, N, K) layout, ``a_q`` as f32).
 
@@ -392,7 +408,7 @@ def build_engine_params(cfg: EngineConfig, params: Dict,
         q = None if quant is None else quant[f"h_{i}"]
         for n in lns:
             for k in ("scale", "bias"):
-                lns[n][k].append(np.asarray(p[n][k], np.float32))
+                lns[n][k].append(_f32(p[n][k], dev))
         for site in sites:
             if site in conv1d and packed:
                 raise ValueError(
@@ -406,11 +422,9 @@ def build_engine_params(cfg: EngineConfig, params: Dict,
                     "weight_mode='w4', whose OVP encoding serves them")
             node = _site_node(p, site)
             qn = None if q is None else _site_node(q, site)
-            kernel = torch.tensor(np.asarray(node["kernel"], np.float32),
-                                  device=dev)
-            bias = node.get("bias", np.zeros(kernel.shape[1], np.float32))
-            e = {"bias": torch.tensor(np.asarray(bias, np.float32),
-                                      device=dev)}
+            kernel = _f32(node["kernel"], dev)
+            e = {"bias": (_f32(node["bias"], dev) if "bias" in node else
+                          torch.zeros(kernel.shape[1], device=dev))}
             if dense:
                 e["kernel"] = kernel.t().contiguous().to(cfg.dtype)
             elif packed:
@@ -425,21 +439,18 @@ def build_engine_params(cfg: EngineConfig, params: Dict,
     out_layers = {site: stack_entries(site, es)
                   for site, es in entries.items()}
     for n, d in lns.items():
-        out_layers[n] = {k: torch.as_tensor(np.stack(v), device=dev)
-                         for k, v in d.items()}
-    wte = torch.tensor(np.asarray(params["wte"]["embedding"], np.float32),
-                       device=dev)
+        out_layers[n] = {k: torch.stack(v) for k, v in d.items()}
+    wte = _f32(params["wte"]["embedding"], dev)
+    # the engine owns its leaves: copies, never views of the model's
     top = quantize_lm_head(wte) if cfg.lm_head_int8 else {
-        "wte": wte.to(cfg.dtype)}
+        "wte": wte.to(cfg.dtype, copy=True)}
     for name in ("ln_f", "embed_ln"):
         if name in params:
-            top[name] = {k: torch.tensor(np.asarray(params[name][k],
-                                                    np.float32), device=dev)
+            top[name] = {k: _f32(params[name][k], dev).clone()
                          for k in ("scale", "bias")}
     if "wpe" in params:
-        top["wpe"] = torch.tensor(np.asarray(params["wpe"]["embedding"],
-                                             np.float32),
-                                  device=dev).to(cfg.dtype)
+        top["wpe"] = _f32(params["wpe"]["embedding"], dev).to(cfg.dtype,
+                                                               copy=True)
     return {"layers": out_layers, "top": top}
 
 

@@ -129,7 +129,23 @@ Phases, each printing one JSON line (numbers unrounded):
 26. in situ, GPT-2: GPT-2 XL width at 2 layers, every K2 call checked
    against its plain version on the engine's activations and cache, and
    the greedy tokens of a run on K2's plain version reported;
-27. K7 times at head_dim 80: one BLOOM-3b decode layer at S 16,384.
+27. K7 times at head_dim 80: one BLOOM-3b decode layer at S 16,384;
+28. calibrate_serve (run after the kernel checks): the port calibrates
+   its own states on the card and serves them. OPT-6.7B at full width
+   (2 layers under ANT "ant-int-pot-flint" W4A4, 1 under OliVe), weights
+   normal with std 1/sqrt(K) from a seeded generator;
+   ``calibrate_on_batches`` on one 4 x 128-token batch (seconds per
+   layer, the chosen types per site); the card's ``calibrate`` held
+   against the CPU's on layer 0's q and fc_in weights (their first
+   channels) and q's input; ``build_engine_params`` from the port's own
+   tree: an f32 engine without INT8 KV or int8 head, each of whose site
+   matmuls in a 4 x 512 prefill is held against the fake-quant model's
+   on the same input (``hold_sites``), its logits against the model's
+   reported by the bf16 engine rule; then the
+   main-path engine (bf16, INT8 KV, int8 head, max_seq 608), a 4 x 512
+   prefill and 16 greedy steps with decode on K1 (ANT) or K4 (OliVe) at
+   every site and K2, no plain version (launches counted); OliVe's OVP
+   shares of the calibrated weights and of decode activations.
 
 The kernel checks (4) include K3 and K4 against their plain versions,
 bit for bit, at M 1, 2, 3, 4, 5, 16, 64 and 200 on K1's five (K, N), K4
@@ -158,7 +174,12 @@ bit for bit; and the library product of the plain bf16 products
 (``f32_out_product``: the dense sites, W4A16, the plain head) against an
 f32 product on the same bf16 operands at OPT-6.7B's sites and head, M 4
 and 2048, within K8_RTOL of |x| @ |w|, a bound that the f32 result
-rounded to bf16 breaks.
+rounded to bf16 breaks. F5 (ROADMAP Queue 3): ``int8_matmul`` at (32, 12)
+x (8, 12) and K = 196, and K1, K3, K4, K5 and K6 at K = 196 by N = 4096,
+bit-equal to their plain versions (``phase_checks_f5``); and
+``outlier_thresholds`` at 67M elements bit-equal to the reference's f32
+arithmetic on the host and within 1e-5 of ``np.percentile``
+(``phase_checks_percentile``).
 
 Then the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -515,7 +536,7 @@ def phase_checks_ovp(torch, gen):
     kn0 = K1_CHECK_KN[0]                       # 4096 x 4096
     adv_kn = (kn0, K1_CHECK_KN[2])             # and 16384 x 4096
     for (K, N) in K1_CHECK_KN:
-        seg = ks._check_segments(K, 1024, ks._SUB)
+        seg = ks.ovp_layout(K, 1024, ks._SUB)[:2]
         for adv in (False, True) if (K, N) in adv_kn else (False,):
             x, w, sc, aq, asc, l = _k3_operands(
                 torch, max(K34_CHECK_M), K, N, 2, gen, adv)
@@ -555,8 +576,8 @@ def phase_checks_ovp(torch, gen):
                   l, xm, w, sc, aq, asc, ovp=True),
               lambda: ks.stacked_quant_matmul_plain(
                   l, xm, w, sc, aq, asc, ovp=True),
-              ks.k34_plan(M, *kn0, *ks._check_segments(kn0[0], 1024,
-                                                       ks._SUB),
+              ks.k34_plan(M, *kn0, *ks.ovp_layout(kn0[0], 1024,
+                                                       ks._SUB)[:2],
                           aovp=False),
               M=M, K=kn0[0], N=kn0[1], adversarial=False, a_scale=-0.25)
     del x, w
@@ -572,7 +593,7 @@ def phase_checks_ovp(torch, gen):
     k4_cases += [(*kn0, True, w_ovp, False, "engine", -0.25)
                  for w_ovp in (True, False)]
     for K, N, signed, w_ovp, adv, tables, prescale in k4_cases:
-        seg = ks._check_segments(K, 1024, K)
+        seg = ks.ovp_layout(K, 1024, K)[:2]
         x, w, sc, pre, mids, ties, enc, l = _k4_operands(
             torch, max(K34_CHECK_M), K, N, 2, gen, signed, w_ovp, adv,
             prescale)
@@ -738,8 +759,8 @@ def phase_checks_w4pack(torch, gen):
         info = {"M": M, "K": K, "N": N, "ovp": ovp, "adversarial": adv,
                 "block_k": bk}
         if ovp:
-            info["segment_rows"], info["fold"] = ks._check_segments(
-                K, bk, ks._SUB)
+            info["segment_rows"], info["fold"] = ks.ovp_layout(
+                K, bk, ks._SUB)[:2]
         got = launched(ks.K5_COUNTS, lambda: ks.stacked_quant_matmul(
             l, x, w, sc, aq, asc, ovp=ovp, block_k=bk), info)
         want = ks.stacked_quant_matmul_plain(l, x, w, sc, aq, asc, ovp=ovp,
@@ -1431,11 +1452,11 @@ def phase_times_ovp(torch, olive_engine, ovpw_engine):
         for kern, fn, plain, args, kw, dots, tb, seg in (
                 ("K4", ks.stacked_quant_matmul_aovp,
                  ks.stacked_quant_matmul_aovp_plain, a4, {"w_ovp": True}, 4,
-                 4 * (31 + 31 + 32 + 1), ks._check_segments(K, block_k, K)),
+                 4 * (31 + 31 + 32 + 1), ks.ovp_layout(K, block_k, K)[:2]),
                 ("K3", ks.stacked_quant_matmul,
                  ks.stacked_quant_matmul_plain, a3, {"ovp": True}, 2,
                  4 * (s3["a_q"].shape[1] + 1),
-                 ks._check_segments(K, block_k, ks._SUB))):
+                 ks.ovp_layout(K, block_k, ks._SUB)[:2])):
             t_k = cuda_ms(torch, lambda i: fn(i % L, x, w, *args, **kw),
                           iters)
             t_p = cuda_ms(torch, lambda i: plain(i % L, x, w, *args, **kw),
@@ -3350,6 +3371,500 @@ def phase_insitu_gpt2(torch, gen):
     return res
 
 
+# F5 (ROADMAP Queue 3): the product kernels at a K that is no multiple of
+# 8, 16 or 64 (an OPT-shaped fc_out at d_ff 196)
+F5_K = 196
+
+
+def phase_checks_f5(torch, gen):
+    """F5: ``int8_matmul`` at its smallest failing input ((32, 12) x (8,
+    12)) and at K = 196 (a prefill product and the int8 head's shape), and
+    K1 (M 1, 4, 64), K3 (M 4, also adversarial), K4 (M 4, int8-value and
+    OVP weights), K6 (M 4 and 64, affine and table decode) and K5 (M 300
+    and 2048, int8 values and OVP bytes) at K = 196 by N = 4096, each
+    bit-equal to its plain version on the same card tensors (int8_matmul:
+    to the CPU's exact product), each kernel call one launch. The
+    wrappers pad K with zeros (x per call, the weight stack once per
+    layout; ``kernels/stacked.py``), which adds nothing to the sums."""
+    import numpy as np
+    from ant_quantization_tpu_torch.kernels import qmatmul as kq
+    from ant_quantization_tpu_torch.kernels import stacked as ks
+    from ant_quantization_tpu_torch.kernels.qmatmul import (int8_codebook,
+                                                            pack_w4)
+    from ant_quantization_tpu_torch.numerics import codebooks as cb
+    K, N, L = F5_K, 4096, 2
+    worst = {}
+
+    def check(kernel, counts, call, plain, **info):
+        before = counts["launches"] if counts is not None else 0
+        got = call()
+        if counts is not None and counts["launches"] != before + 1:
+            fail(f"F5: {kernel} did not launch once at {info}")
+        want = plain()
+        torch.cuda.synchronize()
+        equal = torch.equal(got.cpu(), want.cpu())
+        err = (got.double().cpu() - want.double().cpu()).abs().max().item()
+        emit({"phase": "check_f5", "kernel": kernel, **info,
+              "max_abs_err": err, "bit_equal": equal})
+        if not equal:
+            fail(f"F5: {kernel} differs from its plain version at {info} "
+                 f"(max abs err {err})")
+        worst[kernel] = max(worst.get(kernel, 0.0), err)
+
+    for M, Kc, Nc in ((32, 12, 8), (2048, K, N), (4, K, 50272)):
+        a = torch.randint(-127, 128, (M, Kc), dtype=torch.int8,
+                          device="cuda", generator=gen)
+        w = torch.randint(-127, 128, (Nc, Kc), dtype=torch.int8,
+                          device="cuda", generator=gen)
+        check("int8_matmul", None, lambda: kq.int8_matmul(a, w),
+              lambda: kq.int8_matmul(a.cpu(), w.cpu()), M=M, K=Kc, N=Nc)
+    x, w, sc, aq, asc, l = _k1_operands(torch, 2048, K, N, L, gen)
+    for M in (1, 4, 64, 300, 2048):
+        kern, counts = (("K1", ks.COUNTS) if M <= ks.PREFILL_M
+                        else ("K5", ks.K5_COUNTS))
+        check(kern, counts,
+              lambda: ks.stacked_quant_matmul(l, x[:M], w, sc, aq, asc),
+              lambda: ks.stacked_quant_matmul_plain(l, x[:M], w, sc, aq,
+                                                    asc),
+              M=M, K=K, N=N, mode="int8 values")
+    for adversarial in (False, True):
+        x, w, sc, aq, asc, l = _k3_operands(torch, 300, K, N, L, gen,
+                                            adversarial)
+        for M in (4, 300):
+            kern, counts = (("K3", ks.K3_COUNTS) if M <= ks.PREFILL_M
+                            else ("K5", ks.K5_COUNTS))
+            check(kern, counts,
+                  lambda: ks.stacked_quant_matmul(l, x[:M], w, sc, aq, asc,
+                                                  ovp=True),
+                  lambda: ks.stacked_quant_matmul_plain(
+                      l, x[:M], w, sc, aq, asc, ovp=True),
+                  M=M, K=K, N=N, mode="OVP bytes", adversarial=adversarial)
+    for w_ovp in (False, True):
+        x, w, sc, pre, mids, ties, enc, l = _k4_operands(
+            torch, 4, K, N, L, gen, True, w_ovp, False)
+        check("K4", ks.K4_COUNTS,
+              lambda: ks.stacked_quant_matmul_aovp(l, x, w, sc, pre, mids,
+                                                   ties, enc, w_ovp=w_ovp),
+              lambda: ks.stacked_quant_matmul_aovp_plain(
+                  l, x, w, sc, pre, mids, ties, enc, w_ovp=w_ovp),
+              M=4, K=K, N=N, w_ovp=w_ovp)
+    x, _, sc, aq, asc, l = _k1_operands(torch, 64, K, N, L, gen)
+    for affine in (True, False):
+        grid = cb.ant_grid("int" if affine else "flint", 4, True)
+        q16 = torch.tensor(np.stack([int8_codebook(grid)[0]] * L).astype(
+            np.int32), device="cuda")
+        codes = torch.randint(0, 16, (L, K, N), device="cuda",
+                              generator=gen)
+        wp = torch.stack([pack_w4(codes[i]) for i in range(L)])
+        for M in (4, 64):
+            check("K6", ks.K6_COUNTS,
+                  lambda: ks.stacked_quant_matmul_p4(l, x[:M], wp, sc, aq,
+                                                     asc, q16, affine),
+                  lambda: ks.stacked_quant_matmul_p4_plain(
+                      l, x[:M], wp, sc, aq, asc, q16, affine),
+                  M=M, K=K, N=N, affine=affine)
+    reset_counts()
+    torch.cuda.empty_cache()
+    return worst
+
+
+def percentile_f32(data, percent: float) -> float:
+    """The reference's jitted percentile, in numpy, on host data (f32
+    position, the order statistics by ``np.partition``, the contracted
+    combine ``fma(low, 1 - w, high w)`` in f64): what
+    ``ops/outlier.py:percentile_linear`` must give bit for bit."""
+    import numpy as np
+    f = np.float32
+    n = data.size
+    pos = f(f(percent * 100.0) / f(100.0)) * f(f(n) - f(1.0))
+    lo = int(min(max(np.floor(pos), 0), n - 1))
+    hi = int(min(max(np.ceil(pos), 0), n - 1))
+    part = np.partition(data, (lo, hi))
+    hw = f(pos - np.floor(pos))
+    lw = f(f(1.0) - hw)
+    return float(f(np.float64(part[lo]) * np.float64(lw)
+                   + np.float64(f(part[hi] * hw))))
+
+
+def phase_checks_percentile(torch, gen):
+    """``outlier_thresholds`` (the GOBO mode's percentile of |x|) on the
+    card at 67,108,864 elements (OPT-6.7B fc_in's weight), past the 2^24
+    elements that ``torch.quantile`` takes: bit-equal to the same f32
+    arithmetic in numpy on the same data (``percentile_f32``), and within
+    1e-5 relative of numpy's ``np.percentile`` (f64 positions)."""
+    import numpy as np
+    from ant_quantization_tpu_torch.ops.outlier import outlier_thresholds
+    x = torch.randn((4096, 16384), device="cuda", generator=gen) / 64
+    host = np.abs(x.cpu().numpy()).reshape(-1)
+    rows = []
+    for percent in (0.9, 0.99, 0.999):
+        t0 = time.perf_counter()
+        t4, t16 = outlier_thresholds(x, percent)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        want = percentile_f32(host, percent)
+        ref = float(np.percentile(host, percent * 100.0))
+        row = {"percent": percent, "elements": host.size, "card": t4.item(),
+               "f32_arith": want, "np_percentile": ref,
+               "rel_to_np": abs(t4.item() - ref) / ref,
+               "absmax_equal": t16.item() == float(host.max()),
+               "seconds": secs}
+        row["pass"] = (row["card"] == want and row["rel_to_np"] <= 1e-5
+                       and row["absmax_equal"])
+        rows.append(row)
+        emit({"phase": "check_percentile", **row})
+        if not row["pass"]:
+            fail(f"outlier_thresholds at 67M elements: {row}")
+    del x, host
+    torch.cuda.empty_cache()
+    return rows
+
+
+CAL_TOKENS = 128           # one calibration batch of 4 x 128 random ids
+CAL_STEPS = 16             # greedy decode steps of the calibrated engine
+CAL_LAYERS = {"ant": 2, "olive": 1}
+# the channels of layer 0's q and fc_in weights that the CPU calibrates
+# beside the card (the whole tensor takes minutes on the host's cores)
+CAL_CPU_CHANNELS = {"ant": 256, "olive": 128}
+# scores within this relative gap are a near-tie, which the two devices'
+# f32 sums may resolve either way (the CPU tests' rule)
+CAL_TIE = 1e-5
+
+
+def calibration_model(torch, family: str, n_layers: int, seed: int):
+    """The port's fake-quant OPT-6.7B (``models/transformer_lm.py``) at
+    full width and ``n_layers`` layers on the card, every weight (kernels
+    and embeddings) normal with std 1/sqrt(its product's K) from a seeded
+    generator, LayerNorms at 1 and 0, biases 0. ANT:
+    QuantConfig(mode="ant-int-pot-flint", wbit=4, abit=4); OliVe:
+    QuantConfig(family="olive", mode="ant-int-flint", w_up=250,
+    a_up=250), the reference serve CLI's defaults."""
+    import dataclasses
+    from ant_quantization_tpu_torch.models.transformer_lm import (
+        TransformerLM, opt_config)
+    from ant_quantization_tpu_torch.nn.config import QuantConfig
+    lm = dataclasses.replace(opt_config("6.7b"), n_layers=n_layers,
+                             max_seq=MAX_SEQ)
+    qcfg = (QuantConfig(mode="ant-int-pot-flint", wbit=4, abit=4)
+            if family == "ant" else
+            QuantConfig(family="olive", mode="ant-int-flint", w_up=250,
+                        a_up=250))
+    model = TransformerLM(lm, qcfg, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("kernel") or name.endswith("embedding"):
+                k = p.shape[0] if name.endswith("kernel") else p.shape[1]
+                p.copy_(torch.randn(p.shape, device="cuda", generator=g)
+                        / float(k) ** 0.5)
+    return model
+
+
+def hold_calibrate_on_cpu(torch, x, cfg, tag: str) -> dict:
+    """The card's ``calibrate`` of ``x`` against the same function on the
+    CPU: type, bit and signedness equal; alpha bit-equal per channel, or
+    the two devices' ratios a near-tie (their CPU scores within CAL_TIE),
+    which is printed; OliVe's 3-sigma base within 2 ulps."""
+    import numpy as np
+    from ant_quantization_tpu_torch.calibrate import search as cs
+    t0 = time.perf_counter()
+    card = cs.calibrate(x, cfg)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    xc = x.cpu()
+    t0 = time.perf_counter()
+    cpu = cs.calibrate(xc, cfg)
+    cpu_s = time.perf_counter() - t0
+    pc = cfg.per_channel
+    flat = lambda t: (torch.movedim(t, cfg.channel_axis, 0).reshape(
+        t.shape[cfg.channel_axis], -1) if pc else t.reshape(-1))
+    x2 = flat(xc)
+    base_cpu = cs._x_max(x2, cfg, pc).reshape(-1)
+    base_card = cs._x_max(flat(x), cfg, pc).cpu().reshape(-1)
+    a_cpu, a_card = cpu.alpha.reshape(-1), card.alpha.cpu().reshape(-1)
+    same = {f: bool(torch.equal(getattr(card, f).cpu(), getattr(cpu, f)))
+            for f in ("mode_idx", "bit", "is_signed")}
+    base_ok = bool(((base_card - base_cpu).abs() <= 2 * torch.from_numpy(
+        np.spacing(base_cpu.abs().numpy()))).all())
+    ratios = torch.tensor(cs._ratio_ladder(cfg.low, cfg.up, cfg.scan_step),
+                          dtype=torch.float32)
+    r_cpu = (a_cpu[:, None] - base_cpu[:, None] * ratios).abs().argmin(1)
+    r_card = (a_card[:, None] - base_card[:, None] * ratios).abs().argmin(1)
+    diff = (r_cpu != r_card) | ((a_cpu != a_card) & (base_cpu == base_card))
+    ties = []
+    if bool(diff.any()) and same["mode_idx"]:
+        mode = cb_mode(int(cpu.mode_idx))
+        grid = torch.as_tensor(cs._grid_pair(cfg, mode, int(cpu.bit), True)[
+            int(bool(cpu.is_signed))])
+        out = (torch.as_tensor(cs._outlier_pair(int(cpu.bit))[
+            int(bool(cpu.is_signed))]) if cfg.use_ovp else None)
+        rows = torch.nonzero(diff).reshape(-1)[:64]
+        for i in rows.tolist():
+            xi = x2[i:i + 1] if pc else x2
+            s = [float(cs._mse(cs._fq(xi, grid, out, base_cpu[i:i + 1] * r
+                                       if pc else base_cpu[0] * r, cfg, pc),
+                               xi, pc).reshape(-1)[0])
+                 for r in (ratios[r_cpu[i]], ratios[r_card[i]])]
+            ties.append({"channel": i, "ratios": [float(ratios[r_cpu[i]]),
+                                                  float(ratios[r_card[i]])],
+                         "cpu_scores": s,
+                         "gap": abs(s[0] - s[1]) / min(s)})
+    n_diff = int(diff.sum())
+    res = {"phase": "calibrate_cpu_hold", "tensor": tag,
+           "shape": list(x.shape), "per_channel": pc, "card_s": card_s,
+           "cpu_s": cpu_s, "same": same, "base_within_2ulp": base_ok,
+           "channels": int(a_cpu.numel()), "alpha_bit_equal":
+           int(a_cpu.numel()) - n_diff, "near_ties": ties,
+           "mode": cb_mode(int(card.mode_idx))}
+    res["pass"] = (all(same.values()) and base_ok and len(ties) == n_diff
+                   and all(t["gap"] <= CAL_TIE for t in ties))
+    emit(res)
+    if not res["pass"]:
+        fail(f"calibrate on the card against the CPU, {tag}: {res}")
+    return res
+
+
+def cb_mode(i: int) -> str:
+    from ant_quantization_tpu_torch.numerics.codebooks import ANT_MODES
+    return ANT_MODES[i]
+
+
+def hold_logits(torch, got, want, tag: str) -> dict:
+    """The bf16 engine rule (ENGINE_BF16_TOL): median |d| and largest |d|
+    over the largest |logit| of ``want``, and the same greedy token;
+    reported, and required of finite logits only: at A4 an ulp between
+    the two routes moves an activation across a midpoint, and the move
+    spreads through the layers (``hold_sites`` holds each site alone)."""
+    d = (got.float() - want.float()).abs()
+    top = float(want.abs().max())
+    med, big = ENGINE_BF16_TOL
+    res = {"phase": "calibrated_logits_hold", "path": tag, "top_logit": top,
+           "median_diff_over_top": float(d.median()) / top,
+           "max_diff_over_top": float(d.max()) / top,
+           "same_argmax": bool(torch.equal(got.argmax(-1),
+                                           want.argmax(-1))),
+           "tol": ENGINE_BF16_TOL}
+    res["within_rule"] = (res["same_argmax"]
+                          and res["median_diff_over_top"] <= med
+                          and res["max_diff_over_top"] <= big)
+    res["pass"] = (bool(torch.isfinite(got).all())
+                   and got.shape == want.shape)
+    emit(res)
+    if not res["pass"]:
+        fail(f"{tag}: the engine's logits are not finite: {res}")
+    return res
+
+
+# the share of a site's activation values whose A4 code moved between the
+# engine's route and the fake-quant one on the same input (an ulp apart
+# across a midpoint); each such row is held only to its finite values
+CAL_MOVED_MAX = 1e-5
+
+
+def hold_sites(torch, cfg, ep, model, prompt, tag: str) -> dict:
+    """One prefill of the engine built from the calibrated tree, every
+    site matmul held against the fake-quant model's ``QuantDense`` on the
+    same input (the engine's own, so that no earlier difference carries
+    over): within K8_RTOL of |qx| @ |qw| + |bias| per output, where qx and
+    qw are the fake-quant values, except in rows where the engine's
+    activation code moved from the fake-quant's (``x / a_scale`` against
+    ``x / scale`` an ulp apart across a midpoint), which are counted and
+    must stay below CAL_MOVED_MAX of the values."""
+    from ant_quantization_tpu_torch.ops.snap import snap_value
+    from ant_quantization_tpu_torch.serve import engine as teng
+    real = teng._site_matmul
+    stats = {"calls": 0, "values": 0, "moved": 0, "moved_rows": 0,
+             "max_err_over_size": 0.0}
+
+    def watch(cfg_, ep_, name, x2d, l, stk):
+        y = real(cfg_, ep_, name, x2d, l, stk)
+        block = getattr(model, f"h_{l}")
+        qd = getattr(block.attn if name in ("q", "k", "v", "out")
+                     else block, name)
+        with torch.no_grad():
+            x = x2d.to(torch.float32)
+            want = qd(x)
+            qx = qd.input_q(x, False)
+            qw = qd.weight_q(qd.kernel, False)
+            size = qx.abs() @ qw.abs() + qd.bias.abs()
+            site = ep_["layers"][name]
+            if "a_q" in site:
+                xe = snap_value(x / site["a_scale"][l], site["a_q"][l]) \
+                    * site["a_scale"][l]
+            else:
+                xe = teng._fake_quant(x, site, l)
+            moved = (xe - qx).abs() > 1e-5 * qx.abs().amax()
+            rows = moved.any(dim=1)
+            err = ((y.float() - want).abs() / size)[~rows]
+        stats["calls"] += 1
+        stats["values"] += x.numel()
+        stats["moved"] += int(moved.sum())
+        stats["moved_rows"] += int(rows.sum())
+        if err.numel():
+            stats["max_err_over_size"] = max(stats["max_err_over_size"],
+                                             float(err.max()))
+        return y
+
+    kv = teng.init_cache(cfg, prompt.shape[0], device=prompt.device)
+    with mock.patch.object(teng, "_site_matmul", watch), torch.no_grad():
+        teng.forward(cfg, ep, prompt, kv, 0)
+    res = {"phase": "calibrated_sites_hold", "path": tag, **stats,
+           "rtol_of_size": K8_RTOL, "moved_share": stats["moved"]
+           / stats["values"], "moved_max": CAL_MOVED_MAX}
+    res["pass"] = (stats["calls"] == 6 * model.cfg.n_layers
+                   and res["max_err_over_size"] <= K8_RTOL
+                   and res["moved_share"] <= CAL_MOVED_MAX)
+    emit(res)
+    if not res["pass"]:
+        fail(f"{tag}: a site of the engine off the fake-quant model: {res}")
+    return res
+
+
+def calibrate_serve(torch, gen, family: str) -> dict:
+    """One family of the calibrate_serve phase (see phase_calibrate_serve):
+    calibrate, hold against the CPU, build, hold the logits, serve."""
+    import collections
+    from ant_quantization_tpu_torch.calibrate.promote import quant_sites
+    from ant_quantization_tpu_torch.harness.evaluate import (
+        calibrate_on_batches)
+    from ant_quantization_tpu_torch.models.transformer_lm import params_tree
+    from ant_quantization_tpu_torch.serve.engine import (
+        Engine, build_engine_params)
+    n_layers = CAL_LAYERS[family]
+    torch.cuda.reset_peak_memory_stats()
+    model = calibration_model(torch, family, n_layers, seed=11)
+    c = model.cfg
+    ids = torch.randint(0, c.vocab_size, (BATCH, CAL_TOKENS), device="cuda",
+                        generator=gen)
+    layer_s, captured = [], {}
+
+    def pre(m, args):
+        torch.cuda.synchronize()
+        m.t0 = time.perf_counter()
+
+    def post(m, args, out):
+        torch.cuda.synchronize()
+        layer_s.append(time.perf_counter() - m.t0)
+
+    hooks = [getattr(model, f"h_{i}").register_forward_pre_hook(pre)
+             for i in range(n_layers)]
+    hooks += [getattr(model, f"h_{i}").register_forward_hook(post)
+              for i in range(n_layers)]
+    def keep_q_input(m, args):
+        captured.setdefault("q_input", args[0].detach())
+
+    hooks.append(model.h_0.attn.q.register_forward_pre_hook(keep_q_input))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quant = calibrate_on_batches(model, [(ids,)])
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
+    kinds = collections.defaultdict(collections.Counter)
+    for path, st in quant_sites(quant):
+        for k, s in st.items():
+            kinds[f"{path[-1]}.{k}"][cb_mode(int(s.mode_idx))] += 1
+    res = {"family": family, "layers": n_layers, "d_model": c.d_model,
+           "calibration_tokens": BATCH * CAL_TOKENS,
+           "calibration_s": cal_s, "seconds_per_layer": layer_s,
+           "types_by_site": {k: dict(v) for k, v in sorted(kinds.items())}}
+    emit({"phase": "calibrate", **res})
+    ch = CAL_CPU_CHANNELS[family]
+    holds = [hold_calibrate_on_cpu(
+        torch, getattr(model.h_0.attn.q if s == "q" else model.h_0.fc_in,
+                       "kernel").detach()[:, :ch],
+        (model.h_0.attn.q if s == "q" else model.h_0.fc_in).weight_q.cfg,
+        f"h_0.{s}.kernel[:, :{ch}]") for s in ("q", "fc_in")]
+    holds.append(hold_calibrate_on_cpu(
+        torch, captured["q_input"].float(), model.h_0.attn.q.input_q.cfg,
+        "h_0.attn.q input"))
+    params = params_tree(model)
+    # the engine against the fake-quant model: f32, the raw cache and the
+    # plain head, so that only the int8 products (or, with OVP
+    # activations, the unfused route) differ from the model
+    check_cfg = opt_engine_config(n_layers, torch.float32, kv_int8=False,
+                                  lm_head_int8=False)
+    eng = Engine(check_cfg, build_engine_params(check_cfg, params, quant,
+                                                device="cuda"), BATCH)
+    prompt = torch.randint(0, c.vocab_size, (BATCH, PREFILL), device="cuda",
+                           generator=gen)
+    res["sites_hold"] = hold_sites(torch, check_cfg, eng.engine_params(),
+                                   model, prompt, f"{family} prefill")
+    got = eng.prefill(prompt)
+    with torch.no_grad():
+        want = model(prompt)[:, -1:]
+    res["logits_hold"] = hold_logits(torch, got, want, f"{family} prefill")
+    del eng, got, want
+    cfg = opt_engine_config(n_layers, torch.bfloat16)
+    t0 = time.perf_counter()
+    ep = build_engine_params(cfg, params, quant, device="cuda")
+    torch.cuda.synchronize()
+    res["engine_build_s"] = time.perf_counter() - t0
+    engine = Engine(cfg, ep, BATCH)
+    del ep, params
+    reset_counts()
+    t0 = time.perf_counter()
+    logits = engine.prefill(prompt)
+    torch.cuda.synchronize()
+    res["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    toks = [tok]
+    t0 = time.perf_counter()
+    for _ in range(CAL_STEPS):
+        logits = engine.decode(toks[-1])
+        toks.append(logits[:, -1].argmax(-1, keepdim=True))
+    torch.cuda.synchronize()
+    res["decode_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / CAL_STEPS
+    counts = read_counts()
+    reset_counts()
+    prod = "K1" if family == "ant" else "K4"
+    want = {k: 0 for k in counts}
+    want[prod] = 6 * n_layers * CAL_STEPS
+    want["K2"] = n_layers * (1 + CAL_STEPS)
+    got_l = {k: v["launches"] for k, v in counts.items()}
+    res.update(launches=got_l, want_launches=want,
+               logits_finite=bool(torch.isfinite(logits).all()),
+               tokens_in_range=bool(0 <= int(torch.cat(toks).min())
+                                    and int(torch.cat(toks).max())
+                                    < c.vocab_size))
+    if family == "olive":
+        res["ovp_shares"] = ovp_shares(torch, engine, toks[-1], steps=4)
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    res["pass"] = (got_l == want and res["logits_finite"]
+                   and res["tokens_in_range"]
+                   and not any(v["plain_calls"] for v in counts.values()))
+    emit({"phase": "calibrate_serve", **res})
+    if not res["pass"]:
+        fail(f"calibrate_serve {family}: {res}")
+    del engine, model, quant
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_calibrate_serve(torch, gen) -> dict:
+    """The port calibrates its own states on the card and serves them
+    (the path of the reference's tools/serve_cli.py): OPT-6.7B at full
+    width (2 layers under ANT, 1 under OliVe), ``calibrate_on_batches`` on
+    one 4 x 128-token batch of random ids (seconds per layer and the
+    chosen types per site printed), ``calibrate`` on the card held against
+    the CPU on layer 0's q and fc_in weights (their first 256 channels
+    under ANT, 128 under OliVe) and q's input; then ``build_engine_params``
+    from the port's own tree: an f32 engine without INT8 KV or int8 head
+    whose site matmuls in a 4 x 512 prefill must each hold the fake-quant
+    model's on the same input (``hold_sites``; its logits against the
+    model's are reported by the bf16 engine rule), and the main-path
+    engine (bf16, INT8 KV, int8 head,
+    max_seq 608) served for a 4 x 512 prefill and 16 greedy steps: decode
+    on K1 (ANT) or K4 (OliVe) at every site and K2, no plain version."""
+    t0 = time.perf_counter()
+    out = {f: calibrate_serve(torch, gen, f) for f in ("ant", "olive")}
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "calibrate_serve_total", "seconds": out["seconds"]})
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3381,6 +3896,9 @@ def main() -> int:
     hd_err = phase_checks_headdim(torch, gen)
     k9_err = phase_checks_k9(torch, gen)
     phase_checks_f32_out(torch, gen)
+    f5_err = phase_checks_f5(torch, gen)
+    pct_rows = phase_checks_percentile(torch, gen)
+    cal = phase_calibrate_serve(torch, gen)
     engine, counts, ids = phase_main(torch, gen)
     sites, k2_rows = phase_times(torch, engine)
     phase_profile(torch, engine, ids)
@@ -3647,7 +4165,22 @@ def main() -> int:
         "library_ms": k9_main["library_ms"],
         "library_note": "torch._int_mm (M padded to 32) on the snapped "
                         "codes: the product without the snap"})
+    for k in kernels:
+        tag = k["name"][k["name"].rfind("(") + 1:-1]
+        if tag in f5_err:
+            k["max_abs_err_k196"] = f5_err[tag]
+        if tag in ("K1", "K2", "K4"):
+            k["launches_calibrate_serve"] = {
+                f: cal[f]["launches"][tag] for f in ("ant", "olive")}
     emit({"kernels": kernels, "card": smi, "hbm_copy_bytes_per_s": hbm,
+          "int8_matmul_k196_max_abs_err": f5_err["int8_matmul"],
+          "outlier_percentile_67m": pct_rows,
+          "calibrate_serve": {
+              f: {k: cal[f][k] for k in ("calibration_s",
+                                         "seconds_per_layer",
+                                         "prefill_ms",
+                                         "decode_ms_per_step")}
+              for f in ("ant", "olive")},
           "gpt2_kscale_route_per_layer": kscale_per_layer,
           "seconds": time.perf_counter() - t_start})
     print(json.dumps({"ok": True, "device": {

@@ -245,7 +245,17 @@ def test_package_imports_no_jax():
             "ant_quantization_tpu_torch.models.transformer_lm",
             "ant_quantization_tpu_torch.numerics.codebooks",
             "ant_quantization_tpu_torch.ops.ovp",
-            "ant_quantization_tpu_torch.ops.snap"]
+            "ant_quantization_tpu_torch.ops.snap",
+            "ant_quantization_tpu_torch.ops.fake_quant",
+            "ant_quantization_tpu_torch.ops.outlier",
+            "ant_quantization_tpu_torch.ops.affine",
+            "ant_quantization_tpu_torch.calibrate.spec",
+            "ant_quantization_tpu_torch.calibrate.search",
+            "ant_quantization_tpu_torch.calibrate.promote",
+            "ant_quantization_tpu_torch.nn.config",
+            "ant_quantization_tpu_torch.nn.layers",
+            "ant_quantization_tpu_torch.utils.calibration",
+            "ant_quantization_tpu_torch.harness.evaluate"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "

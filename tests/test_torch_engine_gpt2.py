@@ -330,13 +330,16 @@ def test_mixed_sites_stacked_prefill():
                                rtol=5e-3, atol=5e-3)
 
 
-@pytest.mark.parametrize("V", [1, 9, 129])
-def test_int8_head_at_a_vocab_off_multiples_of_8(monkeypatch, V):
+@pytest.mark.parametrize("V,D", [(1, 64), (9, 64), (129, 64), (8, 12)],
+                         ids=["1", "9", "129", "K12"])
+def test_int8_head_at_a_vocab_off_multiples_of_8(monkeypatch, V, D):
     """F4 (ROADMAP Queue 3): ``int8_matmul`` gave ``torch._int_mm`` the
     whole head, whose N must be a multiple of 8 on CUDA, so the int8 head
-    raised at GPT-2's vocabulary of 50,257. Here ``_int_mm`` is held to
-    the CUDA rule (K and N multiples of 8), and the int8 head at V rows
-    must equal the reference's ``_lm_logits`` bit for bit."""
+    raised at GPT-2's vocabulary of 50,257. F5: it gave it an unpadded K
+    as well (``K12``: D = 12). Here ``_int_mm`` is held to the CUDA rule
+    (K and N multiples of 8) and ``int8_matmul`` takes its CUDA branch (a
+    CPU tensor that reports ``is_cuda``), and the int8 head at V rows must
+    equal the reference's ``_lm_logits`` bit for bit."""
     real = torch._int_mm
 
     def cuda_rule(a, b):
@@ -345,9 +348,10 @@ def test_int8_head_at_a_vocab_off_multiples_of_8(monkeypatch, V):
         return real(a, b)
 
     monkeypatch.setattr(torch, "_int_mm", cuda_rule)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
     rng = np.random.default_rng(V)
-    x = rng.normal(size=(2, 3, 64)).astype(np.float32)
-    w = rng.normal(size=(V, 64)).astype(np.float32)
+    x = rng.normal(size=(2, 3, D)).astype(np.float32)
+    w = rng.normal(size=(V, D)).astype(np.float32)
     jtop = jeng.quantize_lm_head(jnp.asarray(w))
     ttop = teng.quantize_lm_head(torch.from_numpy(w))
     got = teng._lm_logits(ttop, torch.from_numpy(x))

@@ -219,7 +219,7 @@ def test_threshold_encode_equals_pallas(signed, sc):
 
 
 def _segments(K, block_k, aovp):
-    return tk._check_segments(K, block_k, K if aovp else tk._SUB)
+    return tk.ovp_layout(K, block_k, K if aovp else tk._SUB)[:2]
 
 
 def _emulate(planes, plan, seg, fold, combine, mode="kernel"):
@@ -429,15 +429,16 @@ def test_plan_fits_and_fills(site, M, aovp):
 
 
 def test_plan_takes_every_partition_the_wrappers_take():
-    """Every (K, block_k) that _check_segments accepts cuts into whole
-    stages (or is one short segment) and whole f32 blocks, so k34_plan
-    takes it."""
+    """Every (K, block_k), as the wrappers lay it out (``ovp_layout``:
+    the reference's segments as they are, or each padded in place, F5),
+    cuts into whole stages (or is one short segment) and whole f32
+    blocks, so k34_plan takes it."""
     for K in range(16, 4097, 16):
         for block_k in (128, 256, 512, 1024, 2048):
             for aovp in (False, True):
-                try:
-                    seg, fold = _segments(K, block_k, aovp)
-                except ValueError:
-                    continue
-                p = tk.k34_plan(4, K, 256, seg, fold, aovp=aovp)
+                seg, fold, dst = tk.ovp_layout(K, block_k,
+                                               K if aovp else tk._SUB)
+                k_pad = K if dst is None else (
+                    K // tk._fit(K, block_k) * fold * seg)
+                p = tk.k34_plan(4, k_pad, 256, seg, fold, aovp=aovp)
                 assert p["units"] * p["ss"] * fold == p["steps"]

@@ -6,9 +6,9 @@ the kernel does not run:
   its barriers and the f32 block totals fit the 227 KB a block may use,
   and a consumer thread's dots, running sum and A fragments fit the
   registers that the kernel's ``setmaxnreg`` gives it;
-- every (K, block_k) that ``_check_segments`` and ``_launch_prefill``
-  accepted before the redesign (segments a multiple of 64 rows) is
-  accepted, and no other;
+- every (K, block_k), laid out as the wrappers lay it out
+  (``ovp_layout``: the reference's segments, or each padded in place
+  where the kernels need it, F5), is accepted;
 - an emulation of the kernel's order of work in numpy: per block of 128
   weight columns by 128 x rows, each consumer warpgroup's A fragments
   read by the kernel's ``ldmatrix`` addresses from a stage laid out as
@@ -47,7 +47,7 @@ _CONSUMER_REGS, _PRODUCER_REGS = 240, 24
 @pytest.mark.parametrize("site", list(_SITES))
 def test_plan_fits(site, M, block_k):
     K, N = _SITES[site]
-    seg, fold = tk._check_segments(K, block_k, tk._SUB)
+    seg, fold = tk.ovp_layout(K, block_k, tk._SUB)[:2]
     p = tk.k5_ovp_plan(M, K, N, seg, fold)
     assert p["smem"] <= 232448                     # 227 KB a block may use
     assert p["m_tiles"] * p["xm"] >= M > (p["m_tiles"] - 1) * p["xm"]
@@ -68,27 +68,21 @@ def test_plan_fits(site, M, block_k):
 
 
 def test_plan_takes_every_partition_k5_took():
-    """_launch_prefill took an OVP partition when _check_segments gave
-    segments of a multiple of 64 rows; k5_ovp_plan takes exactly those."""
-    taken = 0
+    """K5 took an OVP partition whose segments were a multiple of 64 rows;
+    since F5 the wrappers lay every other one out so (``ovp_layout``
+    pads each segment in place), and k5_ovp_plan takes every layout."""
+    padded = 0
     for K in range(64, 16385, 64):
         for block_k in (64, 128, 256, 512, 1024, 2048, 4096):
-            try:
-                seg, fold = tk._check_segments(K, block_k, tk._SUB)
-            except ValueError:
-                continue
-            before = seg % 64 == 0
-            try:
-                p = tk.k5_ovp_plan(2048, K, 4096, seg, fold)
-                now = True
-            except ValueError:
-                now = False
-            assert now == before, (K, block_k, seg, fold)
-            if now:
-                taken += 1
-                assert p["seg_steps"] * p["fold"] * 32 * (
-                    K // (seg * fold)) == K
-    assert taken > 600
+            seg, fold, dst = tk.ovp_layout(K, block_k, tk._SUB)
+            k_pad = K if dst is None else (
+                K // tk._fit(K, block_k) * fold * seg)
+            padded += dst is not None
+            p = tk.k5_ovp_plan(2048, k_pad, 4096, seg, fold)
+            assert seg % 64 == 0, (K, block_k, seg, fold)
+            assert p["seg_steps"] * p["fold"] * 32 * (
+                k_pad // (seg * fold)) == k_pad
+    assert padded > 0
 
 
 def _swizzled(tile):
@@ -236,7 +230,7 @@ def test_kernel_order_equals_plain_and_pallas(M, K, N, block_k, adversarial,
                                               pallas):
     x, w, scales, a_q, a_scale = _operands(M, K, N, adversarial, M + K + N)
     l = 1
-    seg, fold = tk._check_segments(K, block_k, tk._SUB)
+    seg, fold = tk.ovp_layout(K, block_k, tk._SUB)[:2]
     xq = snap_value(torch.from_numpy(x) / torch.from_numpy(a_scale)[l],
                     torch.from_numpy(a_q[l])).numpy().astype(np.int64)
     got = _emulate(xq, w[l], scales[l], seg, fold)

@@ -185,9 +185,47 @@ def _k4_fused(x, w, l, prescale, mids, ties, enc, scales, w_ovp, bk):
 
 
 def test_kernels_refuse_partitions_they_cannot_cut():
-    x = torch.zeros(2, 640)
-    w = torch.zeros(1, 8, 640, dtype=torch.int8)
-    sc = torch.ones(1, 8)
-    with pytest.raises(ValueError, match="equal segments"):
-        tk.stacked_quant_matmul(0, x, w, sc, torch.zeros(1, 16),
-                                torch.ones(1), ovp=True)
+    """F5 (ROADMAP Queue 3): K = 640 (one f32 block of 640 rows in
+    sub-chunks of 256, 256 and 128) is no longer refused; see
+    :func:`test_partitions_padded_in_place`."""
+    test_partitions_padded_in_place(640, 1024)
+
+
+@pytest.mark.parametrize("K,block_k", [(196, 1024), (1220, 1024)])
+def test_partitions_padded_in_place(K, block_k):
+    """F5 (ROADMAP Queue 3): a K whose f32 blocks the kernels cannot cut
+    into equal segments of whole stages is served (196 and 1220: one
+    block of all of K, 1220 in sub-chunks of 256 and a last of 196). The
+    segments are padded in place (``ovp_layout``), and K3's and K4's
+    plain versions stay bit-equal to the reference's kernels, K3 on sums
+    past 2^24."""
+    assert tk.ovp_layout(K, block_k, tk._SUB)[2] is not None
+    rng = np.random.default_rng(K)
+    L, N, a_q, a_scale, w, x, scales = _k3_case(4, K, True, rng)
+    want = np.asarray(jk(
+        jnp.int32(1), jnp.asarray(x), jnp.asarray(w.reshape(L * K, N)),
+        jnp.asarray(scales), jnp.asarray(a_q), jnp.asarray(a_scale[:, None]),
+        None, mode="i8", n_layers=L, block_k=block_k, ovp=True,
+        interpret=True))
+    got = tk.stacked_quant_matmul(
+        1, torch.from_numpy(x), _nk(w), torch.from_numpy(scales),
+        torch.from_numpy(a_q), torch.from_numpy(a_scale), ovp=True,
+        block_k=block_k)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # K4, int8-value weights (no FMA chain to emulate: 16 d1 - 15 d3 is
+    # exact below 2^24)
+    _, _, _, mids, ties, enc = _tables(True, L)
+    wv = rng.integers(-64, 65, size=(L, K, N)).astype(np.int8)
+    xv = rng.normal(size=(4, K)).astype(np.float32) * 3
+    prescale = np.float32([0.5, 0.25])
+    want4 = np.asarray(jk4(
+        jnp.int32(1), jnp.asarray(xv), jnp.asarray(wv.reshape(L * K, N)),
+        jnp.asarray(scales), jnp.asarray(prescale), jnp.asarray(mids),
+        jnp.asarray(ties), jnp.asarray(enc), n_layers=L, block_k=block_k,
+        w_ovp=False, interpret=True))
+    got4 = tk.stacked_quant_matmul_aovp(
+        1, torch.from_numpy(xv), _nk(wv), torch.from_numpy(scales),
+        torch.from_numpy(prescale), torch.from_numpy(mids),
+        torch.from_numpy(ties), torch.from_numpy(enc), w_ovp=False,
+        block_k=block_k)
+    np.testing.assert_array_equal(got4.numpy(), want4)
