@@ -1,0 +1,146 @@
+"""Model factory + on-disk checkpoint loading, the decoder-LM half.
+
+Counterpart of the reference's ``harness/zoo.py``: model construction is
+config-driven and weights come from local files:
+- HF-format model directories: config.json + model*.safetensors
+  (possibly sharded) or pytorch_model*.bin;
+- bare torch state-dict files (.pth/.pt/.bin, read with
+  ``weights_only=True``);
+- .npz archives (name -> array).
+
+Safetensors files are read by the port's own reader
+(``harness/safetensors_io.py``); every value is cast to f32, as the
+reference does. No network access is required or attempted. The image,
+BERT and BART half comes with those models (ROADMAP Queue 1 item 10).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from .._ext import resolve_device
+from ..models import import_hf
+from ..models.transformer_lm import (LMConfig, TransformerLM, bloom_config,
+                                     gpt2_config, opt_config)
+from ..nn.config import QuantConfig
+from .safetensors_io import read_safetensors
+
+__all__ = ["load_state_dict_file", "load_hf_model_dir", "lm_config_from_hf",
+           "get_lm"]
+
+
+# ---------------------------------------------------------------------------
+# Raw weight-file loading
+# ---------------------------------------------------------------------------
+
+def _f32(sd) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v).detach().to("cpu", torch.float32)
+            for k, v in sd.items()}
+
+
+def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
+    """Load one weight file (.safetensors, .npz, or torch .pth/.pt/.bin)
+    as name -> f32 CPU tensor."""
+    if path.endswith(".safetensors"):
+        return _f32(read_safetensors(path)[0])
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            return _f32({k: np.asarray(z[k], np.float32) for k in z.files})
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    if isinstance(sd, dict) and "model" in sd and all(
+            isinstance(v, torch.Tensor) for v in sd["model"].values()):
+        sd = sd["model"]
+    return _f32(sd)
+
+
+def load_hf_model_dir(path: str) -> Tuple[dict, Dict[str, torch.Tensor]]:
+    """HF model directory -> (config dict, merged state_dict)."""
+    with open(os.path.join(path, "config.json")) as f:
+        config = json.load(f)
+    sd: Dict[str, torch.Tensor] = {}
+    files = sorted(os.listdir(path))
+    st = [f for f in files if f.endswith(".safetensors")]
+    bins = [f for f in files if f.endswith(".bin") and "pytorch_model" in f]
+    for f in st or bins:
+        sd.update(load_state_dict_file(os.path.join(path, f)))
+    if not sd:
+        raise FileNotFoundError(f"no weight files in {path}")
+    return config, sd
+
+
+# ---------------------------------------------------------------------------
+# Decoder LMs (GPT-2 / OPT / BLOOM)
+# ---------------------------------------------------------------------------
+
+def lm_config_from_hf(config: dict) -> Tuple[str, LMConfig]:
+    """Map an HF config.json to (family, LMConfig)."""
+    mt = config.get("model_type", "")
+    if mt == "gpt2":
+        d = config["n_embd"]
+        cfg = LMConfig(vocab_size=config["vocab_size"], d_model=d,
+                       n_layers=config["n_layer"], n_heads=config["n_head"],
+                       d_ff=config.get("n_inner") or 4 * d,
+                       max_seq=config["n_positions"], positions="learned",
+                       activation="gelu_new", fused_qkv=True)
+        return "gpt2", cfg
+    if mt == "opt":
+        cfg = LMConfig(vocab_size=config["vocab_size"],
+                       d_model=config["hidden_size"],
+                       n_layers=config["num_hidden_layers"],
+                       n_heads=config["num_attention_heads"],
+                       d_ff=config["ffn_dim"],
+                       max_seq=config["max_position_embeddings"],
+                       positions="learned_offset2", activation="relu",
+                       fused_qkv=False)
+        return "opt", cfg
+    if mt == "bloom":
+        d = config.get("hidden_size") or config["n_embed"]
+        cfg = LMConfig(vocab_size=config["vocab_size"], d_model=d,
+                       n_layers=config.get("num_hidden_layers",
+                                           config.get("n_layer")),
+                       n_heads=config.get("num_attention_heads",
+                                          config.get("n_head")),
+                       d_ff=4 * d, max_seq=2048, positions="alibi",
+                       activation="gelu", fused_qkv=True, embed_ln=True)
+        return "bloom", cfg
+    raise ValueError(f"unsupported model_type {mt!r}")
+
+
+_LM_PRESETS = {
+    "gpt2": lambda s: ("gpt2", gpt2_config(s or "small")),
+    "opt": lambda s: ("opt", opt_config(s or "125m")),
+    "bloom": lambda s: ("bloom", bloom_config(s or "560m")),
+}
+
+
+def get_lm(name_or_path: str, qcfg: QuantConfig, params: bool = True,
+           device=None):
+    """Build (model, cfg, params|None) for a decoder LM: the port's
+    ``TransformerLM`` on ``device`` (default "cuda").
+
+    ``name_or_path``: a local HF model dir, whose imported weights (the
+    reference's params tree, f32 CPU tensors) are loaded into the model
+    and returned; or a preset "family[:size]" (e.g. "opt:6.7b") for
+    randomly initialized runs and smoke tests (params None)."""
+    dev = resolve_device(device)
+    if os.path.isdir(name_or_path):
+        config, sd = load_hf_model_dir(name_or_path)
+        family, cfg = lm_config_from_hf(config)
+        model = TransformerLM(cfg, qcfg, device=dev)
+        p = None
+        if params:
+            p = import_hf.IMPORTERS[family](sd, cfg)
+            del sd
+            with torch.no_grad():
+                model.load_state_dict(import_hf.lm_state_dict(p))
+        return model, cfg, p
+    family, _, size = name_or_path.partition(":")
+    family, cfg = _LM_PRESETS[family](size or None)
+    return TransformerLM(cfg, qcfg, device=dev), cfg, None

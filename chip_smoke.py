@@ -190,6 +190,7 @@ file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -220,8 +221,13 @@ K8_RTOL = 1e-5
 SP_OVP_RTOL = 1e-3
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line; ``at_s`` is the script's seconds so far."""
+    print(json.dumps({**obj, "at_s": time.perf_counter() - _T0}),
+          flush=True)
 
 
 def fail(msg: str) -> None:
@@ -3865,6 +3871,296 @@ def phase_calibrate_serve(torch, gen) -> dict:
     return out
 
 
+SERVE_LAYERS = 2           # OPT-6.7B width, cut in depth as calibrate_serve
+SERVE_PROMPTS = (512, 384, 256, 128)
+SERVE_NEW = 32
+SERVE_MAX_SEQ = 608
+SERVE_MERGES = 300         # byte-level BPE merges learned for the phase
+SERVE_WORDS = 6000         # words of the generated corpus (clm_eval's text)
+
+
+def generated_corpus(seed: int) -> str:
+    """A seeded text of SERVE_WORDS words of 1-4 syllables, with
+    punctuation and line breaks."""
+    import random
+    rng = random.Random(seed)
+    onsets = ["", "b", "c", "d", "f", "g", "h", "k", "l", "m", "n", "p",
+              "r", "s", "t", "v", "w", "st", "tr", "ch", "sh", "th"]
+    vowels = ["a", "e", "i", "o", "u", "ea", "ou", "ai"]
+    codas = ["", "", "n", "r", "s", "t", "l", "nd", "ng"]
+    lexicon = ["".join(rng.choice(onsets) + rng.choice(vowels)
+                       + rng.choice(codas)
+                       for _ in range(rng.randint(1, 4)))
+               for _ in range(800)]
+    words = []
+    for i in range(SERVE_WORDS):
+        w = lexicon[min(int(rng.paretovariate(1.1)) - 1, len(lexicon) - 1)
+                    if rng.random() < 0.5 else rng.randrange(len(lexicon))]
+        words.append(w.capitalize() if i % 13 == 0 else w)
+        if i % 13 == 12:
+            words[-1] += rng.choice([".", ",", ";", "!", "?"])
+        if i % 97 == 96:
+            words[-1] += "\n"
+    return " ".join(words)
+
+
+def train_bpe(text: str, n_merges: int):
+    """GPT-2 byte-level BPE learned on ``text``: the 256 byte symbols, then
+    the most frequent adjacent pair within a pre-token merged, n_merges
+    times. Returns (vocab {symbol: id}, merges [(a, b)])."""
+    import collections
+    from ant_quantization_tpu_torch.harness.bpe import (bytes_to_unicode,
+                                                        pretokenize)
+    enc = bytes_to_unicode()
+    freq = collections.Counter("".join(enc[b] for b in w.encode("utf-8"))
+                               for w in pretokenize(text))
+    seqs = {w: list(w) for w in freq}
+    vocab = {ch: i for i, ch in enumerate(enc.values())}
+    merges = []
+    for _ in range(n_merges):
+        pairs = collections.Counter()
+        for w, n in freq.items():
+            s = seqs[w]
+            for a, b in zip(s, s[1:]):
+                pairs[a, b] += n
+        if not pairs:
+            break
+        (a, b), _ = max(pairs.items(), key=lambda kv: (kv[1], kv[0]))
+        merges.append((a, b))
+        vocab.setdefault(a + b, len(vocab))
+        for w, s in seqs.items():
+            out, i = [], 0
+            while i < len(s):
+                if i + 1 < len(s) and s[i] == a and s[i + 1] == b:
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(s[i])
+                    i += 1
+            seqs[w] = out
+    vocab["<|endoftext|>"] = len(vocab)
+    return vocab, merges
+
+
+def write_opt_hf_dir(torch, path: str, n_layers: int, seed: int) -> dict:
+    """A local HF-format OPT-6.7B directory cut to ``n_layers``:
+    config.json, fp16 weights from a seeded generator on the card (every
+    kernel and embedding normal with std 1/sqrt(K), LayerNorm scales near
+    1, biases and shifts near 0) written by the port's safetensors writer
+    in two shards, and a byte-level BPE vocab.json and merges.txt learned
+    on the phase's corpus. Returns its sizes."""
+    from ant_quantization_tpu_torch.harness.safetensors_io import (
+        write_safetensors)
+    from ant_quantization_tpu_torch.models.transformer_lm import opt_config
+    c = opt_config("6.7b")
+    config = {"model_type": "opt", "architectures": ["OPTForCausalLM"],
+              "vocab_size": c.vocab_size, "hidden_size": c.d_model,
+              "num_hidden_layers": n_layers,
+              "num_attention_heads": c.n_heads, "ffn_dim": c.d_ff,
+              "max_position_embeddings": c.max_seq,
+              "word_embed_proj_dim": c.d_model, "do_layer_norm_before": True,
+              "activation_function": "relu", "torch_dtype": "float16"}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def normal(shape, std, mean=0.0):
+        return (torch.randn(shape, device="cuda", generator=g) * std
+                + mean).to(torch.float16)
+
+    d, ff = c.d_model, c.d_ff
+    pre = "model.decoder"
+    shards = [{f"{pre}.embed_tokens.weight":
+               normal((c.vocab_size, d), d ** -0.5),
+               f"{pre}.embed_positions.weight":
+               normal((c.max_seq + 2, d), d ** -0.5)}, {}]
+    for i in range(n_layers):
+        sd = shards[0 if i < n_layers // 2 else 1]
+        b = f"{pre}.layers.{i}"
+        for ln in ("self_attn_layer_norm", "final_layer_norm"):
+            sd[f"{b}.{ln}.weight"] = normal((d,), 0.05, 1.0)
+            sd[f"{b}.{ln}.bias"] = normal((d,), 0.05)
+        for name, (k, n) in (("self_attn.q_proj", (d, d)),
+                             ("self_attn.k_proj", (d, d)),
+                             ("self_attn.v_proj", (d, d)),
+                             ("self_attn.out_proj", (d, d)),
+                             ("fc1", (d, ff)), ("fc2", (ff, d))):
+            sd[f"{b}.{name}.weight"] = normal((n, k), k ** -0.5)
+            sd[f"{b}.{name}.bias"] = normal((n,), 0.02)
+    shards[1][f"{pre}.final_layer_norm.weight"] = normal((d,), 0.05, 1.0)
+    shards[1][f"{pre}.final_layer_norm.bias"] = normal((d,), 0.05)
+    n_bytes = 0
+    for i, sd in enumerate(shards):
+        write_safetensors(
+            os.path.join(path, f"model-0000{i + 1}-of-00002.safetensors"),
+            sd, {"format": "pt"})
+        n_bytes += sum(t.numel() * t.element_size() for t in sd.values())
+    text = generated_corpus(seed)
+    vocab, merges = train_bpe(text, SERVE_MERGES)
+    with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n"
+                + "\n".join(f"{a} {b}" for a, b in merges) + "\n")
+    with open(os.path.join(path, "corpus.txt"), "w", encoding="utf-8") as f:
+        f.write(text)
+    return {"weight_bytes": n_bytes, "vocab": len(vocab),
+            "merges": len(merges), "corpus_chars": len(text)}
+
+
+class StageClock:
+    """Wraps functions so that each call is timed between two
+    ``torch.cuda.synchronize()`` and its result kept, by stage name."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.seconds: dict = {}
+        self.results: dict = {}
+
+    def wrap(self, stage: str, fn):
+        def timed(*args, **kwargs):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            self.seconds[stage] = (self.seconds.get(stage, 0.0)
+                                   + time.perf_counter() - t0)
+            self.results[stage] = out
+            return out
+        return timed
+
+    def patch(self, stages):
+        """A context manager patching each (stage, module, name)."""
+        import contextlib
+        stack = contextlib.ExitStack()
+        for stage, module, name in stages:
+            stack.enter_context(mock.patch.object(
+                module, name, self.wrap(stage, getattr(module, name))))
+        return stack
+
+
+def run_cli(main_fn, argv) -> str:
+    """A CLI's ``main(argv)`` in process; its standard output."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main_fn(argv)
+    return buf.getvalue()
+
+
+def phase_serve_cli(torch, gen, smi: str, n_layers: int = SERVE_LAYERS
+                    ) -> dict:
+    """The LM command lines on the card, in process, as a user runs them:
+    a local HF OPT-6.7B directory at full width and ``n_layers`` layers
+    (``write_opt_hf_dir``), then ``tools.serve_cli.main`` with the CLI's
+    defaults (OliVe "ant-int-flint" W4A4, "w4", INT8 KV) plus
+    ``--lm_head_int8``: 4 prompts of 512/384/256/128 ids, 32 new tokens,
+    4 slots, max_seq 608, ``--save_engine``; again with
+    ``--load_engine`` on the same prompts (every count set to 0 just
+    before it): the tokens must be identical, the restored engine equal
+    leaf for leaf to the built one (on the card), the packed w4 bytes
+    below 0.66 of the int8 bytes, decode on K4 at every site and K2 for
+    attention with no plain version; then ``tools.clm_eval.main`` on the
+    same directory and a generated text tokenized by the port's BPE
+    (block 512, batch 4, 4 blocks), whose perplexity must be finite.
+    Prints each stage's seconds, the serve tokens/s, the w4 bytes, peak
+    memory and the perplexity beside the card."""
+    import tempfile
+    from ant_quantization_tpu_torch.harness import zoo
+    from ant_quantization_tpu_torch.serve import engine as eng
+    from ant_quantization_tpu_torch.tools import clm_eval, serve_cli
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    res = {"layers": n_layers, "prompts": list(SERVE_PROMPTS),
+           "new_tokens": SERVE_NEW, "max_seq": SERVE_MAX_SEQ}
+    with tempfile.TemporaryDirectory(prefix="serve_cli_") as tmp:
+        model_dir = os.path.join(tmp, "opt-6.7b")
+        engine_dir = os.path.join(tmp, "engine")
+        os.makedirs(model_dir)
+        t0 = time.perf_counter()
+        res["model_dir"] = write_opt_hf_dir(torch, model_dir, n_layers,
+                                            seed=12)
+        res["write_s"] = time.perf_counter() - t0
+        vocab = res["model_dir"]["vocab"]
+        prompts = ";".join(",".join(str(int(t)) for t in torch.randint(
+            0, vocab, (n,), device="cuda", generator=gen).tolist())
+            for n in SERVE_PROMPTS)
+        argv = ["--model", model_dir, "--prompt-ids", prompts,
+                "--max_new_tokens", str(SERVE_NEW), "--slots", "4",
+                "--max_seq", str(SERVE_MAX_SEQ), "--lm_head_int8"]
+        clock = StageClock(torch)
+        with clock.patch([("import", zoo, "get_lm"),
+                          ("calibrate", serve_cli, "calibrate_on_batches"),
+                          ("build", eng, "build_engine_params"),
+                          ("pack_and_save", serve_cli, "save_engine")]):
+            out_save = run_cli(serve_cli.main,
+                               argv + ["--save_engine", engine_dir])
+        built = clock.results["build"]
+        with open(os.path.join(engine_dir, "engine.json")) as f:
+            meta = json.load(f)
+        reset_counts()
+        with clock.patch([("load_and_unpack", serve_cli, "load_engine")]):
+            out_load = run_cli(serve_cli.main,
+                               argv + ["--load_engine", engine_dir])
+        counts = read_counts()
+        reset_counts()
+        _, loaded = clock.results["load_and_unpack"]
+        lines = {k: [json.loads(l) for l in o.splitlines()]
+                 for k, o in (("save", out_save), ("load", out_load))}
+        toks = {k: [l["tokens"] for l in v[:-1]] for k, v in lines.items()}
+        flat_b, flat_l = (dict(eng._flatten(t)) for t in (built, loaded))
+        same = (set(flat_b) == set(flat_l) and all(
+            flat_l[p].device == v.device and flat_l[p].dtype == v.dtype
+            and torch.equal(flat_l[p], v) for p, v in flat_b.items()))
+        w4_stacks = [p for p in flat_b if p[-1] == "w_i8"]
+        ticks = SERVE_NEW - 1
+        sites = 6 * n_layers
+        want = {k: 0 for k in counts}
+        want["K4"] = sites * ticks
+        want["K2"] = n_layers * (ticks + len(SERVE_PROMPTS))
+        got = {k: v["launches"] for k, v in counts.items()}
+        res.update(
+            seconds={"write": res.pop("write_s"), **clock.seconds},
+            serve={k: v[-1] for k, v in lines.items()},
+            tokens_identical=toks["save"] == toks["load"]
+            and len(toks["save"]) == len(SERVE_PROMPTS)
+            and all(len(t) == SERVE_NEW for t in toks["save"]),
+            restored_equal=same, w4_stacks=len(w4_stacks),
+            w4_bytes_i8=meta["w4_bytes_i8"],
+            w4_bytes_packed=meta["w4_bytes_packed"],
+            w4_packed_share=meta["w4_bytes_packed"] / meta["w4_bytes_i8"],
+            launches=got, want_launches=want,
+            plain_calls={k: v["plain_calls"] for k, v in counts.items()})
+        del built, loaded, flat_b, flat_l
+        clock = StageClock(torch)
+        with clock.patch([("import", zoo, "get_lm"),
+                          ("calibrate", clm_eval, "calibrate_on_batches"),
+                          ("perplexity", clm_eval, "lm_perplexity")]):
+            out_eval = run_cli(clm_eval.main, [
+                "--model", model_dir, "--dataset",
+                os.path.join(model_dir, "corpus.txt"), "--block_size", "512",
+                "--batch_size", "4", "--max_blocks", "4"])
+        ppl = json.loads(out_eval)
+        res["clm_eval"] = {"seconds": clock.seconds, **ppl}
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["pass"] = bool(
+        res["tokens_identical"] and res["restored_equal"]
+        and res["w4_stacks"] == 6
+        and res["w4_packed_share"] < 0.66 and got == want
+        and not any(res["plain_calls"].values())
+        and math.isfinite(ppl["perplexity"]))
+    emit({"phase": "serve_cli", **res})
+    emit({"phase": "serve_cli_perplexity", "perplexity": ppl["perplexity"],
+          "eval_loss": ppl["eval_loss"], "card": smi})
+    if not res["pass"]:
+        fail(f"serve_cli: {res}")
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -3899,6 +4195,7 @@ def main() -> int:
     f5_err = phase_checks_f5(torch, gen)
     pct_rows = phase_checks_percentile(torch, gen)
     cal = phase_calibrate_serve(torch, gen)
+    serve = phase_serve_cli(torch, gen, smi)
     engine, counts, ids = phase_main(torch, gen)
     sites, k2_rows = phase_times(torch, engine)
     phase_profile(torch, engine, ids)
@@ -4172,6 +4469,8 @@ def main() -> int:
         if tag in ("K1", "K2", "K4"):
             k["launches_calibrate_serve"] = {
                 f: cal[f]["launches"][tag] for f in ("ant", "olive")}
+        if tag in ("K2", "K4"):
+            k["launches_serve_cli"] = serve["launches"][tag]
     emit({"kernels": kernels, "card": smi, "hbm_copy_bytes_per_s": hbm,
           "int8_matmul_k196_max_abs_err": f5_err["int8_matmul"],
           "outlier_percentile_67m": pct_rows,
@@ -4182,6 +4481,12 @@ def main() -> int:
                                          "decode_ms_per_step")}
               for f in ("ant", "olive")},
           "gpt2_kscale_route_per_layer": kscale_per_layer,
+          "serve_cli": {k: serve[k] for k in ("seconds", "serve",
+                                              "w4_bytes_i8",
+                                              "w4_bytes_packed",
+                                              "max_memory_allocated",
+                                              "phase_s")},
+          "serve_cli_perplexity": serve["clm_eval"]["perplexity"],
           "seconds": time.perf_counter() - t_start})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -13,6 +13,8 @@ from ant_quantization_tpu.kernels.attention import (
     stacked_int8_kv_attention as jk2)
 from ant_quantization_tpu_torch.kernels import attention as tk2
 
+from test_torch_engine import one_torch_thread  # noqa: F401 (autouse)
+
 pytestmark = pytest.mark.torchdep
 
 _SLOPES = np.float32([0.5, 0.25, 0.125])

@@ -15,6 +15,8 @@ import jax.numpy as jnp
 from ant_quantization_tpu.kernels.attention import int8_kv_attention as jk7
 from ant_quantization_tpu_torch.kernels import attention as tk
 
+from test_torch_engine import one_torch_thread  # noqa: F401 (autouse)
+
 pytestmark = pytest.mark.torchdep
 
 _B, _H, _S, _D = 2, 3, 40, 128

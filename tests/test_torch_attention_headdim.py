@@ -39,6 +39,8 @@ from ant_quantization_tpu_torch.models.transformer_lm import (bloom_config,
                                                               gpt2_config)
 from ant_quantization_tpu_torch.serve import engine as teng
 
+from test_torch_engine import one_torch_thread  # noqa: F401 (autouse)
+
 pytestmark = pytest.mark.torchdep
 
 _L, _B, _H, _S = 2, 2, 2, 64

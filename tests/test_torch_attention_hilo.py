@@ -18,6 +18,8 @@ from ant_quantization_tpu.kernels.attention import (
     stacked_int8_kv_attention as jk2)
 from ant_quantization_tpu_torch.kernels import attention as tk2
 
+from test_torch_engine import one_torch_thread  # noqa: F401 (autouse)
+
 pytestmark = pytest.mark.torchdep
 
 _ATOL = 1e-4        # K2_TOL["f32"] in chip_smoke.py

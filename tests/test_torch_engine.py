@@ -29,6 +29,18 @@ from ant_quantization_tpu_torch.serve import engine as teng
 
 pytestmark = pytest.mark.torchdep
 
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread for torch. The suite runs six workers on the
+    host's shared cores, where torch's OpenMP threads spin against each
+    other and the JAX references' threads; the port's test files import
+    this fixture (autouse in each module that holds it)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 _GEOM = dict(vocab_size=128, d_model=256, n_layers=2, n_heads=2, d_ff=512,
              max_seq=96, positions="learned_offset2", activation="relu",
              fused_qkv=False)
@@ -230,34 +242,18 @@ def test_unported_features_raise():
 
 
 def test_package_imports_no_jax():
-    """Importing every module of the port loads neither jax nor the
-    reference package."""
-    mods = ["ant_quantization_tpu_torch", "ant_quantization_tpu_torch._ext",
-            "ant_quantization_tpu_torch.convert",
-            "ant_quantization_tpu_torch.serve.engine",
-            "ant_quantization_tpu_torch.serve.sampling",
-            "ant_quantization_tpu_torch.serve.scheduler",
-            "ant_quantization_tpu_torch.serve.speculative",
-            "ant_quantization_tpu_torch.kernels.stacked",
-            "ant_quantization_tpu_torch.kernels.attention",
-            "ant_quantization_tpu_torch.kernels.kv_cache",
-            "ant_quantization_tpu_torch.kernels.qmatmul",
-            "ant_quantization_tpu_torch.models.transformer_lm",
-            "ant_quantization_tpu_torch.numerics.codebooks",
-            "ant_quantization_tpu_torch.ops.ovp",
-            "ant_quantization_tpu_torch.ops.snap",
-            "ant_quantization_tpu_torch.ops.fake_quant",
-            "ant_quantization_tpu_torch.ops.outlier",
-            "ant_quantization_tpu_torch.ops.affine",
-            "ant_quantization_tpu_torch.calibrate.spec",
-            "ant_quantization_tpu_torch.calibrate.search",
-            "ant_quantization_tpu_torch.calibrate.promote",
-            "ant_quantization_tpu_torch.nn.config",
-            "ant_quantization_tpu_torch.nn.layers",
-            "ant_quantization_tpu_torch.utils.calibration",
-            "ant_quantization_tpu_torch.harness.evaluate"]
-    code = ("import importlib, sys\n"
-            f"for m in {mods!r}: importlib.import_module(m)\n"
+    """Importing every module of the port (all of the package, walked by
+    ``pkgutil.walk_packages``) loads neither jax nor the reference
+    package."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import ant_quantization_tpu_torch as pkg\n"
+            "mods = [m.name for m in pkgutil.walk_packages(\n"
+            "    pkg.__path__, pkg.__name__ + '.')]\n"
+            "for m in mods: importlib.import_module(m)\n"
+            "want = {'serve.engine', 'kernels.stacked', 'harness.zoo',\n"
+            "        'tools.serve_cli', 'tools.clm_eval'}\n"
+            "assert {pkg.__name__ + '.' + m for m in want} <= set(mods), "
+            "mods\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'ant_quantization_tpu' or "
             "m.startswith('ant_quantization_tpu.')]\n"

@@ -42,6 +42,8 @@ import test_torch_engine as opt
 import test_torch_engine_bloom as bloom
 import test_torch_w4pack as w4p
 
+from test_torch_engine import one_torch_thread  # noqa: F401 (autouse)
+
 pytestmark = pytest.mark.torchdep
 
 _BF = torch.bfloat16

@@ -21,6 +21,8 @@ from ant_quantization_tpu_torch.models.transformer_lm import LMConfig
 from ant_quantization_tpu_torch.numerics import codebooks as cb
 from ant_quantization_tpu_torch.serve import engine as teng
 
+from test_torch_engine import one_torch_thread  # noqa: F401 (autouse)
+
 pytestmark = pytest.mark.torchdep
 
 _D, _FF = 256, 1024

@@ -13,6 +13,8 @@ import pytest
 from ant_quantization_tpu_torch.serve import engine as teng
 from test_torch_engine_bloom import check_route, configs
 
+from test_torch_engine import one_torch_thread  # noqa: F401 (autouse)
+
 pytestmark = pytest.mark.torchdep
 
 _LONG = 12288

@@ -56,6 +56,8 @@ from ant_quantization_tpu_torch.serve import engine as teng
 
 import test_torch_engine_bf16 as bf
 
+from test_torch_engine import one_torch_thread  # noqa: F401 (autouse)
+
 pytestmark = pytest.mark.torchdep
 
 _D, _FF = 128, 512

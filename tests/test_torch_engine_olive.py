@@ -25,6 +25,8 @@ such an edge in the full-OliVe engine. ``_SEED`` is one whose activations
 keep clear of every edge, so the comparison sees the port's arithmetic
 and not that chance; the site test below holds the arithmetic itself."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -41,6 +43,8 @@ from ant_quantization_tpu_torch.kernels.qmatmul import ovp_decode_values
 from ant_quantization_tpu_torch.models.transformer_lm import LMConfig
 from ant_quantization_tpu_torch.numerics import codebooks as cb
 from ant_quantization_tpu_torch.serve import engine as teng
+
+from test_torch_engine import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.torchdep
 
@@ -121,6 +125,16 @@ def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
+@functools.lru_cache(maxsize=None)
+def _built(kind):
+    """Model ``_SEED``'s params and states, the reference's engine params
+    and the port's own build (shared by the tests; none changes them)."""
+    params, quant = _model(kind, _SEED)
+    jcfg, tcfg = _configs()
+    return (params, quant, jeng.build_engine_params(jcfg, params, quant),
+            teng.build_engine_params(tcfg, params, quant, device="cpu"))
+
+
 def _counts():
     return {k: dict(c) for k, c in (("K1", tk.COUNTS), ("K3", tk.K3_COUNTS),
                                     ("K4", tk.K4_COUNTS))}
@@ -133,10 +147,8 @@ _ROUTES = {"full_olive": "K4", "ovp_weights": "K3", "inexact": None}
 
 @pytest.mark.parametrize("kind", list(_ROUTES))
 def test_olive_engine_matches_reference(kind):
-    params, quant = _model(kind, _SEED)
+    _, _, jep, tep = _built(kind)
     jcfg, tcfg = _configs()
-    jep = jeng.build_engine_params(jcfg, params, quant)
-    tep = teng.build_engine_params(tcfg, params, quant, device="cpu")
     conv = convert.from_jax_engine_params(_np_tree(jep), device="cpu")
     got, want = dict(teng._flatten(tep)), dict(teng._flatten(conv))
     assert set(got) == set(want)
@@ -183,10 +195,8 @@ def test_olive_prefill_sites_match_reference(kind):
     inputs as the reference's. The int8 products are exact; an f32
     product of K terms summed in another order differs by at most
     2 K 2^-24 times the sum of the terms' magnitudes."""
-    params, quant = _model(kind, _SEED)
+    _, _, jep, tep = _built(kind)
     jcfg, tcfg = _configs()
-    jep = jeng.build_engine_params(jcfg, params, quant)
-    tep = teng.build_engine_params(tcfg, params, quant, device="cpu")
     rng = np.random.default_rng(3)
     for name, (K, N) in _SITES.items():
         s = tep["layers"][name]

@@ -18,6 +18,7 @@ build.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -37,6 +38,8 @@ from ant_quantization_tpu_torch.serve import engine as teng
 import test_torch_engine as opt
 import test_torch_engine_bf16 as bf
 import test_torch_engine_bloom as bloom
+
+from test_torch_engine import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.torchdep
 
@@ -80,6 +83,14 @@ def _case(name: str, dtype: str):
                                                               4):
         quant = None                # the dense baseline needs no states
     return jcfg, tcfg, params, quant, ids
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_built(name: str, dtype: str):
+    """The reference's engine params of a case (shared by the tests;
+    none changes them)."""
+    jcfg, _, params, quant, _ = _case(name, dtype)
+    return jeng.build_engine_params(jcfg, params, quant)
 
 
 def _run(jcfg, tcfg, jep, tep, ids, steps, close):
@@ -150,7 +161,7 @@ def _int8_head_close(monkeypatch, top):
 @pytest.mark.parametrize("name", list(_CASES))
 def test_unquantized_engine_matches_reference(name, dtype, monkeypatch):
     jcfg, tcfg, params, quant, ids = _case(name, dtype)
-    jep = jeng.build_engine_params(jcfg, params, quant)
+    jep = _jax_built(name, dtype)
     tep = convert.from_jax_engine_params(_np_tree(jep), device="cpu")
     k1, k2 = dict(tk1.COUNTS), dict(tk2.COUNTS)
     steps = 2
@@ -189,9 +200,8 @@ def test_build_engine_params_matches_converted(name):
     a_alpha)."""
     jcfg, tcfg, params, quant, _ = _case(name, "bf16")
     got = teng.build_engine_params(tcfg, params, quant, device="cpu")
-    want = convert.from_jax_engine_params(
-        _np_tree(jeng.build_engine_params(jcfg, params, quant)),
-        device="cpu")
+    want = convert.from_jax_engine_params(_np_tree(_jax_built(name, "bf16")),
+                                          device="cpu")
     gl, wl = dict(teng._flatten(got)), dict(teng._flatten(want))
     assert set(gl) == set(wl)
     for path, w in wl.items():

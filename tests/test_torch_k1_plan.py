@@ -24,6 +24,8 @@ from ant_quantization_tpu_torch.kernels.qmatmul import int8_codebook
 from ant_quantization_tpu_torch.numerics import codebooks as cb
 from ant_quantization_tpu_torch.ops.snap import snap_value
 
+from test_torch_engine import one_torch_thread  # noqa: F401 (autouse)
+
 pytestmark = pytest.mark.torchdep
 
 _SHAPES = {"opt q/k/v/out": (4096, 4096), "opt fc_in": (4096, 16384),

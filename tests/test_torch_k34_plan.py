@@ -40,6 +40,8 @@ from ant_quantization_tpu_torch.numerics import codebooks as cb
 from ant_quantization_tpu_torch.ops.ovp import victim_mask
 from ant_quantization_tpu_torch.serve.engine import _aovp_encode_tables
 
+from test_torch_engine import one_torch_thread  # noqa: F401 (autouse)
+
 pytestmark = pytest.mark.torchdep
 
 F = np.float32

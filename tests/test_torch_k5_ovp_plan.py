@@ -32,6 +32,8 @@ from ant_quantization_tpu.kernels.stacked import stacked_quant_matmul as jk
 from ant_quantization_tpu_torch.kernels import stacked as tk
 from ant_quantization_tpu_torch.ops.snap import snap_value
 
+from test_torch_engine import one_torch_thread  # noqa: F401 (autouse)
+
 pytestmark = pytest.mark.torchdep
 
 F = np.float32

@@ -32,6 +32,8 @@ from ant_quantization_tpu_torch.kernels import stacked as tk
 from ant_quantization_tpu_torch.kernels.qmatmul import int8_codebook
 from ant_quantization_tpu_torch.numerics import codebooks as cb
 
+from test_torch_engine import one_torch_thread  # noqa: F401 (autouse)
+
 pytestmark = pytest.mark.torchdep
 
 F = np.float32

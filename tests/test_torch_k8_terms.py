@@ -22,6 +22,8 @@ from ant_quantization_tpu.kernels import qmatmul as jq
 from ant_quantization_tpu_torch.kernels import qmatmul as tq
 from ant_quantization_tpu_torch.numerics import codebooks as cb
 
+from test_torch_engine import one_torch_thread  # noqa: F401 (autouse)
+
 pytestmark = pytest.mark.torchdep
 
 _K, _N, _M = 512, 96, 24

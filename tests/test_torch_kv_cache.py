@@ -13,6 +13,8 @@ from ant_quantization_tpu.kernels import kv_cache as jkv
 from ant_quantization_tpu_torch.convert import from_jax_kv
 from ant_quantization_tpu_torch.kernels import kv_cache as tkv
 
+from test_torch_engine import one_torch_thread  # noqa: F401 (autouse)
+
 pytestmark = pytest.mark.torchdep
 
 

@@ -14,6 +14,8 @@ from ant_quantization_tpu_torch.kernels import qmatmul as tq
 from ant_quantization_tpu_torch.numerics import codebooks as tcb
 from ant_quantization_tpu_torch.ops import snap as tsnap
 
+from test_torch_engine import one_torch_thread  # noqa: F401 (autouse)
+
 pytestmark = pytest.mark.torchdep
 
 _MODES = ("int", "pot", "apot", "float", "float1", "flint")

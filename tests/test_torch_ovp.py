@@ -18,6 +18,8 @@ from ant_quantization_tpu_torch.numerics import codebooks as tcb
 from ant_quantization_tpu_torch.ops import ovp as tovp
 from ant_quantization_tpu_torch.ops import snap as tsnap
 
+from test_torch_engine import one_torch_thread  # noqa: F401 (autouse)
+
 pytestmark = pytest.mark.torchdep
 
 

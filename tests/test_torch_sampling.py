@@ -13,6 +13,8 @@ import jax.numpy as jnp
 from ant_quantization_tpu.serve import sampling as jsm
 from ant_quantization_tpu_torch.serve import sampling as tsm
 
+from test_torch_engine import one_torch_thread  # noqa: F401 (autouse)
+
 pytestmark = pytest.mark.torchdep
 
 

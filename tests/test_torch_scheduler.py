@@ -25,6 +25,8 @@ from ant_quantization_tpu_torch.serve.sampling import SamplingConfig
 from ant_quantization_tpu_torch.serve.scheduler import (ContinuousBatcher,
                                                         Request, _bucket)
 
+from test_torch_engine import one_torch_thread  # noqa: F401 (autouse)
+
 pytestmark = pytest.mark.torchdep
 
 GEOM = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, d_ff=64,

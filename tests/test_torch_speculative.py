@@ -24,6 +24,8 @@ from ant_quantization_tpu_torch.serve.speculative import SpeculativeDecoder
 
 import test_torch_scheduler as sch
 
+from test_torch_engine import one_torch_thread  # noqa: F401 (autouse)
+
 pytestmark = pytest.mark.torchdep
 
 

@@ -30,6 +30,8 @@ from ant_quantization_tpu_torch.kernels import stacked as tk
 from ant_quantization_tpu_torch.kernels.qmatmul import ovp_unit
 from ant_quantization_tpu_torch.numerics import codebooks as cb
 
+from test_torch_engine import one_torch_thread  # noqa: F401 (autouse)
+
 pytestmark = pytest.mark.torchdep
 
 _OVP_BYTES = np.array([-127, -100, -70, -65, -64, -33, -8, -2, 0, 2, 8, 33,

@@ -14,6 +14,8 @@
   fallback to the torch route), and on OVP weights (K3 and K5-ovp).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +32,8 @@ from ant_quantization_tpu_torch.kernels import stacked as tk
 from ant_quantization_tpu_torch.models.transformer_lm import LMConfig
 from ant_quantization_tpu_torch.numerics import codebooks as cb
 from ant_quantization_tpu_torch.serve import engine as teng
+
+from test_torch_engine import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.torchdep
 
@@ -153,23 +157,44 @@ def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
+_MAX_SEQ = 128
+_KW = dict(weight_mode="w4", act_bits=4, kv_int8=True, lm_head_int8=True,
+           max_seq=_MAX_SEQ)
+
+
+def _jax_config():
+    return jeng.EngineConfig(lm=JLMConfig(**_geom(_MAX_SEQ)),
+                             dtype=jnp.float32, interpret=True,
+                             stacked_prefill=True, **_KW)
+
+
+@functools.lru_cache(maxsize=None)
+def _built(ovp_weights):
+    """The reference's engine params of seed 0's model and their
+    conversion (shared by the cases; none changes them)."""
+    params, quant = _model(ovp_weights, _MAX_SEQ, seed=0)
+    jep = jeng.build_engine_params(_jax_config(), params, quant)
+    return jep, convert.from_jax_engine_params(_np_tree(jep), device="cpu")
+
+
+def _without_a_q(ep):
+    """``ep`` with fc_out's ``a_q`` and ``a_scale`` left out (a new tree
+    over the same leaves)."""
+    fc_out = {k: v for k, v in ep["layers"]["fc_out"].items()
+              if k not in ("a_q", "a_scale")}
+    return {**ep, "layers": {**ep["layers"], "fc_out": fc_out}}
+
+
 @pytest.mark.parametrize("kind", ["ant", "mixed", "ovp_weights"])
 @pytest.mark.parametrize("B,T", [(2, 40), (3, 100)])
 def test_stacked_prefill_engine(kind, B, T):
-    M, max_seq = B * T, 128
-    kw = dict(weight_mode="w4", act_bits=4, kv_int8=True, lm_head_int8=True,
-              max_seq=max_seq)
-    params, quant = _model(kind == "ovp_weights", max_seq, seed=0)
+    M, max_seq, kw = B * T, _MAX_SEQ, _KW
     ids = np.random.default_rng(1).integers(0, 128, (B, T))
-    jcfg = jeng.EngineConfig(lm=JLMConfig(**_geom(max_seq)),
-                             dtype=jnp.float32, interpret=True,
-                             stacked_prefill=True, **kw)
-    jep = jeng.build_engine_params(jcfg, params, quant)
-    tep = convert.from_jax_engine_params(_np_tree(jep), device="cpu")
+    jcfg = _jax_config()
+    jep, tep = _built(kind == "ovp_weights")
     if kind == "mixed":
         # fc_out as if its grid were not int8-exact: the per-site fallback
-        for tree in (jep["layers"]["fc_out"], tep["layers"]["fc_out"]):
-            del tree["a_q"], tree["a_scale"]
+        jep, tep = _without_a_q(jep), _without_a_q(tep)
     logits = {}
     for pref in (False, True):
         tcfg = teng.EngineConfig(lm=LMConfig(**_geom(max_seq)),

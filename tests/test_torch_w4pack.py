@@ -53,6 +53,8 @@ from ant_quantization_tpu_torch.models.transformer_lm import LMConfig
 from ant_quantization_tpu_torch.numerics import codebooks as cb
 from ant_quantization_tpu_torch.serve import engine as teng
 
+from test_torch_engine import one_torch_thread  # noqa: F401 (autouse)
+
 pytestmark = pytest.mark.torchdep
 
 _GEOM = dict(vocab_size=128, d_model=256, n_layers=2, n_heads=2, d_ff=512,
