@@ -4,9 +4,11 @@
 ``QuantState`` leaves fetched with ``np.asarray``) and returns the port's
 tree of :class:`~.calibrate.spec.QuantState` (same keys,
 ``h_{i}/attn/{q,k,v,qkv,out}|{fc_in,fc_out}/{weight_q,input_q}``);
-``from_jax_lm_params`` takes the reference model's params tree and
-returns the port's ``TransformerLM`` state dict (the flax path joined by
-dots; every leaf keeps its layout, the kernels (in, out) as there).
+``from_jax_lm_params`` takes a reference model's params tree and
+returns the port's state dict for the same model (the flax path joined
+by dots; every leaf keeps its layout, the kernels (in, out) as there):
+the port's modules carry the flax names, so the one function serves
+``TransformerLM`` and the BERT and BART heads alike.
 ``from_jax_engine_params`` takes the reference's engine-params tree (as
 its ``serve/engine.py:build_engine_params`` makes it, leaves fetched with
 ``np.asarray``) and returns the port's tensors and layouts;
@@ -135,8 +137,9 @@ def from_jax_quant(tree: Dict, device=None) -> Dict:
 
 
 def from_jax_lm_params(params: Dict, device=None) -> Dict[str, torch.Tensor]:
-    """The reference model's params tree (numpy leaves) -> the port's
-    ``TransformerLM`` state dict on ``device`` (default "cuda")."""
+    """A reference model's params tree (numpy leaves) -> the port's state
+    dict of the same model (``TransformerLM``, or a BERT or BART head) on
+    ``device`` (default "cuda")."""
     dev = resolve_device(device)
     out = {}
 

@@ -1,13 +1,11 @@
-"""Evaluation loops: the calibration pre-pass and CLM perplexity.
+"""Evaluation loops: the calibration pre-pass, CLM perplexity and GLUE.
 
 Counterpart of the reference's ``harness/evaluate.py``
-(``calibrate_on_batches``, ``lm_perplexity``); ``glue_eval`` comes with
-the BERT model and the harness (ROADMAP Queue 1 item 11).
+(``calibrate_on_batches``, ``lm_perplexity``, ``glue_eval``).
 """
 
 from __future__ import annotations
 
-import math
 from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
@@ -18,8 +16,9 @@ from ..calibrate.promote import set_8_bit_layer_l, set_8_bit_layer_n
 from ..calibrate.spec import QuantState
 from ..nn.layers import quant_tree
 from ..utils.calibration import calibrate_model
+from . import metrics as M
 
-__all__ = ["calibrate_on_batches", "lm_perplexity"]
+__all__ = ["calibrate_on_batches", "lm_perplexity", "glue_eval"]
 
 
 def _reset_initialized(tree):
@@ -95,13 +94,29 @@ def lm_perplexity(model: nn.Module, blocks: np.ndarray, batch_size: int,
         count += ce.numel()
         if log and (i // batch_size + 1) % 10 == 0:
             log(f"eval {i + batch_size}/{n} blocks, ppl so far "
-                f"{_perplexity(total / count):.3f}")
+                f"{M.perplexity(total / count):.3f}")
     loss = total / max(count, 1)
-    return {"eval_loss": loss, "perplexity": _perplexity(loss)}
+    return {"eval_loss": loss, "perplexity": M.perplexity(loss)}
 
 
-def _perplexity(mean_loss: float) -> float:
-    try:
-        return math.exp(mean_loss)
-    except OverflowError:
-        return float("inf")
+def glue_eval(model: nn.Module, batches: Iterable[dict], task: str,
+              regression: bool = False) -> Dict[str, float]:
+    """GLUE metrics over encoded batches (dicts of numpy ``input_ids``,
+    ``token_type_ids`` (optional), ``attention_mask`` and ``labels``):
+    the model's f32 logits come to the host, where the argmax (or, for
+    regression, logit 0) is taken."""
+    dev = next(model.parameters()).device
+    preds, labels = [], []
+    for b in batches:
+        ids = np.asarray(b["input_ids"])
+        args = [torch.as_tensor(np.asarray(a), device=dev).long() for a in (
+            ids, b.get("token_type_ids", np.zeros_like(ids)),
+            b["attention_mask"])]
+        with torch.no_grad():
+            logits = model(*args).to(torch.float32).cpu().numpy()
+        if regression:
+            preds.extend(logits[:, 0].tolist())
+        else:
+            preds.extend(np.argmax(logits, axis=-1).tolist())
+        labels.extend(np.asarray(b["labels"]).tolist())
+    return M.glue_compute_metrics(task, preds, labels)

@@ -1,4 +1,5 @@
-"""Model factory + on-disk checkpoint loading, the decoder-LM half.
+"""Model factory + on-disk checkpoint loading: the decoder LMs and the
+BERT/BART encoders.
 
 Counterpart of the reference's ``harness/zoo.py``: model construction is
 config-driven and weights come from local files:
@@ -10,20 +11,24 @@ config-driven and weights come from local files:
 
 Safetensors files are read by the port's own reader
 (``harness/safetensors_io.py``); every value is cast to f32, as the
-reference does. No network access is required or attempted. The image,
-BERT and BART half comes with those models (ROADMAP Queue 1 item 10).
+reference does. No network access is required or attempted. The
+encoders build the base or large preset whatever the checkpoint's
+config.json says, as the reference's ``get_bert``/``get_bart`` do. The
+image half comes with the image models (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .._ext import resolve_device
+from ..models import bart as bart_mod
+from ..models import bert as bert_mod
 from ..models import import_hf
 from ..models.transformer_lm import (LMConfig, TransformerLM, bloom_config,
                                      gpt2_config, opt_config)
@@ -31,7 +36,7 @@ from ..nn.config import QuantConfig
 from .safetensors_io import read_safetensors
 
 __all__ = ["load_state_dict_file", "load_hf_model_dir", "lm_config_from_hf",
-           "get_lm"]
+           "get_lm", "get_bert", "get_bart", "get_encoder_model"]
 
 
 # ---------------------------------------------------------------------------
@@ -144,3 +149,71 @@ def get_lm(name_or_path: str, qcfg: QuantConfig, params: bool = True,
     family, _, size = name_or_path.partition(":")
     family, cfg = _LM_PRESETS[family](size or None)
     return TransformerLM(cfg, qcfg, device=dev), cfg, None
+
+
+# ---------------------------------------------------------------------------
+# BERT / BART encoders (GLUE + SQuAD)
+# ---------------------------------------------------------------------------
+
+def _load_sd(weights_path: str) -> Dict[str, torch.Tensor]:
+    if os.path.isdir(weights_path):
+        return load_hf_model_dir(weights_path)[1]
+    return load_state_dict_file(weights_path)
+
+
+def _load_params(model, params: dict) -> None:
+    """Load an imported params tree into ``model``. Entries the model has
+    no place for (a pooler under the QA head) are ignored, as flax
+    ignores unused params; a missing one raises."""
+    with torch.no_grad():
+        missing, _ = model.load_state_dict(import_hf.lm_state_dict(params),
+                                           strict=False)
+    if missing:
+        raise KeyError(f"the checkpoint lacks {missing}")
+
+
+def _encoder(cfg, cls, importer, qcfg, head, weights_path, device):
+    model = cls(cfg, qcfg, device=resolve_device(device))
+    params = None
+    if weights_path:
+        params = importer(_load_sd(weights_path), cfg, head=head)
+        _load_params(model, params)
+    return model, cfg, params
+
+
+def get_bert(size: str, qcfg: QuantConfig, head: str = "classification",
+             num_labels: int = 2, weights_path: Optional[str] = None,
+             device=None):
+    """(model, cfg, params|None): BERT-base or -large (``size``) with the
+    GLUE (``head="classification"``) or SQuAD (``"qa"``) head on
+    ``device`` (default "cuda"); the imported weights of
+    ``weights_path`` (an HF dir or a weight file) loaded into it and
+    returned as the reference's params tree, else a random init."""
+    cfg_fn = (bert_mod.bert_large_config if size == "large"
+              else bert_mod.bert_base_config)
+    cls = (bert_mod.BertForQuestionAnswering if head == "qa"
+           else bert_mod.BertForSequenceClassification)
+    return _encoder(cfg_fn(num_labels=num_labels), cls,
+                    bert_mod.import_hf_bert, qcfg, head, weights_path,
+                    device)
+
+
+def get_bart(size: str, qcfg: QuantConfig, head: str = "classification",
+             num_labels: int = 2, weights_path: Optional[str] = None,
+             device=None):
+    """As :func:`get_bert`, for BART-base or -large."""
+    cfg_fn = (bart_mod.bart_large_config if size == "large"
+              else bart_mod.bart_base_config)
+    cls = (bart_mod.BartForQuestionAnswering if head == "qa"
+           else bart_mod.BartForSequenceClassification)
+    return _encoder(cfg_fn(num_labels=num_labels), cls,
+                    bart_mod.import_hf_bart, qcfg, head, weights_path,
+                    device)
+
+
+def get_encoder_model(family: str, size: str, qcfg: QuantConfig,
+                      head: str = "classification", num_labels: int = 2,
+                      weights_path: Optional[str] = None, device=None):
+    fn = {"bert": get_bert, "bart": get_bart}[family]
+    return fn(size, qcfg, head=head, num_labels=num_labels,
+              weights_path=weights_path, device=device)

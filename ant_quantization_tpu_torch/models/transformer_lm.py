@@ -15,8 +15,10 @@ at 0); attention divides the f32 scores by f32(sqrt(head_dim)), masks
 with the f32 minimum and takes an f32 softmax. f32 products run without
 TF32. Prefill and decode with an f32 cache (``init_kv_caches``; decode
 writes the new K/V into the given cache in place and returns it).
-The importer of HuggingFace checkpoints (``models/import_hf.py``) and
-the other model families are ROADMAP Queue 1 item 10.
+HuggingFace checkpoints load through ``models/import_hf.py``; the BERT
+and BART encoders (``models/bert.py``, ``models/bart.py``) reuse this
+module's ``LayerNorm`` and ``Embed``; the image models are ROADMAP Queue 1
+item 10.
 """
 
 from __future__ import annotations

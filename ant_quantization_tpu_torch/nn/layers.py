@@ -17,8 +17,9 @@ maps onto a calibrating mode (:func:`calibrating`, in place of flax's
 
 ``quant_tree`` and ``load_quant_tree`` read and set the states as the
 reference's quant collection (``{path: {"weight_q", "input_q"}}``).
-``QuantConv`` and ``QuantMultiHeadAttention`` come with the CNN and BERT
-models (ROADMAP Queue 1 item 10).
+The BERT and BART encoders (``models/bert.py``, ``models/bart.py``) use
+``QuantDense`` alone. ``QuantConv`` and ``QuantMultiHeadAttention`` come
+with the image models, which alone use them (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations

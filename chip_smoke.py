@@ -37,7 +37,8 @@ Phases, each printing one JSON line (numbers unrounded):
    reported);
 9. OliVe main path: OPT-6.7B under full OliVe W4A4 (OVP weights packed
    on the card by ``quantize_weights_ovp_i8``, OVP activations at all six
-   sites), INT8 KV and the int8 head, 32 layers, full width, served as in
+   sites), INT8 KV and the int8 head, DEPTHS["olive"] (16) layers, full
+   width, served as in
    5: every decode site matmul runs K4 (launches counted as in 5), then
    the observed share of OVP outliers and victims in the weights and in
    the decode activations, which must be above 0;
@@ -64,8 +65,9 @@ Phases, each printing one JSON line (numbers unrounded):
    version that must give identical tokens and logits;
 14. w4pack path: OPT-6.7B with packed 4-bit weights built on the card
    by ``quantize_weights_w4`` (ANT int grid at q/k/v: affine decode;
-   flint elsewhere: table decode), 32 layers, served as in 5: decode
-   runs K6 (12,288), prefill K8 (192); K6 times at one decode layer (with
+   flint elsewhere: table decode), DEPTHS["w4pack"] (16) layers, served
+   as in 5: decode runs K6 (6 per layer and step), prefill K8 (6 per
+   layer); K6 times at one decode layer (with
    each launch's plan, and its fixed cost per launch from the line through
    its two table-decoded sites, out at 4096 x 4096 and fc_in) and K8
    times at one prefill layer beside their bounds,
@@ -73,19 +75,20 @@ Phases, each printing one JSON line (numbers unrounded):
    (every K6 call
    bit-equal, every K8 call within K8_RTOL, a K6 swap with identical
    tokens and logits);
-15. bloom_main: BLOOM-7b1 at full width and depth (30 layers, fused qkv
-   at N = 12,288, embed_ln, ALiBi, GELU, vocab 250,880), ANT W4A4 + INT8
-   KV + int8 head, max_seq 2048, served as in 5: decode runs K1 (7,680),
-   attention K2 (1,950); a profile;
+15. bloom_main: BLOOM-7b1 at full width (DEPTHS["bloom"], 10 of its 30
+   layers, fused qkv at N = 12,288, embed_ln, ALiBi, GELU, vocab 250,880),
+   ANT W4A4 + INT8 KV + int8 head, max_seq 2048, served as in 5: decode
+   runs K1 (4 per layer and step), attention K2; a profile;
 16. bloom_ragged: the same engine on prompts of 512/384/256/128 tokens,
    bucket-padded, ``Engine.prefill(ids, lengths)`` and 16 greedy steps at
-   per-sequence positions (K1 1,920, K2 510); each sequence's largest
+   per-sequence positions (K1, K2 counted); each sequence's largest
    logit difference against serving it alone at B = 1; a forward with a
    (B,) pos0 of equal entries bit-equal to the scalar one;
-17. bloom_long: the same params at max_seq 16,384, where the reference
+17. bloom_long: the same params at max_seq 16,384 (DEPTHS["bloom_long"],
+   6 layers), where the reference
    leaves its stacked attention kernel: a 4 x 15,872-token prompt in 31
    forward calls of 512 (the einsum fallback), then 64 greedy steps with
-   attention on K7 (1,920; K2 0); a decode profile; K7 times per decode
+   attention on K7 (K2 0); a decode profile; K7 times per decode
    layer beside its bound, its plain version and SDPA;
 18. K9 times at OPT-6.7B fc_in and fc_out, M 4 and 2048, beside its
    bound, its plain version and ``torch._int_mm``;
@@ -93,7 +96,7 @@ Phases, each printing one JSON line (numbers unrounded):
    against its plain version, and K9 run and checked bit for bit at every
    site matmul on the engine's own activations (no engine path calls K9);
 20. scheduler: a ``ContinuousBatcher`` over the OPT-6.7B ANT W4A4 engine
-   (32 layers; 4 slots, buckets 32/128/512; 10 requests of 20-512
+   (DEPTHS["serving"], 8 layers; 4 slots, buckets 32/128/512; 10 requests of 20-512
    prompt tokens and 16-64 new tokens, 3 with an eos that fires early),
    run with ticks_per_dispatch 1, 8, 8, 1: completed tokens and ticks per
    second, K1 and K2 launches per tick and prefill, and every completion
@@ -112,17 +115,19 @@ Phases, each printing one JSON line (numbers unrounded):
    the plain head, the baseline of bench.py, OPT-6.7B 32 layers, served
    as in 5 (no kernel of the port launches), with its stream floor, a
    decode step held as in 22 and a profile;
-24. gpt2_main: GPT-2 XL at full width and depth (48 layers, d_model 1600,
+24. gpt2_main: GPT-2 XL at full width (DEPTHS["gpt2"], 12 of its 48
+   layers, d_model 1600,
    25 heads of 64, d_ff 6400, vocab 50,257, every site Conv1D, quantized
    per input channel on the card into ``kscale``), ANT W4A4 + INT8 KV +
    int8 head, served as in 5: the reference's all-or-nothing rule sends
    every decode site to the Conv1D route (the fake-quant and an f32
    product against the dequantized f32 weight), so K1 launches 0 times
-   and K2 48 per forward at head_dim 64; its two stream floors; K2 times
+   and K2 once per layer and forward at head_dim 64; its two stream
+   floors; K2 times
    at head_dim 64 on its cache and the Conv1D route's times per layer at
    M 4 and 2048 (the route, its dequantization and its f32 product alone);
    a profile;
-25. gpt2_olive: the same geometry at GPT2_OLIVE_LAYERS (12) layers under
+25. gpt2_olive: the same geometry at DEPTHS["gpt2_olive"] (4) layers under
    full OliVe (OVP weights paired along the output axis, OVP activations
    at alpha about 2.5 times each input's RMS), served as in 5, then its
    OVP shares, which must be above 0, and a profile;
@@ -181,6 +186,27 @@ bit-equal to their plain versions (``phase_checks_f5``); and
 arithmetic on the host and within 1e-5 of ``np.percentile``
 (``phase_checks_percentile``).
 
+29. encoders (run after serve_cli): the encoder PTQ path, which no
+   kernel of the port serves (its products are the fake-quant model's
+   f32 ``torch.matmul``, as the reference's are XLA dots): the port's
+   ``glue_run`` on BERT-base at full width and depth on generated SST-2-
+   and MRPC-style TSVs and on BART-base (6 + 6 layers) in synthetic-batch
+   mode, and ``squad_run`` on BERT-base on a generated SQuAD v1.1 file,
+   each with its recipe's flags as the port's ``run_recipe`` builds them
+   (OliVe "ant-int-flint" W4A4, bounds 75-250) on a generated HF
+   directory (std-0.02 weights) and WordPiece vocabulary: seconds for
+   import, calibration and eval, eval sequences/s, the metrics, peak
+   memory and the OVP outlier and victim shares of the calibrated
+   weights and activations, which must be above 0, with every kernel
+   count 0; then the card held to the CPU on 2 layers at BERT-base width
+   and one 8 x 128 batch (``enc_hold``): each site's ``calibrate`` on the
+   card against the CPU's on the same data, each site's output on the
+   card's own input within 1e-5 of |qx| @ |qw| of the CPU's fake-quant,
+   and the unquantized logits within 1e-4 of the largest.
+
+K2 at head_dim 80 and K7 at head_dim 64 are timed on random caches
+(``phase_times_headdim``, after 27).
+
 Then the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line. Without a CUDA device, or without the package beside this
@@ -220,6 +246,17 @@ K8_RTOL = 1e-5
 # of the same int32 partial sums (exact while they stay below 2^24)
 SP_OVP_RTOL = 1e-3
 
+
+# The depths of the paths that run at less than their model's depth, to
+# keep the script under 600 s: their widths, kernels and checks are the
+# full model's. OPT-6.7B (32 layers): "serving" is the ANT engine of the
+# scheduler, speculative and W4A16 phases, "olive" full OliVe and the
+# OVP-weights path, "w4pack"; BLOOM-7b1 (30): "bloom" bloom_main and
+# bloom_ragged, "bloom_long"; GPT-2 XL (48): "gpt2" gpt2_main,
+# "gpt2_olive" (its decode is host-bound, about 0.8 s per step at 48
+# layers). OPT's ANT main path and the bf16 baseline run all 32.
+DEPTHS = {"serving": 8, "olive": 16, "w4pack": 16, "bloom": 10,
+          "bloom_long": 6, "gpt2": 12, "gpt2_olive": 4}
 
 _T0 = time.perf_counter()
 
@@ -1419,7 +1456,8 @@ def ovp_bound(M, K, N, dots: int, table_bytes: int):
 
 def phase_times_ovp(torch, olive_engine, ovpw_engine):
     """K3 and K4 times at one decode layer's six sites (M = 4), on the
-    32-layer OVP weight stacks of the two OliVe engines and their own
+    OVP weight stacks of the two OliVe engines (DEPTHS["olive"] layers)
+    and their own
     tables, layers rotated so the weights come from device memory: the
     kernel, its launch plan, its plain version, the bound, K1 on the same
     weight stream (K3 and K4 run on its stream: the difference is their
@@ -1485,7 +1523,7 @@ def phase_times_ovp(torch, olive_engine, ovpw_engine):
 
 
 def phase_times_w4pack(torch, engine):
-    """K6 and K8 times on the 32-layer "w4pack" engine's own stacks:
+    """K6 and K8 times on the "w4pack" engine's own stacks:
     K6 at one decode layer's six sites (M = 4, layers rotated so the
     weights come from device memory) beside its byte bound, its plain
     version and torch._int_mm on the unpacked int8 weights (the same
@@ -1645,7 +1683,7 @@ def phase_times_k5(torch, engine):
 
 def phase_times_k5_ovp(torch, ovpw_engine):
     """K5's OVP mode alone at one prefill layer's six sites (M = 2048) on
-    the OVP-weights engine's 32-layer stacks of OVP bytes, layers rotated:
+    the OVP-weights engine's stacks of OVP bytes, layers rotated:
     beside its bound (two int8 dots), its plain version (the torch route
     with two _int_mm and K3's f32 order) and torch._int_mm for one of its
     two dots on the same bytes (no single call computes the pair)."""
@@ -2211,7 +2249,7 @@ def hold_decode_step(torch, engine, phase: str) -> dict:
 
 
 def phase_bloom_main(torch, gen, n_layers: int = 30):
-    """BLOOM-7b1 at full width and depth (fused qkv at N = 12,288, embed_ln,
+    """BLOOM-7b1 at full width (fused qkv at N = 12,288, embed_ln,
     ALiBi, GELU), ANT W4A4 + INT8 KV + int8 head, max_seq 2048, random
     weights from a seeded generator: ``Engine.prefill`` of bs 4 x 512 and
     64 greedy decode steps. Attention runs K2 at this cache length (the
@@ -2357,7 +2395,7 @@ def long_chunk(engine, ids):
 
 def phase_times_k7(torch, engine):
     """K7 per decode layer (one launch, T = 1) on the bloom_long engine's
-    own 30-layer cache at S = 16,384, layers rotated, pos0 at its last
+    own cache at S = 16,384, layers rotated, pos0 at its last
     written position: beside its byte bound, its plain version, and SDPA
     on the layer's dequantized bf16 cache with the ALiBi bias as its mask
     (the same function)."""
@@ -2375,7 +2413,8 @@ def phase_times_k7(torch, engine):
 def k7_time_row(torch, kv, p: int, slopes) -> dict:
     """K7 at T = 1 and pos0 ``p`` on the layers of a stacked cache ``kv``
     (L, B, H, S, D), rotated, beside ``k2_bound``, its plain version and
-    SDPA on the dequantized bf16 cache with the ALiBi bias as its mask."""
+    SDPA on the dequantized bf16 cache with the ALiBi bias as its mask
+    (``slopes`` None: no ALiBi, no mask)."""
     import torch.nn.functional as F
     from ant_quantization_tpu_torch.kernels import attention as k2
     from ant_quantization_tpu_torch.kernels.kv_cache import dequant_kv
@@ -2397,7 +2436,8 @@ def k7_time_row(torch, kv, p: int, slopes) -> dict:
         kd.append(kl[:, :, :p + 1])
         vd.append(vl[:, :, :p + 1])
     rel = (torch.arange(p + 1, device="cuda") - p).to(torch.float32)
-    bias = (slopes[:, None] * rel[None, :]).to(torch.bfloat16)[None, :, None]
+    bias = (None if slopes is None else (slopes[:, None] * rel[None, :]).to(
+        torch.bfloat16)[None, :, None])
     qb = q.to(torch.bfloat16)
     t_l = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
         qb, kd[i % n_l], vd[i % n_l], attn_mask=bias), 2 * n_l)
@@ -2609,12 +2649,13 @@ def phase_bf16_baseline(torch, gen, n_layers: int = 32):
 def phase_w4a16(torch, gen, ant_ep):
     """"w4" without activation quantization (W4A16): the ANT main path's
     int8 weight stacks (shared, not copied) without their activation
-    leaves, INT8 KV and the int8 head, 32 layers. Every site runs the
+    leaves, INT8 KV and the int8 head, at their depth. Every site runs the
     reference's unfused branch (x in bf16 against the int8 values, the
     library's bf16 product with an f32 result, then oscale), so K1 does
     not launch; attention runs K2. Then a profile."""
     from ant_quantization_tpu_torch.serve.engine import Engine
-    cfg = opt_engine_config(32, torch.bfloat16, act_bits=0)
+    cfg = opt_engine_config(len(ant_ep["layers"]["q"]["w_i8"]),
+                            torch.bfloat16, act_bits=0)
     c = cfg.lm
     layers = {name: ({k: s[k] for k in ("w_i8", "oscale", "bias")}
                      if "w_i8" in s else s)
@@ -2668,7 +2709,7 @@ def first_divergence(got, want, margins):
 
 
 def phase_scheduler(torch, gen, cfg, ep):
-    """A ContinuousBatcher over the OPT-6.7B ANT W4A4 engine (32 layers):
+    """A ContinuousBatcher over the OPT-6.7B ANT W4A4 engine:
     SCHED_SLOTS slots, buckets SCHED_BUCKETS, the requests SCHED_PROMPTS
     x SCHED_NEW, SCHED_EOS of them with an eos that fires early (the
     first token of the request's own stream that it did not emit before,
@@ -2829,7 +2870,7 @@ def plain_greedy(torch, eng, cfg, ep, ids, n: int):
 
 
 def phase_speculative(torch, gen, cfg, ep):
-    """Speculative decoding: the OPT-6.7B ANT W4A4 target (32 layers)
+    """Speculative decoding: the OPT-6.7B ANT W4A4 target
     with a draft of the same geometry at SPEC_DRAFT_LAYERS layers (random
     weights, seed 1), k = SPEC_K, bs BATCH, a PREFILL-token prompt:
     - t_plain, t_verify and t_draft: host ms per target forward at T = 1
@@ -3063,11 +3104,6 @@ def phase_checks_headdim(torch, gen):
 # positions, gelu_new, every site Conv1D) under "w4" at the main path's
 # batch, prompt, steps and max_seq
 GPT2_MODEL = "GPT-2 XL"
-# gpt2_olive's depth: its decode takes about 0.8 s per step at 48 layers
-# (the concat snap as some 30,000 small torch kernels per step, host-bound),
-# which took the whole script past 600 s; its width and every phase of it
-# stay
-GPT2_OLIVE_LAYERS = 12
 
 
 def gpt2_engine_config(n_layers: int, dtype):
@@ -3147,12 +3183,12 @@ def gpt2_stream_floor(cfg) -> dict:
 
 
 def phase_gpt2_main(torch, gen, n_layers: int = 48):
-    """GPT-2 XL at full width and depth under ANT W4A4 (every site Conv1D,
+    """GPT-2 XL at full width under ANT W4A4 (every site Conv1D,
     per-input-channel ``kscale``), INT8 KV and the int8 head: served as in
     5. Decode follows the reference's all-or-nothing rule, so no stacked
     product kernel runs (K1 0); every site takes the fake-quant and an f32
     product against its dequantized weight; attention runs K2 at head_dim
-    64 (48 launches per forward)."""
+    64 (one launch per layer and forward)."""
     from ant_quantization_tpu_torch.serve.engine import Engine, attention_route
     cfg = gpt2_engine_config(n_layers, torch.bfloat16)
     c = cfg.lm
@@ -3228,7 +3264,7 @@ def gpt2_ovp_shares(torch, engine, tok, steps: int = 8) -> dict:
     return out
 
 
-def phase_gpt2_olive(torch, gen, n_layers: int = GPT2_OLIVE_LAYERS):
+def phase_gpt2_olive(torch, gen, n_layers: int = DEPTHS["gpt2_olive"]):
     """GPT-2 XL under full OliVe W4A4 (OVP weights paired along out at
     every Conv1D site, OVP activations), INT8 KV and the int8 head, served
     as in 5 (K2 only; no stacked kernel at a Conv1D site); then the
@@ -3332,6 +3368,39 @@ def phase_times_k7_bloom3b(torch, gen):
           "model": "BLOOM-3b", "K7": row})
     del kv
     return row
+
+
+def phase_times_headdim(torch, gen) -> dict:
+    """The head_dim rows that the engine paths leave untimed, on random
+    INT8 caches: K2 at head_dim 80 (BLOOM-3b: B 4, H 32, S 2048, 8 layers
+    rotated; decode at position 575 and a 512-query prefill, no ALiBi, as
+    ``k2_time_rows`` times D 128 and 64) and K7 at head_dim 64 (GPT-2 XL:
+    B 4, H 25, S 16,384, 2 layers; T = 1 at the bloom_long path's last
+    decode position, no ALiBi; ``k7_time_row``)."""
+    from ant_quantization_tpu_torch.kernels.kv_cache import QuantKV
+    from ant_quantization_tpu_torch.models.transformer_lm import (
+        bloom_config, gpt2_config)
+
+    def cache(L, H, S, D):
+        shape = (L, BATCH, H, S)
+        return QuantKV(*(torch.randint(-127, 128, shape + (D,),
+                                       dtype=torch.int8, device="cuda",
+                                       generator=gen) for _ in range(2)),
+                       *(torch.rand(shape, device="cuda", generator=gen)
+                         * 0.02 for _ in range(2)))
+
+    c = bloom_config("3b")
+    kv = cache(8, c.n_heads, BLOOM_MAX_SEQ, c.head_dim)
+    k2_rows = k2_time_rows(torch, kv, 8, gen)
+    del kv
+    c = gpt2_config("xl")
+    kv = cache(2, c.n_heads, BLOOM_LONG_SEQ, c.head_dim)
+    k7_row = k7_time_row(torch, kv, BLOOM_LONG_PROMPT + DECODE - 1, None)
+    del kv
+    torch.cuda.empty_cache()
+    emit({"phase": "kernel_times_headdim", "graphed": True,
+          "K2_head_dim_80": k2_rows, "K7_head_dim_64": k7_row})
+    return {"K2": k2_rows, "K7": k7_row}
 
 
 def phase_insitu_gpt2(torch, gen):
@@ -4161,6 +4230,538 @@ def phase_serve_cli(torch, gen, smi: str, n_layers: int = SERVE_LAYERS
     return res
 
 
+# The encoder PTQ path: BERT-base and BART-base at full width and depth,
+# through the port's glue_run and squad_run with the flags of
+# recipes/olive_glue.toml and olive_squad.toml (read by the port's
+# run_recipe), on generated checkpoints, vocabulary and data
+ENC_SEED = 13
+ENC_WORDS = 3000           # WordPiece words taken from the generated corpus
+ENC_GLUE_ROWS = {"train": 128, "dev": 512}   # one calibration batch, 4 eval
+ENC_SQUAD_EXAMPLES = 32    # 2-3 features each at max_seq 384, stride 128
+ENC_HOLD_LAYERS = 2        # the card held to the CPU: BERT-base width
+ENC_HOLD_ROWS = 8          # one 8 x 128 batch
+# the CPU recalibrates each site's weight on its first ENC_HOLD_CHANNELS
+# output channels and its input on the batch's first row (the whole
+# 2-layer tree takes the host's cores minutes)
+ENC_HOLD_CHANNELS = 32
+ENC_FLOAT_RTOL = 1e-4      # --disable_quant logits, of the largest |logit|
+
+
+def enc_sentences(seed: int) -> list:
+    """The generated corpus (``generated_corpus``) cut into sentences of
+    at least four words, each on one line."""
+    import re
+    text = generated_corpus(seed)
+    return [" ".join(s.split()) for s in re.split(r"(?<=[.;!?])\s+", text)
+            if len(s.split()) >= 4]
+
+
+def wordpiece_vocab(sentences, n_words: int) -> list:
+    """A BERT vocabulary: the special tokens, the punctuation, the
+    n_words most frequent lower-cased words, then every letter alone and
+    as a "##" continuation (so that every word tokenizes)."""
+    import collections
+    import re
+    counts = collections.Counter(
+        w for s in sentences for w in re.findall(r"[a-z]+", s.lower()))
+    letters = sorted({ch for w in counts for ch in w})
+    toks = (["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + list(".,;!?")
+            + [w for w, _ in counts.most_common(n_words)] + letters
+            + ["##" + ch for ch in letters])
+    return list(dict.fromkeys(toks))
+
+
+def glue_rows(task: str, sentences, n: int, rng) -> list:
+    """n (text_a, text_b or None, label) rows of ``task``: sentences drawn
+    from ``sentences``, labels uniform over the task's (STS-B a score in
+    [0, 5])."""
+    from ant_quantization_tpu_torch.harness.data import GLUE_TASKS
+    info = GLUE_TASKS[task]
+    pick = lambda: sentences[int(rng.integers(len(sentences)))]
+    labels = info["labels"]
+    return [(pick(), pick() if info["cols"][1] is not None else None,
+             f"{rng.uniform(0, 5):.3f}" if labels is None
+             else labels[int(rng.integers(len(labels)))])
+            for _ in range(n)]
+
+
+def write_glue_tsv(path: str, task: str, rows) -> None:
+    """``rows`` as a GLUE TSV in ``task``'s column layout (its header row,
+    text_a, text_b and label at the task's columns, a label column of -1
+    last, the other columns filled)."""
+    from ant_quantization_tpu_torch.harness.data import GLUE_TASKS
+    info = GLUE_TASKS[task]
+    ca, cb, cl = info["cols"]
+    width = max(ca, cb or 0, cl) + 1 if cl >= 0 else max(ca, cb or 0) + 2
+    lab = cl if cl >= 0 else width - 1
+    lines = (["\t".join(f"column_{i}" for i in range(width))]
+             if info["header"] else [])
+    for a, b, label in rows:
+        row = [f"f{i}" for i in range(width)]
+        row[ca], row[lab] = a, label
+        if cb is not None:
+            row[cb] = b
+        lines.append("\t".join(row))
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def squad_doc(sentences, n_examples: int, rng, version_2: bool,
+              context_sentences: int = 40) -> dict:
+    """A SQuAD v1.1 (or v2.0) document: one paragraph of
+    ``context_sentences`` sentences per example, its question some words of
+    one sentence and a "?", its answer 1-3 words of that sentence (v2.0:
+    every third question unanswerable)."""
+    data = []
+    for i in range(n_examples):
+        sents = [sentences[int(rng.integers(len(sentences)))]
+                 for _ in range(context_sentences)]
+        ctx = " ".join(sents)
+        j = int(rng.integers(len(sents)))
+        words = sents[j].split()
+        k = int(rng.integers(len(words) - 3))
+        answer = " ".join(words[k:k + int(rng.integers(1, 4))])
+        start = len(" ".join(sents[:j])) + (1 if j else 0)
+        start = ctx.index(answer, start)
+        impossible = version_2 and i % 3 == 2
+        qa = {"id": f"q{i}", "question": " ".join(words[:4]) + "?",
+              "answers": [] if impossible else
+              [{"text": answer, "answer_start": start}]}
+        if version_2:
+            qa["is_impossible"] = impossible
+        data.append({"title": f"t{i}", "paragraphs": [
+            {"context": ctx, "qas": [qa]}]})
+    return {"version": "v2.0" if version_2 else "1.1", "data": data}
+
+
+def hf_encoder_state(torch, family: str, c, head: str, seed: int,
+                     device: str = "cpu") -> dict:
+    """An HF BERT or BART checkpoint's state dict for config ``c`` and
+    ``head`` ("classification" with c.num_labels outputs, or "qa"), as HF
+    initializes one: every linear and embedding normal with std 0.02 from
+    a seeded generator on ``device``, biases 0, LayerNorms at 1 and 0
+    (f32 tensors)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    sd = {}
+
+    def normal(name, shape):
+        sd[name] = 0.02 * torch.randn(shape, generator=g, device=device)
+
+    def lin(name, n_in, n_out):
+        normal(f"{name}.weight", (n_out, n_in))
+        sd[f"{name}.bias"] = torch.zeros(n_out, device=device)
+
+    def ln(name):
+        sd[f"{name}.weight"] = torch.ones(c.d_model, device=device)
+        sd[f"{name}.bias"] = torch.zeros(c.d_model, device=device)
+
+    d, ff = c.d_model, c.d_ff
+    if family == "bert":
+        p = "bert.embeddings"
+        normal(f"{p}.word_embeddings.weight", (c.vocab_size, d))
+        normal(f"{p}.position_embeddings.weight", (c.max_seq, d))
+        normal(f"{p}.token_type_embeddings.weight", (c.type_vocab_size, d))
+        ln(f"{p}.LayerNorm")
+        for i in range(c.n_layers):
+            b = f"bert.encoder.layer.{i}"
+            for s in ("query", "key", "value"):
+                lin(f"{b}.attention.self.{s}", d, d)
+            lin(f"{b}.attention.output.dense", d, d)
+            ln(f"{b}.attention.output.LayerNorm")
+            lin(f"{b}.intermediate.dense", d, ff)
+            lin(f"{b}.output.dense", ff, d)
+            ln(f"{b}.output.LayerNorm")
+        if head == "qa":
+            lin("qa_outputs", d, 2)
+        else:
+            lin("bert.pooler.dense", d, d)
+            lin("classifier", d, c.num_labels)
+        return sd
+    normal("model.shared.weight", (c.vocab_size, d))
+    for part, n in (("encoder", c.enc_layers), ("decoder", c.dec_layers)):
+        normal(f"model.{part}.embed_positions.weight", (c.max_seq + 2, d))
+        ln(f"model.{part}.layernorm_embedding")
+        for i in range(n):
+            b = f"model.{part}.layers.{i}"
+            for a in (("self_attn", "encoder_attn") if part == "decoder"
+                      else ("self_attn",)):
+                for s in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                    lin(f"{b}.{a}.{s}", d, d)
+                ln(f"{b}.{a}_layer_norm")
+            lin(f"{b}.fc1", d, ff)
+            lin(f"{b}.fc2", ff, d)
+            ln(f"{b}.final_layer_norm")
+    if head == "qa":
+        lin("qa_outputs", d, 2)
+    else:
+        lin("classification_head.dense", d, d)
+        lin("classification_head.out_proj", d, c.num_labels)
+    return sd
+
+
+def write_encoder_dir(torch, path: str, family: str, c, head: str,
+                      seed: int, vocab=None, device: str = "cpu") -> dict:
+    """A local HF-format directory: config.json, ``hf_encoder_state``
+    (made on ``device``) in fp16 written by the port's safetensors writer,
+    and ``vocab`` as vocab.txt. Returns its sizes."""
+    from ant_quantization_tpu_torch.harness.safetensors_io import (
+        write_safetensors)
+    os.makedirs(path, exist_ok=True)
+    sd = hf_encoder_state(torch, family, c, head, seed, device)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"model_type": family, "torch_dtype": "float16"}, f)
+    write_safetensors(os.path.join(path, "model.safetensors"),
+                      {k: v.to(torch.float16) for k, v in sd.items()},
+                      {"format": "pt"})
+    if vocab:
+        with open(os.path.join(path, "vocab.txt"), "w",
+                  encoding="utf-8") as f:
+            f.write("\n".join(vocab) + "\n")
+    return {"tensors": len(sd), "parameters": sum(v.numel()
+                                                  for v in sd.values())}
+
+
+def encoder_ovp_shares(torch, model, args) -> dict:
+    """The share of OVP outliers and victims among the codes of every
+    OliVe site of the calibrated fake-quant ``model``: its weights, and
+    its inputs in one forward of ``args`` (the codes of
+    ``ops/fake_quant.py:olive_fake_quant`` before the victims are
+    zeroed: an outlier is a code beyond the normal grid, |code| > 32, a
+    victim its zeroed partner), by site kind and in total."""
+    from ant_quantization_tpu_torch.nn.layers import QuantDense
+    from ant_quantization_tpu_torch.ops.fake_quant import expand_alpha
+    from ant_quantization_tpu_torch.ops.ovp import (OUTLIER_THRESHOLD,
+                                                    victim_mask)
+    from ant_quantization_tpu_torch.ops.snap import snap_concat_value_search
+    tally = {"weights": {}, "activations": {}}
+
+    def count(kind, name, x, site):
+        st, cfg = site.state, site.cfg
+        ca = cfg.channel_axis if cfg.per_channel else None
+        grid = st.grid.to(x.device)
+        xs = x.float() / (expand_alpha(st.alpha, x.ndim, ca, x.device)
+                          / grid.max())
+        n = 2 ** cfg.bit
+        full = torch.cat([grid[:n], st.outliers.to(x.device, grid.dtype)[:n]])
+        m = snap_concat_value_search(xs, full).abs() > OUTLIER_THRESHOLD
+        v = victim_mask(m, cfg.pair_axis)
+        t = tally[kind].setdefault(name.split(".")[-1], [0, 0, 0])
+        t[0] += int((m & ~v).sum())
+        t[1] += int(v.sum())
+        t[2] += m.numel()
+
+    sites = [(n, m) for n, m in model.named_modules()
+             if isinstance(m, QuantDense) and m.weight_q.cfg.use_ovp]
+    hooks = []
+    with torch.no_grad():
+        for name, m in sites:
+            count("weights", name, m.kernel, m.weight_q)
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, a, name=name: count("activations", name, a[0],
+                                                mod.input_q)))
+        model(*args)
+    for h in hooks:
+        h.remove()
+    out = {}
+    for kind, by in tally.items():
+        n = sum(t[2] for t in by.values())
+        out[kind] = {"outliers": sum(t[0] for t in by.values()) / n,
+                     "victims": sum(t[1] for t in by.values()) / n,
+                     "values": n,
+                     "by_site": {k: {"outliers": t[0] / t[2],
+                                     "victims": t[1] / t[2]}
+                                 for k, t in by.items()}}
+    return out
+
+
+def recipe_argv(recipe: str, run_name: str, extra) -> list:
+    """A recipe run's arguments as the port's run_recipe builds them (the
+    command without ``python -m <tool>``), and its tool."""
+    from ant_quantization_tpu_torch.tools import run_recipe
+    doc = run_recipe.load_recipe(os.path.join(REPO, "recipes", recipe))
+    run = next(r for r in doc["run"] if r["name"] == run_name)
+    cmd = run_recipe.build_command(run, doc.get("defaults", {}), extra)
+    return cmd[3:], cmd[2].rsplit(".", 1)[-1]
+
+
+def enc_stage(torch, recipe: str, run_name: str, extra, smi: str) -> dict:
+    """One encoder run as ``run_recipe`` launches it, in process on the
+    card: seconds for import, calibration and eval (the model's forwards
+    outside calibration, between two synchronizes), eval sequences/s, the
+    printed metrics, peak memory and the OVP shares of the calibrated
+    model (weights, and its inputs on the calibration batch); every
+    kernel count is 0 around the run (no kernel of the port is on this
+    path, as in the reference)."""
+    import importlib
+    from ant_quantization_tpu_torch.harness import zoo
+    argv, tool = recipe_argv(recipe, run_name, extra)
+    mod = importlib.import_module(f"ant_quantization_tpu_torch.tools.{tool}")
+    torch.cuda.reset_peak_memory_stats()
+    seen, ev = {}, {"s": 0.0, "sequences": 0}
+    real_get, real_cal = zoo.get_encoder_model, mod.calibrate_on_batches
+
+    def get(*a, **kw):
+        out = real_get(*a, **kw)
+        model = out[0]
+        first = next(m for m in model.modules()
+                     if hasattr(m, "calibrating"))
+
+        def pre(m, args):
+            torch.cuda.synchronize()
+            m.t0 = time.perf_counter()
+
+        def post(m, args, out):
+            torch.cuda.synchronize()
+            if not first.calibrating:
+                ev["s"] += time.perf_counter() - m.t0
+                ev["sequences"] += args[0].shape[0]
+
+        seen["hooks"] = [model.register_forward_pre_hook(pre),
+                         model.register_forward_hook(post)]
+        seen["model"] = model
+        return out
+
+    def cal(model, batches, **kw):
+        seen["args"] = batches[0]
+        return real_cal(model, batches, **kw)
+
+    clock = StageClock(torch)
+    reset_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(zoo, "get_encoder_model", get), \
+            mock.patch.object(mod, "calibrate_on_batches", cal), \
+            clock.patch([("import", zoo, "get_encoder_model"),
+                         ("calibrate", mod, "calibrate_on_batches")]):
+        out = json.loads(run_cli(mod.main, argv))
+    total = time.perf_counter() - t0
+    counts = read_counts()
+    model = seen.pop("model")
+    for h in seen.pop("hooks"):
+        h.remove()
+    shares = encoder_ovp_shares(torch, model, seen.pop("args"))
+    c = model.cfg
+    res = {"run": run_name, "tool": tool, "argv": argv,
+           "layers": getattr(c, "n_layers", None) or
+           [getattr(c, "enc_layers", 0), getattr(c, "dec_layers", 0)],
+           "d_model": c.d_model, "seconds": {**clock.seconds,
+                                             "eval": ev["s"],
+                                             "total": total},
+           "eval_sequences": ev["sequences"],
+           "eval_sequences_per_s": ev["sequences"] / ev["s"],
+           "result": out, "max_memory_allocated":
+           torch.cuda.max_memory_allocated(), "ovp_shares": shares,
+           "launches": {k: v["launches"] for k, v in counts.items()},
+           "plain_calls": {k: v["plain_calls"] for k, v in counts.items()},
+           "card": smi}
+    metrics = [v for k, v in out.items() if isinstance(v, float)]
+    res["pass"] = bool(
+        metrics and all(math.isfinite(v) for v in metrics)
+        and all(shares[k][f] > 0 for k in shares
+                for f in ("outliers", "victims"))
+        and not any(res["launches"].values())
+        and not any(res["plain_calls"].values()))
+    emit({"phase": "encoder", **res})
+    if not res["pass"]:
+        fail(f"encoder run {run_name}: {res}")
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def enc_hold(torch, bert_dir: str, ids, tt, am) -> dict:
+    """The card held to the CPU on BERT-base width at ENC_HOLD_LAYERS
+    layers (layers 0-1 of the generated checkpoint), olive_glue's OliVe
+    config, one batch: (a) ``calibrate_on_batches`` on the card, every
+    site's ``calibrate`` then held against the CPU's on the same data
+    (``hold_calibrate_on_cpu``: its weight's first ENC_HOLD_CHANNELS
+    channels, its card input's first row; near-ties printed); (b) every
+    site's card output, on the card's own input, within K8_RTOL of |qx| @
+    |qw| + |bias| of the CPU's fake-quant ``QuantDense`` on the same input
+    and states, rows whose activation code moved counted and left out
+    (at most CAL_MOVED_MAX of the values); (c) the ``--disable_quant``
+    model's logits within ENC_FLOAT_RTOL of the largest |logit|."""
+    from ant_quantization_tpu_torch.harness import zoo
+    from ant_quantization_tpu_torch.harness.evaluate import (
+        calibrate_on_batches)
+    from ant_quantization_tpu_torch.models import bert as tb
+    from ant_quantization_tpu_torch.nn.config import QuantConfig
+    from ant_quantization_tpu_torch.nn.layers import (QuantDense,
+                                                      load_quant_tree)
+    t_all = time.perf_counter()
+    cfg = tb.bert_base_config(n_layers=ENC_HOLD_LAYERS)
+    params = tb.import_hf_bert(zoo._load_sd(bert_dir), cfg)
+    qcfg = QuantConfig(family="olive", mode="ant-int-flint", w_low=75,
+                       w_up=250, a_low=75, a_up=250)
+    models = {}
+    for dev in ("cuda", "cpu"):
+        for q in (qcfg, QuantConfig(enabled=False)):
+            m = tb.BertForSequenceClassification(cfg, q, device=dev)
+            zoo._load_params(m, params)
+            models[dev, q.enabled] = m
+    args = {dev: tuple(torch.as_tensor(a, device=dev).long()
+                       for a in (ids, tt, am)) for dev in ("cuda", "cpu")}
+    card, cpu = models["cuda", True], models["cpu", True]
+    sites = [(n, m) for n, m in card.named_modules()
+             if isinstance(m, QuantDense)]
+    inputs = {}
+
+    def keep(name):
+        def hook(mod, a):
+            inputs.setdefault(name, a[0].detach())
+        return hook
+
+    hooks = [m.register_forward_pre_hook(keep(n)) for n, m in sites]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quant = calibrate_on_batches(card, [args["cuda"]])
+    torch.cuda.synchronize()
+    res = {"layers": ENC_HOLD_LAYERS, "batch": list(ids.shape),
+           "calibration_s": time.perf_counter() - t0}
+    for h in hooks:
+        h.remove()
+    holds = []
+    for n, m in sites:
+        holds.append(hold_calibrate_on_cpu(
+            torch, m.kernel.detach()[:, :ENC_HOLD_CHANNELS], m.weight_q.cfg,
+            f"{n}.kernel[:, :{ENC_HOLD_CHANNELS}]"))
+        holds.append(hold_calibrate_on_cpu(
+            torch, inputs[n][:1].float(), m.input_q.cfg, f"{n} input[:1]"))
+    res["calibrate_holds"] = len(holds)
+    res["near_ties"] = [t for h in holds for t in h["near_ties"]]
+    # (b) each site on the card's own input, against the CPU's fake-quant
+    load_quant_tree(cpu, quant)
+    cpu_sites = dict(cpu.named_modules())
+    stats = {"sites": 0, "values": 0, "moved": 0, "moved_rows": 0,
+             "max_err_over_size": 0.0}
+    outs = {}
+    hooks = [m.register_forward_hook(
+        lambda mod, a, y, n=n: outs.__setitem__(n, (a[0].detach(), y)))
+        for n, m in sites]
+    with torch.no_grad():
+        card(*args["cuda"])
+        for h in hooks:
+            h.remove()
+        for n, m in sites:
+            x, y = outs[n]
+            qd = cpu_sites[n]
+            xc = x.cpu().float()
+            want = qd(xc)
+            qx = qd.input_q(xc, False)
+            qw = qd.weight_q(qd.kernel, False)
+            size = qx.abs() @ qw.abs() + qd.bias.abs()
+            moved = (m.input_q(x.float(), False).cpu() - qx).abs() \
+                > 1e-5 * qx.abs().amax()
+            rows = moved.any(dim=-1)
+            err = ((y.cpu().float() - want).abs() / size)[~rows]
+            stats["sites"] += 1
+            stats["values"] += xc.numel()
+            stats["moved"] += int(moved.sum())
+            stats["moved_rows"] += int(rows.sum())
+            if err.numel():
+                stats["max_err_over_size"] = max(stats["max_err_over_size"],
+                                                 float(err.max()))
+        res["sites_hold"] = {**stats, "rtol_of_size": K8_RTOL,
+                             "moved_share": stats["moved"] / stats["values"],
+                             "moved_max": CAL_MOVED_MAX}
+        got = models["cuda", False](*args["cuda"]).float().cpu()
+        want = models["cpu", False](*args["cpu"]).float()
+    top = float(want.abs().max())
+    res["float_logits"] = {"max_diff_over_top": float(
+        (got - want).abs().max()) / top, "top_logit": top,
+        "rtol": ENC_FLOAT_RTOL}
+    res["seconds"] = time.perf_counter() - t_all
+    res["pass"] = (stats["sites"] == len(sites)
+                   and stats["max_err_over_size"] <= K8_RTOL
+                   and res["sites_hold"]["moved_share"] <= CAL_MOVED_MAX
+                   and res["float_logits"]["max_diff_over_top"]
+                   <= ENC_FLOAT_RTOL)
+    emit({"phase": "encoder_cpu_hold", **res})
+    if not res["pass"]:
+        fail(f"encoder card-to-CPU hold: {res}")
+    del models, card, cpu
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_encoders(torch, smi: str) -> dict:
+    """The encoder PTQ path on the card (BERT-base, BART-base), as a user
+    runs it: the port's run_recipe builds each run's arguments from the
+    unchanged recipes, and the tool's ``main`` runs in process
+    (``enc_stage``):
+    1. glue_run on BERT-base at full width and depth (12 layers, d_model
+       768, 12 heads, d_ff 3072) with olive_glue.toml's flags (OliVe
+       "ant-int-flint" W4A4, bounds 75-250, max_seq 128, batch 128, one
+       calibration batch) on a generated HF directory (std-0.02 weights,
+       fp16 safetensors), a WordPiece vocab.txt learned from a generated
+       corpus, and generated SST-2-style (single) and MRPC-style (pair)
+       TSVs of 128 train and 512 dev rows;
+    2. glue_run on BART-base (6 + 6 layers) in synthetic-batch mode (no
+       tokenizer on the card can encode BART pairs), the same flags;
+    3. squad_run on BERT-base with olive_squad.toml's flags (max_seq 384,
+       doc_stride 128, batch 64) on a generated SQuAD v1.1 JSON of
+       ENC_SQUAD_EXAMPLES examples (at least 64 features);
+    4. the card held to the CPU (``enc_hold``)."""
+    import tempfile
+    import numpy as np
+    from ant_quantization_tpu_torch.harness import data as D
+    from ant_quantization_tpu_torch.harness.tokenization import (
+        load_tokenizer)
+    from ant_quantization_tpu_torch.models.bart import bart_base_config
+    from ant_quantization_tpu_torch.models.bert import bert_base_config
+    t_phase = time.perf_counter()
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="encoders_") as tmp:
+        t0 = time.perf_counter()
+        sents = enc_sentences(ENC_SEED)
+        vocab = wordpiece_vocab(sents, ENC_WORDS)
+        rng = np.random.default_rng(ENC_SEED)
+        dirs = {}
+        for name, fam, c, head in (
+                ("bert", "bert", bert_base_config(), "classification"),
+                ("bert_qa", "bert", bert_base_config(), "qa"),
+                ("bart", "bart", bart_base_config(), "classification")):
+            dirs[name] = os.path.join(tmp, name)
+            res[f"{name}_dir"] = write_encoder_dir(
+                torch, dirs[name], fam, c, head, ENC_SEED,
+                vocab if fam == "bert" else None, device="cuda")
+        for task in ("sst2", "mrpc"):
+            dirs[task] = os.path.join(tmp, task)
+            os.makedirs(dirs[task])
+            for split, n in ENC_GLUE_ROWS.items():
+                fname = D.GLUE_TASKS[task]["dev"] if split == "dev" \
+                    else f"{split}.tsv"
+                write_glue_tsv(os.path.join(dirs[task], fname), task,
+                               glue_rows(task, sents, n, rng))
+        squad = os.path.join(tmp, "squad-v1.1.json")
+        with open(squad, "w") as f:
+            json.dump(squad_doc(sents, ENC_SQUAD_EXAMPLES, rng, False), f)
+        res["write_s"] = time.perf_counter() - t0
+        res["vocab"] = len(vocab)
+        for task in ("sst2", "mrpc"):
+            res[f"bert_{task}"] = enc_stage(
+                torch, "olive_glue.toml", f"bert_base_{task}",
+                ["--data_dir", dirs[task], "--weights", dirs["bert"]], smi)
+        res["bart_sst2"] = enc_stage(torch, "olive_glue.toml",
+                                     "bart_base_sst2",
+                                     ["--weights", dirs["bart"]], smi)
+        res["bert_squad"] = enc_stage(
+            torch, "olive_squad.toml", "bert_base_squad",
+            ["--data", squad, "--weights", dirs["bert_qa"]], smi)
+        if res["bert_squad"]["eval_sequences"] < 64:
+            fail(f"squad_run evaluated {res['bert_squad']['eval_sequences']}"
+                 " features, fewer than 64")
+        tok = load_tokenizer(dirs["bert"])
+        ex = D.load_glue_split(dirs["sst2"], "sst2", "dev")[:ENC_HOLD_ROWS]
+        b = D.encode_glue_batch(tok, ex, 128)
+        res["hold"] = enc_hold(torch, dirs["bert"], b["input_ids"],
+                               b["token_type_ids"], b["attention_mask"])
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "encoders_total", "seconds": res["phase_s"],
+          "write_s": res["write_s"], "card": smi})
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -4196,6 +4797,7 @@ def main() -> int:
     pct_rows = phase_checks_percentile(torch, gen)
     cal = phase_calibrate_serve(torch, gen)
     serve = phase_serve_cli(torch, gen, smi)
+    enc = phase_encoders(torch, smi)
     engine, counts, ids = phase_main(torch, gen)
     sites, k2_rows = phase_times(torch, engine)
     phase_profile(torch, engine, ids)
@@ -4207,8 +4809,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_insitu(torch, gen)
     phase_insitu_stacked_prefill(torch, gen)
-    olive, olive_ep, olive_counts, olive_ids = phase_olive(torch, gen)
-    ovpw, ovpw_counts = phase_ovp_weights(torch, olive_ep, olive_ids)
+    olive, olive_ep, olive_counts, olive_ids = phase_olive(
+        torch, gen, DEPTHS["olive"])
+    ovpw, ovpw_counts = phase_ovp_weights(torch, olive_ep, olive_ids,
+                                          DEPTHS["olive"])
     ovp_rows = phase_times_ovp(torch, olive, ovpw)
     k5_ovp_rows = phase_times_k5_ovp(torch, ovpw)
     phase_profile(torch, olive, olive_ids, path="OliVe")
@@ -4220,19 +4824,20 @@ def main() -> int:
     del ovpw, sp
     torch.cuda.empty_cache()
     phase_insitu_olive(torch, gen)
-    w4, w4_counts, w4_ids = phase_w4pack(torch, gen)
+    w4, w4_counts, w4_ids = phase_w4pack(torch, gen, DEPTHS["w4pack"])
     w4_rows = phase_times_w4pack(torch, w4)
     phase_profile(torch, w4, w4_ids, path="w4pack")
     del w4
     torch.cuda.empty_cache()
     phase_insitu_w4pack(torch, gen)
-    bloom, bloom_ep, bloom_ids = phase_bloom_main(torch, gen)
+    bloom, bloom_ep, bloom_ids = phase_bloom_main(torch, gen,
+                                                  DEPTHS["bloom"])
     phase_profile(torch, bloom, bloom_ids, path="BLOOM")
     phase_bloom_ragged(torch, bloom, gen)
     del bloom
     torch.cuda.empty_cache()
-    long_engine, long_counts, long_ids = phase_bloom_long(torch, bloom_ep,
-                                                          gen)
+    long_engine, long_counts, long_ids = phase_bloom_long(
+        torch, bloom_ep, gen, DEPTHS["bloom_long"])
     phase_profile(torch, long_engine, long_ids, path="BLOOM long context",
                   prefill=("prefill_last_chunk",
                            lambda: long_chunk(long_engine, long_ids)))
@@ -4242,7 +4847,8 @@ def main() -> int:
     k9_rows = phase_times_k9(torch, gen)
     insitu_bloom = phase_insitu_bloom(torch, gen)
     torch.cuda.empty_cache()
-    gpt2, gpt2_counts, gpt2_ids = phase_gpt2_main(torch, gen)
+    gpt2, gpt2_counts, gpt2_ids = phase_gpt2_main(torch, gen,
+                                                  DEPTHS["gpt2"])
     gpt2_k2_rows, kscale_per_layer = phase_times_gpt2(torch, gpt2)
     phase_profile(torch, gpt2, gpt2_ids, path="GPT-2 XL")
     del gpt2
@@ -4253,7 +4859,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_insitu_gpt2(torch, gen)
     k7_3b_row = phase_times_k7_bloom3b(torch, gen)
-    ant_cfg = opt_engine_config(32, torch.bfloat16)
+    hd_times = phase_times_headdim(torch, gen)
+    ant_cfg = opt_engine_config(DEPTHS["serving"], torch.bfloat16)
     ant_ep = random_engine_params(torch, ant_cfg, seed=0)
     sched = phase_scheduler(torch, gen, ant_cfg, ant_ep)
     spec = phase_speculative(torch, gen, ant_cfg, ant_ep)
@@ -4313,7 +4920,13 @@ def main() -> int:
              **{("decode" if r["T"] == 1 else "prefill"): {
                  k: r[k] for k in ("T", "pos0", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}
-                for r in gpt2_k2_rows}}},
+                for r in gpt2_k2_rows}},
+         "head_dim_80": {
+             "at": "BLOOM-3b: B=4 H=32 D=80, a random cache S=2048",
+             **{("decode" if r["T"] == 1 else "prefill"): {
+                 k: r[k] for k in ("T", "pos0", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}
+                for r in hd_times["K2"]}}},
     ]
     for tag, fname, src, line, launches in (
             ("K3", "stacked_quant_matmul ovp=True (K3)", "stacked_i8.cu",
@@ -4441,7 +5054,13 @@ def main() -> int:
                   f"H={k7_3b_row['H']} T=1 D=80 at position "
                   f"{k7_3b_row['pos0']}, cache S={k7_3b_row['S']}, ALiBi",
             **{k: k7_3b_row[k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")}}})
+                                         "bound_by", "library_ms")}},
+        "head_dim_64": {
+            "at": f"GPT-2 XL: B={BATCH} H=25 T=1 D=64 at position "
+                  f"{hd_times['K7']['pos0']}, a random cache "
+                  f"S={BLOOM_LONG_SEQ}, no ALiBi",
+            **{k: hd_times["K7"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")}}})
     k9_at = {f"{x['site']} M={x['M']}": x for x in k9_rows}
     k9_main = k9_at["fc_in M=4"]
     kernels.append({
@@ -4487,6 +5106,17 @@ def main() -> int:
                                               "max_memory_allocated",
                                               "phase_s")},
           "serve_cli_perplexity": serve["clm_eval"]["perplexity"],
+          "encoders": {
+              k: {"seconds": r["seconds"],
+                  "eval_sequences_per_s": r["eval_sequences_per_s"],
+                  "result": r["result"],
+                  "max_memory_allocated": r["max_memory_allocated"],
+                  "ovp_shares": {kind: {f: r["ovp_shares"][kind][f]
+                                        for f in ("outliers", "victims")}
+                                 for kind in r["ovp_shares"]}}
+              for k, r in enc.items() if isinstance(r, dict)
+              and "eval_sequences_per_s" in r},
+          "encoders_phase_s": enc["phase_s"],
           "seconds": time.perf_counter() - t_start})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -251,7 +251,9 @@ def test_package_imports_no_jax():
             "    pkg.__path__, pkg.__name__ + '.')]\n"
             "for m in mods: importlib.import_module(m)\n"
             "want = {'serve.engine', 'kernels.stacked', 'harness.zoo',\n"
-            "        'tools.serve_cli', 'tools.clm_eval'}\n"
+            "        'tools.serve_cli', 'tools.clm_eval', 'models.bert',\n"
+            "        'models.bart', 'harness.qa_utils', 'tools.glue_run',\n"
+            "        'tools.squad_run', 'tools.run_recipe'}\n"
             "assert {pkg.__name__ + '.' + m for m in want} <= set(mods), "
             "mods\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
