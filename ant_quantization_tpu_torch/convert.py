@@ -8,7 +8,10 @@ tree of :class:`~.calibrate.spec.QuantState` (same keys,
 returns the port's state dict for the same model (the flax path joined
 by dots; every leaf keeps its layout, the kernels (in, out) as there):
 the port's modules carry the flax names, so the one function serves
-``TransformerLM`` and the BERT and BART heads alike.
+``TransformerLM`` and the BERT and BART heads alike;
+``from_jax_image_params`` does the same for an image model's params and
+``batch_stats`` (ResNet, VGG, AlexNet, ViT, Inception-v3), its HWIO
+convolution kernels turned OIHW.
 ``from_jax_engine_params`` takes the reference's engine-params tree (as
 its ``serve/engine.py:build_engine_params`` makes it, leaves fetched with
 ``np.asarray``) and returns the port's tensors and layouts;
@@ -55,7 +58,7 @@ from .models.transformer_lm import ALL_SITES
 from .serve.engine import k8_plan_leaves
 
 __all__ = ["from_jax_engine_params", "from_jax_kv", "from_jax_quant",
-           "from_jax_lm_params"]
+           "from_jax_lm_params", "from_jax_image_params"]
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
     a = np.asarray(a)
@@ -151,4 +154,21 @@ def from_jax_lm_params(params: Dict, device=None) -> Dict[str, torch.Tensor]:
                 out[".".join(path + (k,))] = _tensor(v, dev)
 
     walk(params, ())
+    return out
+
+
+def from_jax_image_params(params: Dict, batch_stats: Dict = None,
+                          device=None) -> Dict[str, torch.Tensor]:
+    """A reference image model's params and batch_stats (numpy leaves) ->
+    the port's state dict of the same model on ``device`` (default
+    "cuda"): every 4-D ``kernel`` (HWIO) as OIHW, every other leaf as it
+    is (dense kernels (in, out)); the running ``mean`` and ``var`` under
+    their BatchNorm's path."""
+    dev = resolve_device(device)
+    out = from_jax_lm_params(params, device=dev)
+    for k, v in out.items():
+        if k.endswith("kernel") and v.ndim == 4:
+            out[k] = v.permute(3, 2, 0, 1).contiguous()
+    if batch_stats:
+        out.update(from_jax_lm_params(batch_stats, device=dev))
     return out

@@ -1,5 +1,5 @@
-"""Model factory + on-disk checkpoint loading: the decoder LMs and the
-BERT/BART encoders.
+"""Model factory + on-disk checkpoint loading: the decoder LMs, the
+BERT/BART encoders and the image classifiers.
 
 Counterpart of the reference's ``harness/zoo.py``: model construction is
 config-driven and weights come from local files:
@@ -14,7 +14,8 @@ Safetensors files are read by the port's own reader
 reference does. No network access is required or attempted. The
 encoders build the base or large preset whatever the checkpoint's
 config.json says, as the reference's ``get_bert``/``get_bart`` do. The
-image half comes with the image models (ROADMAP Queue 1 item 10).
+image classifiers take a torchvision state-dict file (.pth, .npz or
+.safetensors), converted by the model's importer.
 """
 
 from __future__ import annotations
@@ -29,14 +30,19 @@ import torch
 from .._ext import resolve_device
 from ..models import bart as bart_mod
 from ..models import bert as bert_mod
+from ..models import cnn as cnn_mod
 from ..models import import_hf
+from ..models import inception as inc_mod
+from ..models import resnet as resnet_mod
+from ..models import vit as vit_mod
 from ..models.transformer_lm import (LMConfig, TransformerLM, bloom_config,
                                      gpt2_config, opt_config)
 from ..nn.config import QuantConfig
 from .safetensors_io import read_safetensors
 
 __all__ = ["load_state_dict_file", "load_hf_model_dir", "lm_config_from_hf",
-           "get_lm", "get_bert", "get_bart", "get_encoder_model"]
+           "get_lm", "IMAGE_MODELS", "get_image_model", "get_bert",
+           "get_bart", "get_encoder_model"]
 
 
 # ---------------------------------------------------------------------------
@@ -149,6 +155,63 @@ def get_lm(name_or_path: str, qcfg: QuantConfig, params: bool = True,
     family, _, size = name_or_path.partition(":")
     family, cfg = _LM_PRESETS[family](size or None)
     return TransformerLM(cfg, qcfg, device=dev), cfg, None
+
+
+# ---------------------------------------------------------------------------
+# Image classifiers
+# ---------------------------------------------------------------------------
+
+IMAGE_MODELS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
+                "vgg16", "vgg16_bn", "alexnet", "vit_b_16", "vit_l_16",
+                "inception_v3")
+
+
+def get_image_model(name: str, qcfg: QuantConfig,
+                    weights_path: Optional[str] = None, device=None):
+    """(model, import_fn, variables|None) for an image classifier on
+    ``device`` (default "cuda"). ``weights_path``: a torchvision state
+    dict file, converted by the model's importer (``import_fn``) and
+    loaded into the model; ``variables`` is then ``{"params"[,
+    "batch_stats"]}`` in the port's layout. Without it the model keeps
+    the port's random init."""
+    dev = resolve_device(device)
+    name = name.lower()
+    if name.startswith("resnet") and name in IMAGE_MODELS:
+        cfg = getattr(resnet_mod, f"{name}_config")()
+        model = resnet_mod.ResNet(cfg, qcfg, device=dev)
+        conv = lambda sd: resnet_mod.import_torchvision_resnet(sd, cfg)
+    elif name in ("vgg16", "vgg16_bn"):
+        bn = name.endswith("_bn")
+        model = cnn_mod.VGG16(qcfg, with_bn=bn, device=dev)
+        if bn:
+            conv = lambda sd: cnn_mod.import_torchvision_vgg16(sd, True)
+        else:
+            conv = lambda sd: (cnn_mod.import_torchvision_vgg16(sd), None)
+    elif name == "alexnet":
+        model = cnn_mod.AlexNet(qcfg, device=dev)
+        conv = lambda sd: (cnn_mod.import_torchvision_alexnet(sd), None)
+    elif name in ("vit_b_16", "vit_l_16"):
+        cfg = getattr(vit_mod, f"{name}_config")()
+        model = vit_mod.ViT(cfg, qcfg, device=dev)
+        conv = lambda sd: (vit_mod.import_torchvision_vit(sd, cfg), None)
+    elif name == "inception_v3":
+        cfg = inc_mod.inception_v3_config()
+        model = inc_mod.InceptionV3(cfg, qcfg, device=dev)
+        conv = lambda sd: inc_mod.import_torchvision_inception(sd, cfg)
+    else:
+        raise ValueError(f"unknown image model {name!r}; "
+                         f"choices: {IMAGE_MODELS}")
+    if weights_path is None:
+        return model, conv, None
+    params, batch_stats = conv(load_state_dict_file(weights_path))
+    variables = {"params": params}
+    state = import_hf.lm_state_dict(params)
+    if batch_stats is not None:
+        variables["batch_stats"] = batch_stats
+        state.update(import_hf.lm_state_dict(batch_stats))
+    with torch.no_grad():
+        model.load_state_dict(state)
+    return model, conv, variables
 
 
 # ---------------------------------------------------------------------------

@@ -334,13 +334,17 @@ def dequant_w4_reference(packed: torch.Tensor, scale: torch.Tensor,
 
 @contextlib.contextmanager
 def tf32_off():
-    """CUDA f32 matrix products in full f32 (no TF32) inside the block."""
-    prev = torch.backends.cuda.matmul.allow_tf32
+    """CUDA f32 matrix products and cuDNN f32 convolutions in full f32 (no
+    TF32) inside the block; a backward pass run inside it too."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
 
 
 def f32_product(a: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:

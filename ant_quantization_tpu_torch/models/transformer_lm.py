@@ -17,8 +17,8 @@ TF32. Prefill and decode with an f32 cache (``init_kv_caches``; decode
 writes the new K/V into the given cache in place and returns it).
 HuggingFace checkpoints load through ``models/import_hf.py``; the BERT
 and BART encoders (``models/bert.py``, ``models/bart.py``) reuse this
-module's ``LayerNorm`` and ``Embed``; the image models are ROADMAP Queue 1
-item 10.
+module's ``LayerNorm`` and ``Embed``, the ViT (``models/vit.py``) its
+``LayerNorm``.
 """
 
 from __future__ import annotations

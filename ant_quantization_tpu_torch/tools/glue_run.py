@@ -1,10 +1,17 @@
-"""BERT/BART GLUE evaluation with ANT or OliVe post-training quantization.
+"""BERT/BART GLUE evaluation and fine-tuning with ANT or OliVe
+quantization.
 
 Counterpart of the reference's ``tools/glue_run.py``, with the same flags
 (plus ``--device``) and the same JSON output: the OliVe GLUE flow
 (olive bert/run_glue.py), a calibration pre-pass over ``--calib_batches``
 train-split batches, optional 8-bit promotion (``--n8`` or
-``--layers8``), then the task's metrics on the dev split.
+``--layers8``), then the task's metrics on the dev split. ``--train``
+(the ANT BERT flow) fine-tunes between the calibration and the final
+eval: BertAdam over steps_per_epoch x ``--epochs`` steps (warmup
+``--warmup``), the train split shuffled each epoch by
+``np.random.default_rng(epoch)``, MSE on logit 0 for STS-B and softmax
+cross entropy otherwise, the quantizer states frozen, and the dev
+metrics after each epoch.
 
 Data: a GLUE task directory in the standard TSV layout (``--data_dir``)
 or jsonl, tokenized by ``--tokenizer`` (an HF dir or a vocab.txt);
@@ -13,8 +20,7 @@ without ``--data_dir``, seeded synthetic batches (random ids in [0,
 ``--weights`` the model keeps the port's own random init (normal with std
 1/sqrt(fan in)), not flax's (smoke-test mode).
 
-Not ported: QAT fine-tuning (``--train``, the reference's ``bert_adam``
-loop in harness/train.py) raises, as does a multi-host environment.
+A multi-host environment raises (not ported).
 
 Examples:
   python -m ant_quantization_tpu_torch.tools.glue_run --task sst2 \\
@@ -36,14 +42,13 @@ import torch
 
 from .._ext import resolve_device
 from ..harness import data as D
+from ..harness import train as T
 from ..harness import zoo
 from ..harness.evaluate import calibrate_on_batches, glue_eval
 from ..nn.config import QuantConfig
 from ..utils.logging import setup_logger
 
 __all__ = ["parse_args", "main"]
-
-TRAIN_ITEM = "ROADMAP Queue 1 item 11, harness/train.py"
 
 
 def parse_args(argv=None):
@@ -76,7 +81,7 @@ def parse_args(argv=None):
     p.add_argument("--calib_batches", type=int, default=4,
                    help="quantize_batch_size/bs pre-pass batches "
                         "(olive run_glue.py:539-546)")
-    # finetune (QAT): parsed as the reference's, not ported
+    # finetune (QAT)
     p.add_argument("--train", action="store_true")
     p.add_argument("--epochs", type=int, default=3)
     p.add_argument("--lr", type=float, default=2e-5)
@@ -99,10 +104,15 @@ def synthetic_batches(n, bs, seq, num_labels, vocab=30522, seed=0):
         }
 
 
-def encoded_batches(args, split, tokenizer):
+def encoded_batches(args, split, tokenizer, shuffle_seed=None):
     """A split's examples encoded in batches of ``--batch_size`` (a last
-    batch of fewer than two examples is dropped, as in the reference)."""
+    batch of fewer than two examples is dropped, as in the reference),
+    shuffled first by ``np.random.default_rng(shuffle_seed)`` when
+    given."""
     examples = D.load_glue_split(args.data_dir, args.task, split)
+    if shuffle_seed is not None:
+        rng = np.random.default_rng(shuffle_seed)
+        examples = [examples[i] for i in rng.permutation(len(examples))]
     for i in range(0, len(examples), args.batch_size):
         chunk = examples[i:i + args.batch_size]
         if len(chunk) < 2:
@@ -117,9 +127,6 @@ def main(argv=None) -> dict:
             "multi-host evaluation (ANT_COORDINATOR / ANT_DISTRIBUTED) is "
             "not ported to PyTorch yet (ROADMAP Queue 1 item 12)")
     args = parse_args(argv)
-    if args.train:
-        raise NotImplementedError(
-            f"QAT fine-tuning (--train) is not ported yet ({TRAIN_ITEM})")
     dev = resolve_device(args.device)
     log = setup_logger("glue_run")
     num_labels = D.glue_num_labels(args.task)
@@ -142,9 +149,9 @@ def main(argv=None) -> dict:
         from ..harness.tokenization import load_tokenizer
         tokenizer = load_tokenizer(args.tokenizer or args.weights)
 
-    def train_batches():
+    def train_batches(seed=None):
         if args.data_dir:
-            return encoded_batches(args, "train", tokenizer)
+            return encoded_batches(args, "train", tokenizer, seed)
         return synthetic_batches(args.calib_batches + 8, args.batch_size,
                                  args.max_seq_length, num_labels)
 
@@ -170,6 +177,31 @@ def main(argv=None) -> dict:
         log.info("calibrating on %d train batches", len(calib))
         calibrate_on_batches(model, calib, n8=args.n8,
                              layer_list=args.layers8, log=log.info)
+
+    if args.train:
+        steps_per_epoch = max(sum(1 for _ in train_batches()), 1)
+        tx = T.bert_adam(args.lr, steps_per_epoch * args.epochs,
+                         args.warmup)
+
+        def loss_fn(ids, tt, am, labels):
+            logits = model(ids, tt, am)
+            if regression:
+                return torch.mean((logits[:, 0] - labels) ** 2)
+            return T.cross_entropy(logits, labels).mean()
+
+        step = T.make_step(model, tx, loss_fn)
+        state = T.TrainState(model, tx.init(list(model.parameters())))
+        for epoch in range(args.epochs):
+            for i, b in enumerate(train_batches(seed=epoch)):
+                labels = torch.as_tensor(
+                    np.asarray(b["labels"]), device=dev,
+                    dtype=torch.float32 if regression else torch.int64)
+                state, loss = step(state, *to_args(b), labels)
+                if i % 50 == 0:
+                    log.info("epoch %d step %d loss %.4f", epoch, i,
+                             float(loss))
+            m = glue_eval(model, dev_batches(), args.task, regression)
+            log.info("epoch %d: %s", epoch, m)
 
     results = glue_eval(model, dev_batches(), args.task, regression)
     results.update(task=args.task, mode=args.mode, family=args.family,

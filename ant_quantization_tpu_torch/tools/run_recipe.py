@@ -4,9 +4,8 @@ Counterpart of the reference's ``tools/run_recipe.py``: it reads the same
 ``recipes/*.toml`` (each ``[[run]]`` one CLI invocation with its exact
 hyperparameters) and launches each run as ``python -m
 ant_quantization_tpu_torch.tools.<tool>`` with the reference's flags.
-A run whose tool the port lacks, or that asks for QAT fine-tuning
-(``train = true``, all of ``ant_bert_glue.toml``), raises and names the
-ROADMAP item that ports it.
+A run whose tool the port lacks raises and names the ROADMAP item that
+ports it.
 
 Usage:
   python -m ant_quantization_tpu_torch.tools.run_recipe \\
@@ -34,20 +33,16 @@ import subprocess
 import sys
 import tomllib
 
-from .glue_run import TRAIN_ITEM
-
 __all__ = ["PORTED_TOOLS", "MISSING_TOOLS", "load_recipe", "parse_sets",
            "build_command", "main"]
 
 PACKAGE = "ant_quantization_tpu_torch"
 RESERVED = {"name", "tool", "notes"}
-PORTED_TOOLS = ("glue_run", "squad_run", "clm_eval", "serve_cli")
+PORTED_TOOLS = ("glue_run", "squad_run", "clm_eval", "serve_cli",
+                "imagenet_eval", "imagenet_qat", "qat_bench")
 # the reference's tools that the port lacks, by the ROADMAP item that
 # ports them
 MISSING_TOOLS = {
-    "imagenet_eval": "ROADMAP Queue 1 items 10-11 (the image models)",
-    "imagenet_qat": "ROADMAP Queue 1 items 10-11 (the image models)",
-    "qat_bench": "ROADMAP Queue 1 item 11",
     "spec_bench": "ROADMAP Queue 1 item 11",
     "lm_bench": "ROADMAP Queue 1 item 2",
     "tp_bench": "ROADMAP Queue 1 item 12",
@@ -90,10 +85,6 @@ def build_command(run: dict, defaults: dict, extra: list, sets=()) -> list:
         raise NotImplementedError(
             f"run {name}: the tool {tool!r} is not ported to PyTorch yet "
             f"({item})")
-    if merged.get("train") is True:
-        raise NotImplementedError(
-            f"run {name}: QAT fine-tuning (train = true) is not ported to "
-            f"PyTorch yet ({TRAIN_ITEM})")
     cmd = [sys.executable, "-m", f"{PACKAGE}.tools.{tool}"]
     for key, val in merged.items():
         if key in RESERVED:

@@ -37,7 +37,7 @@ Phases, each printing one JSON line (numbers unrounded):
    reported);
 9. OliVe main path: OPT-6.7B under full OliVe W4A4 (OVP weights packed
    on the card by ``quantize_weights_ovp_i8``, OVP activations at all six
-   sites), INT8 KV and the int8 head, DEPTHS["olive"] (16) layers, full
+   sites), INT8 KV and the int8 head, DEPTHS["olive"] (12) layers, full
    width, served as in
    5: every decode site matmul runs K4 (launches counted as in 5), then
    the observed share of OVP outliers and victims in the weights and in
@@ -127,7 +127,7 @@ Phases, each printing one JSON line (numbers unrounded):
    at head_dim 64 on its cache and the Conv1D route's times per layer at
    M 4 and 2048 (the route, its dequantization and its f32 product alone);
    a profile;
-25. gpt2_olive: the same geometry at DEPTHS["gpt2_olive"] (4) layers under
+25. gpt2_olive: the same geometry at DEPTHS["gpt2_olive"] (2) layers under
    full OliVe (OVP weights paired along the output axis, OVP activations
    at alpha about 2.5 times each input's RMS), served as in 5, then its
    OVP shares, which must be above 0, and a profile;
@@ -189,9 +189,11 @@ arithmetic on the host and within 1e-5 of ``np.percentile``
 29. encoders (run after serve_cli): the encoder PTQ path, which no
    kernel of the port serves (its products are the fake-quant model's
    f32 ``torch.matmul``, as the reference's are XLA dots): the port's
-   ``glue_run`` on BERT-base at full width and depth on generated SST-2-
-   and MRPC-style TSVs and on BART-base (6 + 6 layers) in synthetic-batch
-   mode, and ``squad_run`` on BERT-base on a generated SQuAD v1.1 file,
+   ``glue_run`` on BERT-base at full width and depth on a generated
+   SST-2-style TSV and on BART-base (full width, ENC_CUT_LAYERS["bart"]
+   + ENC_CUT_LAYERS["bart"] layers) in synthetic-batch mode, and
+   ``squad_run`` on BERT-base (full width, ENC_CUT_LAYERS["squad"]
+   layers) on a generated SQuAD v1.1 file,
    each with its recipe's flags as the port's ``run_recipe`` builds them
    (OliVe "ant-int-flint" W4A4, bounds 75-250) on a generated HF
    directory (std-0.02 weights) and WordPiece vocabulary: seconds for
@@ -204,6 +206,26 @@ arithmetic on the host and within 1e-5 of ``np.percentile``
    card's own input within 1e-5 of |qx| @ |qw| of the CPU's fake-quant,
    and the unquantized logits within 1e-4 of the largest.
 
+30. qat (run after encoders): QAT and the image path, which no kernel
+   of the port serves either (f32 ``torch.matmul`` and ``F.conv2d``
+   without TF32, forward and backward): ``glue_run --train`` on
+   BERT-base at full width and depth (ant_bert_glue.toml sst2_IP-F,
+   generated SST-2 TSVs: 2 steps of 64 an epoch, 2 epochs);
+   ``imagenet_qat`` on ResNet-18 (resnet18_ANT4-8: batch 256 at 224 px,
+   promotion of "0,20" on the card) and ViT-B/16 (vit_IP-F, batch 56),
+   synthetic data, 2 steps; ``imagenet_eval`` (PTQ) on ResNet-50,
+   VGG16-BN and AlexNet (ant_imagenet_ptq6.toml, W6A6) and Inception-v3
+   (299 px, W4A4, its 95 sites); each on generated torchvision-layout
+   weights (``image_checkpoint``), with seconds for calibration, ms per
+   step, examples/s, the printed metrics and peak memory, every kernel
+   count 0; ``qat_bench`` at ResNet-18 (batch 64) and BERT-base (16 x
+   128); then ``qat_hold``: a 2-block ResNet and a 2-layer BERT-base,
+   the same weights, states and batch on the card and the CPU: every
+   site's output and weight gradient within 1e-5 of its magnitude sums
+   from the CPU's f32 products of the card's own tensors, moved codes
+   counted, the loss within 1e-4 relative and the running statistics
+   within 1e-5 relative of the CPU's.
+
 K2 at head_dim 80 and K7 at head_dim 64 are timed on random caches
 (``phase_times_headdim``, after 27).
 
@@ -215,6 +237,8 @@ file, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import math
 import os
@@ -255,8 +279,8 @@ SP_OVP_RTOL = 1e-3
 # bloom_ragged, "bloom_long"; GPT-2 XL (48): "gpt2" gpt2_main,
 # "gpt2_olive" (its decode is host-bound, about 0.8 s per step at 48
 # layers). OPT's ANT main path and the bf16 baseline run all 32.
-DEPTHS = {"serving": 8, "olive": 16, "w4pack": 16, "bloom": 10,
-          "bloom_long": 6, "gpt2": 12, "gpt2_olive": 4}
+DEPTHS = {"serving": 8, "olive": 12, "w4pack": 16, "bloom": 10,
+          "bloom_long": 6, "gpt2": 12, "gpt2_olive": 2}
 
 _T0 = time.perf_counter()
 
@@ -4237,6 +4261,9 @@ def phase_serve_cli(torch, gen, smi: str, n_layers: int = SERVE_LAYERS
 ENC_SEED = 13
 ENC_WORDS = 3000           # WordPiece words taken from the generated corpus
 ENC_GLUE_ROWS = {"train": 128, "dev": 512}   # one calibration batch, 4 eval
+# layers of the encoder runs cut for the qat phase (full width; PERF.md
+# section 4): BART-base encoder and decoder each, BERT-base under SQuAD
+ENC_CUT_LAYERS = {"bart": 2, "squad": 4}
 ENC_SQUAD_EXAMPLES = 32    # 2-3 features each at max_seq 384, stride 128
 ENC_HOLD_LAYERS = 2        # the card held to the CPU: BERT-base width
 ENC_HOLD_ROWS = 8          # one 8 x 128 batch
@@ -4694,21 +4721,30 @@ def phase_encoders(torch, smi: str) -> dict:
        "ant-int-flint" W4A4, bounds 75-250, max_seq 128, batch 128, one
        calibration batch) on a generated HF directory (std-0.02 weights,
        fp16 safetensors), a WordPiece vocab.txt learned from a generated
-       corpus, and generated SST-2-style (single) and MRPC-style (pair)
-       TSVs of 128 train and 512 dev rows;
-    2. glue_run on BART-base (6 + 6 layers) in synthetic-batch mode (no
-       tokenizer on the card can encode BART pairs), the same flags;
-    3. squad_run on BERT-base with olive_squad.toml's flags (max_seq 384,
-       doc_stride 128, batch 64) on a generated SQuAD v1.1 JSON of
-       ENC_SQUAD_EXAMPLES examples (at least 64 features);
+       corpus, and a generated SST-2-style TSV of 128 train and 512 dev
+       rows (the MRPC-style pair run, the same route, was cut for the
+       qat phase);
+    2. glue_run on BART-base at full width and ENC_CUT_LAYERS["bart"]
+       encoder and decoder layers (the preset patched) in synthetic-batch
+       mode (no tokenizer on the card can encode BART pairs), the same
+       flags;
+    3. squad_run on BERT-base at full width and ENC_CUT_LAYERS["squad"]
+       layers with olive_squad.toml's flags (max_seq 384, doc_stride 128,
+       batch 64) on a generated SQuAD v1.1 JSON of ENC_SQUAD_EXAMPLES
+       examples (at least 64 features);
     4. the card held to the CPU (``enc_hold``)."""
     import tempfile
     import numpy as np
     from ant_quantization_tpu_torch.harness import data as D
     from ant_quantization_tpu_torch.harness.tokenization import (
         load_tokenizer)
-    from ant_quantization_tpu_torch.models.bart import bart_base_config
-    from ant_quantization_tpu_torch.models.bert import bert_base_config
+    from ant_quantization_tpu_torch.models import bart as bart_mod
+    from ant_quantization_tpu_torch.models import bert as bert_mod
+    bart_cut = functools.partial(
+        bart_mod.bart_base_config, enc_layers=ENC_CUT_LAYERS["bart"],
+        dec_layers=ENC_CUT_LAYERS["bart"])
+    squad_cut = functools.partial(bert_mod.bert_base_config,
+                                  n_layers=ENC_CUT_LAYERS["squad"])
     t_phase = time.perf_counter()
     res = {}
     with tempfile.TemporaryDirectory(prefix="encoders_") as tmp:
@@ -4718,14 +4754,15 @@ def phase_encoders(torch, smi: str) -> dict:
         rng = np.random.default_rng(ENC_SEED)
         dirs = {}
         for name, fam, c, head in (
-                ("bert", "bert", bert_base_config(), "classification"),
-                ("bert_qa", "bert", bert_base_config(), "qa"),
-                ("bart", "bart", bart_base_config(), "classification")):
+                ("bert", "bert", bert_mod.bert_base_config(),
+                 "classification"),
+                ("bert_qa", "bert", squad_cut(), "qa"),
+                ("bart", "bart", bart_cut(), "classification")):
             dirs[name] = os.path.join(tmp, name)
             res[f"{name}_dir"] = write_encoder_dir(
                 torch, dirs[name], fam, c, head, ENC_SEED,
                 vocab if fam == "bert" else None, device="cuda")
-        for task in ("sst2", "mrpc"):
+        for task in ("sst2",):
             dirs[task] = os.path.join(tmp, task)
             os.makedirs(dirs[task])
             for split, n in ENC_GLUE_ROWS.items():
@@ -4738,16 +4775,17 @@ def phase_encoders(torch, smi: str) -> dict:
             json.dump(squad_doc(sents, ENC_SQUAD_EXAMPLES, rng, False), f)
         res["write_s"] = time.perf_counter() - t0
         res["vocab"] = len(vocab)
-        for task in ("sst2", "mrpc"):
-            res[f"bert_{task}"] = enc_stage(
-                torch, "olive_glue.toml", f"bert_base_{task}",
-                ["--data_dir", dirs[task], "--weights", dirs["bert"]], smi)
-        res["bart_sst2"] = enc_stage(torch, "olive_glue.toml",
-                                     "bart_base_sst2",
-                                     ["--weights", dirs["bart"]], smi)
-        res["bert_squad"] = enc_stage(
-            torch, "olive_squad.toml", "bert_base_squad",
-            ["--data", squad, "--weights", dirs["bert_qa"]], smi)
+        res["bert_sst2"] = enc_stage(
+            torch, "olive_glue.toml", "bert_base_sst2",
+            ["--data_dir", dirs["sst2"], "--weights", dirs["bert"]], smi)
+        with mock.patch.object(bart_mod, "bart_base_config", bart_cut):
+            res["bart_sst2"] = enc_stage(torch, "olive_glue.toml",
+                                         "bart_base_sst2",
+                                         ["--weights", dirs["bart"]], smi)
+        with mock.patch.object(bert_mod, "bert_base_config", squad_cut):
+            res["bert_squad"] = enc_stage(
+                torch, "olive_squad.toml", "bert_base_squad",
+                ["--data", squad, "--weights", dirs["bert_qa"]], smi)
         if res["bert_squad"]["eval_sequences"] < 64:
             fail(f"squad_run evaluated {res['bert_squad']['eval_sequences']}"
                  " features, fewer than 64")
@@ -4758,6 +4796,509 @@ def phase_encoders(torch, smi: str) -> dict:
                                b["token_type_ids"], b["attention_mask"])
     res["phase_s"] = time.perf_counter() - t_phase
     emit({"phase": "encoders_total", "seconds": res["phase_s"],
+          "write_s": res["write_s"], "card": smi})
+    return res
+
+
+# ---------------------------------------------------------------------------
+# QAT and the image path: torchvision-layout checkpoints
+# ---------------------------------------------------------------------------
+
+_BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+            "var": "running_var"}
+
+
+def _vgg_index(conv_i: int, with_bn: bool) -> int:
+    """torchvision vgg16(.features) index of the conv_i-th convolution."""
+    from ant_quantization_tpu_torch.models.cnn import _vgg_feature_indices
+    return _vgg_feature_indices(with_bn)[conv_i]
+
+
+def _tv_module(name: str, path: list) -> str:
+    """torchvision's module path of the port's module ``path`` (a list of
+    names) in image model ``name``."""
+    head = path[0]
+    if name.startswith("resnet"):
+        if head.startswith("layer"):
+            stage, block = head[len("layer"):].split("_")
+            sub = {"downsample_conv": "downsample.0",
+                   "downsample_bn": "downsample.1"}.get(path[1], path[1])
+            return f"layer{stage}.{block}.{sub}"
+        return head
+    if name.startswith("vgg"):
+        kind, i = head.rsplit("_", 1) if "_" in head else (head, "")
+        if head.startswith("fc"):
+            return f"classifier.{(0, 3, 6)[int(head[2:])]}"
+        idx = _vgg_index(int(i), name.endswith("_bn"))
+        return f"features.{idx + 1 if kind == 'bn' else idx}"
+    if name == "alexnet":
+        if head.startswith("fc"):
+            return f"classifier.{(1, 4, 6)[int(head[2:])]}"
+        return f"features.{(0, 3, 6, 8, 10)[int(head.split('_')[1])]}"
+    if name.startswith("vit"):
+        if head.startswith("encoder_"):
+            b = f"encoder.layers.encoder_layer_{head.split('_')[1]}"
+            sub = {"attn": "self_attention", "mlp_1": "mlp.0",
+                   "mlp_2": "mlp.3"}.get(path[1], path[1])
+            return ".".join([b, sub] + path[2:])
+        return {"ln": "encoder.ln", "head": "heads.head"}.get(head, head)
+    return ".".join(path)                     # inception_v3
+
+
+def torchvision_state_dict(name: str, state: dict) -> dict:
+    """The port's state dict of image model ``name`` under torchvision's
+    keys and layouts (the inverse of the port's importers): linear
+    kernels back to (out, in), BatchNorm leaves renamed, ViT's fused
+    in-projection under ``in_proj_weight``/``in_proj_bias``."""
+    out = {}
+    for key, v in state.items():
+        *path, leaf = key.split(".")
+        if not path:                          # ViT's class token / pos
+            out[{"pos_embedding": "encoder.pos_embedding"}.get(
+                leaf, leaf)] = v
+            continue
+        mod = _tv_module(name, path)
+        if name.startswith("vit") and path[-1] == "in_proj":
+            mod = mod.rsplit(".", 1)[0]
+            out[f"{mod}.in_proj_{'weight' if leaf == 'kernel' else 'bias'}"
+                ] = v.T if leaf == "kernel" else v
+            continue
+        if leaf == "kernel":
+            out[f"{mod}.weight"] = v.T if v.ndim == 2 else v
+        else:
+            out[f"{mod}.{_BN_LEAF[leaf]}"] = v
+    return out
+
+
+def image_checkpoint(torch, name: str, seed: int, device: str = "cuda",
+                     model=None) -> dict:
+    """A torchvision-layout state dict for image model ``name`` made from
+    ``seed`` on ``device``: every convolution kernel normal with std
+    sqrt(2 / fan_out) (torchvision's kaiming_normal_), every linear
+    kernel and ViT's embeddings normal with std 0.02, biases 0,
+    BatchNorm at scale 1, bias 0, mean 0, var 1 (f32). ``model``: the
+    port's model whose shapes it takes (built unquantized when None)."""
+    from ant_quantization_tpu_torch.harness import zoo
+    from ant_quantization_tpu_torch.nn.config import QuantConfig
+    if model is None:
+        model = zoo.get_image_model(name, QuantConfig(enabled=False),
+                                    device=device)[0]
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    state = {}
+    for key, v in model.state_dict().items():
+        leaf = key.rsplit(".", 1)[-1]
+        if leaf == "kernel" and v.ndim == 4:
+            std = math.sqrt(2.0 / (v.shape[0] * v.shape[2] * v.shape[3]))
+        elif leaf in ("kernel", "pos_embedding"):
+            std = 0.02
+        else:
+            state[key] = (torch.ones_like(v) if leaf in ("scale", "var")
+                          else torch.zeros_like(v))
+            continue
+        state[key] = std * torch.randn(v.shape, generator=g, device=device)
+    return torchvision_state_dict(name, state)
+
+
+QAT_SEED = 17
+QAT_STEPS = 2              # steps an epoch of the image QAT runs, 1 epoch
+QAT_HOLD_ROWS = {"resnet": 16, "bert": 8}   # the card-vs-CPU batch
+QAT_HOLD_SIZE = 224
+QAT_HOLD_TOL = 1e-5        # a site's output or weight gradient, of its size
+QAT_LOSS_RTOL = 1e-4
+QAT_BN_RTOL = 1e-5
+
+
+def qat_stage(torch, tool: str, argv, smi: str, batch: int) -> dict:
+    """One run of an image or GLUE tool, in process on the card: seconds
+    for import, calibration (``calibrate_on_batches``) and the whole run,
+    each training step timed between two synchronizes (ms per step, the
+    median and all, examples/s at the median), the printed JSON, peak
+    memory and every kernel count (0: no kernel of the port is on this
+    path). ms per step is the median of the steps after the first.
+    Fails unless every printed number is finite and the steps' losses
+    are."""
+    import importlib
+    from ant_quantization_tpu_torch.harness import train as T
+    from ant_quantization_tpu_torch.harness import zoo
+    mod = importlib.import_module(f"ant_quantization_tpu_torch.tools.{tool}")
+    torch.cuda.reset_peak_memory_stats()
+    steps, losses, seen = [], [], {}
+
+    def timed(make):
+        def build(*a, **kw):
+            step = make(*a, **kw)
+
+            def run(*sa, **skw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, loss = step(*sa, **skw)
+                torch.cuda.synchronize()
+                steps.append(time.perf_counter() - t0)
+                losses.append(float(loss))
+                return state, loss
+            return run
+        return build
+
+    real_cal = mod.calibrate_on_batches
+
+    def cal(model, batches, **kw):
+        seen["model"] = model
+        return real_cal(model, batches, **kw)
+
+    clock = StageClock(torch)
+    reset_counts()
+    t0 = time.perf_counter()
+    patches = [mock.patch.object(mod, "calibrate_on_batches", cal)]
+    for name in ("make_classification_step", "make_step"):
+        patches.append(mock.patch.object(T, name, timed(getattr(T, name))))
+    with contextlib.ExitStack() as stack:
+        for pt in patches:
+            stack.enter_context(pt)
+        stack.enter_context(clock.patch(
+            [("calibrate", mod, "calibrate_on_batches"),
+             ("import", zoo, "get_image_model" if tool != "glue_run"
+              else "get_encoder_model")]))
+        out = json.loads(run_cli(mod.main, argv))
+    total = time.perf_counter() - t0
+    counts = read_counts()
+    from ant_quantization_tpu_torch.calibrate.promote import (
+        promoted_site_paths, quant_sites)
+    from ant_quantization_tpu_torch.nn.layers import quant_tree
+    tree = quant_tree(seen.pop("model"))
+    steady = steps[1:] or steps          # the first step warms cuDNN up
+    med = statistics.median(steady) if steady else None
+    res = {"tool": tool, "argv": argv, "seconds": {**clock.seconds,
+                                                   "total": total},
+           "steps": len(steps), "step_ms": [x * 1e3 for x in steps],
+           "ms_per_step": med * 1e3 if med else None,
+           "examples_per_s": batch / med if med else None,
+           "losses": losses, "result": out,
+           "sites": len(quant_sites(tree)),
+           "promoted": ["/".join(p) for p in promoted_site_paths(tree)],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": {k: v["launches"] for k, v in counts.items()},
+           "plain_calls": {k: v["plain_calls"] for k, v in counts.items()},
+           "card": smi}
+    nums = [v for v in out.values() if isinstance(v, float)]
+    res["pass"] = bool(nums and all(math.isfinite(v) for v in nums)
+                       and all(math.isfinite(v) for v in losses)
+                       and not any(res["launches"].values()))
+    return res
+
+
+def qat_hold(torch, smi: str, bert_dir: str) -> dict:
+    """The card held to the CPU on one training forward and backward with
+    the same weights, states and batch on both: a 2-block ResNet (layers
+    (1, 1), generated torchvision-style weights, ANT W4A4 calibrated on
+    the card, QAT_HOLD_ROWS x 224 px, BatchNorm in training mode) and a
+    2-layer BERT-base (the generated checkpoint's layers 0-1, ANT bounds
+    80-150). Per site, on the card's own tensors: the output within
+    QAT_HOLD_TOL of |qx| * |qw| (the convolution or product of
+    magnitudes) from the CPU's f32 product of the card's qx and qw; the
+    weight gradient within QAT_HOLD_TOL of |qx|^T * |g| from the CPU's f32
+    product of the card's qx and output gradient g; the codes that the
+    CPU's fake-quant of the card's input moves counted ("moved"), and
+    those where the CPU's own forward chain quantized otherwise than the
+    card's ("chain_moved"). A quantized network's loss moves about 1%
+    when its input moves 2e-6 relative (a 2-layer BERT-base on the CPU):
+    an ulp between the CPU and the card moves A4 codes, and moved codes
+    spread. So the loss within QAT_LOSS_RTOL, and ResNet's running
+    statistics within QAT_BN_RTOL of each tensor's largest value, are
+    held against the CPU's forward with each site fed the card's input
+    ("forced"); the free-running CPU loss is reported beside the chain's
+    moved codes."""
+    import numpy as np
+    from torch.nn import functional as F
+    from ant_quantization_tpu_torch.harness import train as T
+    from ant_quantization_tpu_torch.harness import zoo
+    from ant_quantization_tpu_torch.harness.data import device_images
+    from ant_quantization_tpu_torch.models import bert as tb
+    from ant_quantization_tpu_torch.models import resnet as trn
+    from ant_quantization_tpu_torch.models.import_hf import lm_state_dict
+    from ant_quantization_tpu_torch.nn.config import QuantConfig
+    from ant_quantization_tpu_torch.nn.layers import (
+        QuantConv, QuantDense, calibrating, conv_padding, load_quant_tree,
+        quant_tree)
+    t_all = time.perf_counter()
+    rng = np.random.default_rng(QAT_SEED)
+    res = {"phase": "qat_hold", "tol_of_size": QAT_HOLD_TOL, "card": smi}
+
+    def sites(model):
+        return [(n, m) for n, m in model.named_modules()
+                if isinstance(m, (QuantConv, QuantDense))]
+
+    def record(model):
+        """Forward hooks keeping each site's input, its fake-quants, its
+        output and (on the backward) its output gradient."""
+        rec = {}
+
+        def hook(name):
+            def fwd(m, args, out):
+                x = args[0].detach()
+                with torch.no_grad():
+                    qx = m.input_q(x, False)
+                    qw = m.weight_q(m.kernel, False)
+                rec[name] = {"m": m, "x": x, "qx": qx, "qw": qw,
+                             "y": out.detach()}
+                if out.requires_grad:
+                    out.register_hook(lambda g: rec[name].__setitem__(
+                        "g", g.detach()))
+            return fwd
+
+        return rec, [m.register_forward_hook(hook(n))
+                     for n, m in sites(model)]
+
+    def moved(a, b) -> int:
+        return int(((a - b).abs() > 1e-5 * b.abs().amax()).sum())
+
+    def check_sites(rec, rec_cpu, cpu_model) -> dict:
+        cpu_sites = dict(sites(cpu_model))
+        st = {"sites": 0, "values": 0, "moved": 0, "chain_moved": 0,
+              "max_out_err": 0.0, "max_grad_err": 0.0}
+        tiny = torch.finfo(torch.float32).tiny
+        for name, r in rec.items():
+            m, cm = r["m"], cpu_sites[name]
+            x, qx, qw = r["x"].cpu(), r["qx"].cpu(), r["qw"].cpu()
+            g = r["g"].cpu().to(torch.float32)
+            with torch.no_grad():
+                st["moved"] += moved(cm.input_q(x, False), qx)
+                st["chain_moved"] += moved(rec_cpu[name]["qx"], qx)
+                if isinstance(m, QuantConv):
+                    (t, b), (l, rr) = conv_padding(
+                        m.padding, x.shape[2:], m.kernel_size, m.strides)
+                    xp = F.pad(qx, (l, rr, t, b))
+                    axp = F.pad(qx.abs(), (l, rr, t, b))
+
+                    def conv(a, w):
+                        return F.conv2d(a, w, None, m.strides, 0, 1,
+                                        m.groups)
+
+                    want, size = conv(xp, qw), conv(axp, qw.abs())
+                    gw = torch.nn.grad.conv2d_weight(
+                        xp, qw.shape, g, m.strides, 0, 1, m.groups)
+                    gsize = torch.nn.grad.conv2d_weight(
+                        axp, qw.shape, g.abs(), m.strides, 0, 1, m.groups)
+                else:
+                    x2 = qx.reshape(-1, qx.shape[-1])
+                    g2 = g.reshape(-1, g.shape[-1])
+                    want = (x2 @ qw).reshape(r["y"].shape)
+                    size = (x2.abs() @ qw.abs()).reshape(r["y"].shape)
+                    gw, gsize = x2.t() @ g2, x2.abs().t() @ g2.abs()
+                if m.bias is not None:
+                    b_ = m.bias.detach().cpu()
+                    b_ = b_[:, None, None] if isinstance(m, QuantConv) else b_
+                    want, size = want + b_, size + b_.abs()
+                st["max_out_err"] = max(st["max_out_err"], float(
+                    ((r["y"].cpu() - want).abs() / (size + tiny)).max()))
+                st["max_grad_err"] = max(st["max_grad_err"], float(
+                    ((m.kernel.grad.cpu() - gw).abs() / (gsize + tiny))
+                    .max()))
+            st["sites"] += 1
+            st["values"] += x.numel()
+        return st
+
+    def run_both(models, loss_fn):
+        """Forward and backward on the card and the CPU, sites recorded;
+        then the CPU's forward again from its starting buffers with each
+        site fed the card's input ("forced"), which leaves the CPU's
+        running statistics those of the forced chain. Returns (card
+        record, CPU record, losses by device and "forced")."""
+        recs, losses = {}, {}
+        start = {k: v.clone() for k, v in models["cpu"].named_buffers()}
+        for dev, m in models.items():
+            rec, hs = record(m)
+            with T.tf32_off():
+                loss = loss_fn(m, dev)
+                loss.backward()
+            for h in hs:
+                h.remove()
+            recs[dev], losses[dev] = rec, float(loss.detach())
+        cpu = models["cpu"]
+        with torch.no_grad():
+            for k, v in cpu.named_buffers():
+                v.copy_(start[k])
+        hs = [m.register_forward_pre_hook(
+            lambda mod, args, name=name: (recs["cuda"][name]["x"].cpu(),)
+            + args[1:]) for name, m in sites(cpu)]
+        with torch.no_grad(), T.tf32_off():
+            losses["forced"] = float(loss_fn(cpu, "cpu"))
+        for h in hs:
+            h.remove()
+        return recs["cuda"], recs["cpu"], losses
+
+    def rel(a, b) -> float:
+        return abs(a - b) / abs(b)
+
+    # -- ResNet, 2 blocks ----------------------------------------------------
+    cfg = trn.ResNetConfig("basic", (1, 1))
+    qcfg = QuantConfig(mode="ant-int-pot-flint")
+    models = {d: trn.ResNet(cfg, qcfg, device=d) for d in ("cuda", "cpu")}
+    sd = image_checkpoint(torch, "resnet18", QAT_SEED, "cuda",
+                          model=models["cuda"])
+    params, stats = trn.import_torchvision_resnet(sd, cfg)
+    state = {**lm_state_dict(params), **lm_state_dict(stats)}
+    for m in models.values():
+        m.load_state_dict(state)
+    n = QAT_HOLD_ROWS["resnet"]
+    images = rng.normal(size=(n, QAT_HOLD_SIZE, QAT_HOLD_SIZE, 3)).astype(
+        np.float32)
+    labels = torch.as_tensor(rng.integers(0, 1000, n))
+    with torch.no_grad(), calibrating(models["cuda"]):
+        models["cuda"](device_images(images, "cuda"))
+    load_quant_tree(models["cpu"], quant_tree(models["cuda"]))
+    rec, rec_cpu, losses = run_both(models, lambda m, dev: T.cross_entropy(
+        m(device_images(images, dev), train=True), labels.to(dev)).mean())
+    bn = 0.0
+    for (_, a), (_, b) in zip(models["cuda"].named_buffers(),
+                              models["cpu"].named_buffers()):
+        bn = max(bn, float((a.cpu() - b).abs().max() / b.abs().max()))
+    res["resnet"] = {**check_sites(rec, rec_cpu, models["cpu"]),
+                     "loss_card": losses["cuda"], "loss_cpu": losses["cpu"],
+                     "loss_cpu_forced": losses["forced"],
+                     "loss_rel": rel(losses["cuda"], losses["forced"]),
+                     "loss_rel_free": rel(losses["cuda"], losses["cpu"]),
+                     "bn_rel_of_max": bn}
+    del models, rec, rec_cpu
+    torch.cuda.empty_cache()
+
+    # -- BERT-base width, 2 layers -------------------------------------------
+    bcfg = tb.bert_base_config(n_layers=2)
+    bparams = tb.import_hf_bert(zoo._load_sd(bert_dir), bcfg)
+    bq = QuantConfig(mode="ant-int-pot-flint", w_low=80, w_up=150, a_low=80,
+                     a_up=150)
+    bm = {}
+    for dev in ("cuda", "cpu"):
+        bm[dev] = tb.BertForSequenceClassification(bcfg, bq, device=dev)
+        zoo._load_params(bm[dev], bparams)
+    n = QAT_HOLD_ROWS["bert"]
+    ids = torch.as_tensor(rng.integers(0, bcfg.vocab_size, (n, 128)))
+    labels = torch.as_tensor(rng.integers(0, 2, n))
+    with torch.no_grad(), calibrating(bm["cuda"]):
+        bm["cuda"](ids.to("cuda"))
+    load_quant_tree(bm["cpu"], quant_tree(bm["cuda"]))
+
+    def bert_loss(m, dev):
+        return T.cross_entropy(m(ids.to(dev)), labels.to(dev)).mean()
+
+    rec, rec_cpu, losses = run_both(bm, bert_loss)
+    res["bert"] = {**check_sites(rec, rec_cpu, bm["cpu"]),
+                   "loss_card": losses["cuda"], "loss_cpu": losses["cpu"],
+                   "loss_cpu_forced": losses["forced"],
+                   "loss_rel": rel(losses["cuda"], losses["forced"]),
+                   "loss_rel_free": rel(losses["cuda"], losses["cpu"])}
+    res["seconds"] = time.perf_counter() - t_all
+    res["pass"] = all(
+        r["max_out_err"] <= QAT_HOLD_TOL and r["max_grad_err"] <= QAT_HOLD_TOL
+        and r["loss_rel"] <= QAT_LOSS_RTOL for r in (res["resnet"],
+                                                     res["bert"])) and \
+        res["resnet"]["bn_rel_of_max"] <= QAT_BN_RTOL
+    emit(res)
+    if not res["pass"]:
+        fail(f"qat_hold: the card off the CPU: {res}")
+    del bm, rec, rec_cpu
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_qat(torch, smi: str) -> dict:
+    """QAT and the image path on the card, as a user runs them: each run's
+    arguments built by the port's run_recipe from the unchanged recipes,
+    the tool's ``main`` in process (``qat_stage``), on generated weights
+    (BERT-base: the encoders phase's directory and SST-2 TSVs, written
+    again by the same writers from ENC_SEED; the image models:
+    torchvision-layout state dicts from QAT_SEED, ``image_checkpoint``)
+    and generated or synthetic data:
+    1. glue_run --train, ant_bert_glue.toml sst2_IP-F: BERT-base at full
+       width and depth on generated SST-2 TSVs (128 train rows: 2 steps
+       of 64 an epoch, 2 epochs, dev each epoch);
+    2. imagenet_qat, ant_imagenet_qat.toml resnet18_ANT4-8 (batch 256,
+       layers8 "0,20": promotion on the card) and vit_IP-F (ViT-B/16,
+       batch 56), synthetic data, QAT_STEPS steps, 1 epoch;
+    3. imagenet_eval (PTQ): ant_imagenet_ptq6.toml resnet50_ptq6,
+       vgg16_ptq6 and alexnet_ptq6 (W6A6), and Inception-v3 at 299 px
+       with inceptionv3_IP-F's W4A4 flags (its 95 sites);
+    4. qat_bench at ResNet-18 (batch 64) and BERT-base (16 x 128);
+    5. the card held to the CPU (``qat_hold``)."""
+    import tempfile
+    import numpy as np
+    from ant_quantization_tpu_torch.harness import data as D
+    from ant_quantization_tpu_torch.harness.safetensors_io import (
+        write_safetensors)
+    from ant_quantization_tpu_torch.models.bert import bert_base_config
+    from ant_quantization_tpu_torch.tools import qat_bench
+    t_phase = time.perf_counter()
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="qat_") as tmp:
+        t0 = time.perf_counter()
+        sents = enc_sentences(ENC_SEED)
+        vocab = wordpiece_vocab(sents, ENC_WORDS)
+        bert = os.path.join(tmp, "bert")
+        write_encoder_dir(torch, bert, "bert", bert_base_config(),
+                          "classification", ENC_SEED, vocab, device="cuda")
+        sst2 = os.path.join(tmp, "sst2")
+        os.makedirs(sst2)
+        rng = np.random.default_rng(ENC_SEED)
+        for split, n in ENC_GLUE_ROWS.items():
+            fname = D.GLUE_TASKS["sst2"]["dev"] if split == "dev" \
+                else f"{split}.tsv"
+            write_glue_tsv(os.path.join(sst2, fname), "sst2",
+                           glue_rows("sst2", sents, n, rng))
+        weights = {}
+        for name in ("resnet18", "vit_b_16", "resnet50", "vgg16_bn",
+                     "alexnet", "inception_v3"):
+            weights[name] = os.path.join(tmp, f"{name}.safetensors")
+            write_safetensors(weights[name], image_checkpoint(
+                torch, name, QAT_SEED, "cuda"), {"format": "pt"})
+            torch.cuda.empty_cache()
+        res["write_s"] = time.perf_counter() - t0
+
+        argv, tool = recipe_argv("ant_bert_glue.toml", "sst2_IP-F", [
+            "--data_dir", sst2, "--weights", bert])
+        res["bert_sst2_qat"] = qat_stage(torch, tool, argv, smi, 64)
+        image = ["--train_dir", "synthetic", "--val_dir", "synthetic",
+                 "--epochs", "1", "--steps_per_epoch", str(QAT_STEPS),
+                 "--ckpt_dir", os.path.join(tmp, "ckpt")]
+        for run, model, batch in (("resnet18_ANT4-8", "resnet18", 256),
+                                  ("vit_IP-F", "vit_b_16", 56)):
+            argv, tool = recipe_argv("ant_imagenet_qat.toml", run, [
+                *image, "--weights", weights[model]])
+            res[run] = qat_stage(torch, tool, argv, smi, batch)
+        for run, model, batch in (("resnet50_ptq6", "resnet50", 128),
+                                  ("vgg16_ptq6", "vgg16_bn", 128),
+                                  ("alexnet_ptq6", "alexnet", 128)):
+            argv, tool = recipe_argv("ant_imagenet_ptq6.toml", run, [
+                "--data_dir", "synthetic", "--weights", weights[model]])
+            res[run] = qat_stage(torch, tool, argv, smi, batch)
+        res["inception_v3_w4a4"] = qat_stage(torch, "imagenet_eval", [
+            "--model", "inception_v3", "--data_dir", "synthetic",
+            "--batch_size", "64", "--mode", "ant-int-pot-flint", "--wbit",
+            "4", "--abit", "4", "--a_low", "50", "--weights",
+            weights["inception_v3"]], smi, 64)
+        if res["inception_v3_w4a4"]["sites"] != 95:
+            fail(f"inception_v3: {res['inception_v3_w4a4']['sites']} "
+                 "quantized sites, not 95")
+        if res["resnet18_ANT4-8"]["promoted"] != ["conv1", "layer4_1/conv2"]:
+            fail(f"resnet18 promotion: {res['resnet18_ANT4-8']['promoted']}")
+        for key, r in res.items():
+            if isinstance(r, dict) and "pass" in r:
+                emit({"phase": "qat_run", "run": key, **r})
+                if not r["pass"]:
+                    fail(f"qat run {key}: {r}")
+        res["qat_bench"] = {}
+        for args in (["--model", "resnet18", "--batch", "64"],
+                     ["--model", "bert_base", "--batch", "16", "--seq",
+                      "128"]):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(sys.stdout):
+                out = json.loads(run_cli(qat_bench.main, args + ["--json"])
+                                 .strip().splitlines()[-1])
+            out["seconds"] = time.perf_counter() - t0
+            res["qat_bench"][args[1]] = out
+            emit({"phase": "qat_bench", **out, "card": smi})
+        res["hold"] = qat_hold(torch, smi, bert)
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "qat_total", "seconds": res["phase_s"],
           "write_s": res["write_s"], "card": smi})
     return res
 
@@ -4798,6 +5339,7 @@ def main() -> int:
     cal = phase_calibrate_serve(torch, gen)
     serve = phase_serve_cli(torch, gen, smi)
     enc = phase_encoders(torch, smi)
+    qat = phase_qat(torch, smi)
     engine, counts, ids = phase_main(torch, gen)
     sites, k2_rows = phase_times(torch, engine)
     phase_profile(torch, engine, ids)
@@ -5117,6 +5659,13 @@ def main() -> int:
               for k, r in enc.items() if isinstance(r, dict)
               and "eval_sequences_per_s" in r},
           "encoders_phase_s": enc["phase_s"],
+          "qat": {k: {f: r[f] for f in ("seconds", "ms_per_step",
+                                        "examples_per_s", "result",
+                                        "sites", "max_memory_allocated")}
+                  for k, r in qat.items() if isinstance(r, dict)
+                  and "ms_per_step" in r},
+          "qat_bench": qat["qat_bench"],
+          "qat_phase_s": qat["phase_s"],
           "seconds": time.perf_counter() - t_start})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

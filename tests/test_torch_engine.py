@@ -243,8 +243,8 @@ def test_unported_features_raise():
 
 def test_package_imports_no_jax():
     """Importing every module of the port (all of the package, walked by
-    ``pkgutil.walk_packages``) loads neither jax nor the reference
-    package."""
+    ``pkgutil.walk_packages``) loads none of jax, flax, optax and the
+    reference package."""
     code = ("import importlib, pkgutil, sys\n"
             "import ant_quantization_tpu_torch as pkg\n"
             "mods = [m.name for m in pkgutil.walk_packages(\n"
@@ -253,12 +253,14 @@ def test_package_imports_no_jax():
             "want = {'serve.engine', 'kernels.stacked', 'harness.zoo',\n"
             "        'tools.serve_cli', 'tools.clm_eval', 'models.bert',\n"
             "        'models.bart', 'harness.qa_utils', 'tools.glue_run',\n"
-            "        'tools.squad_run', 'tools.run_recipe'}\n"
+            "        'tools.squad_run', 'tools.run_recipe', 'harness.train',\n"
+            "        'harness.resilient', 'models.resnet', 'models.cnn',\n"
+            "        'models.vit', 'models.inception', 'tools.imagenet_eval',\n"
+            "        'tools.imagenet_qat', 'tools.qat_bench'}\n"
             "assert {pkg.__name__ + '.' + m for m in want} <= set(mods), "
             "mods\n"
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith('jax.') or m == 'ant_quantization_tpu' or "
-            "m.startswith('ant_quantization_tpu.')]\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'optax', 'ant_quantization_tpu')]\n"
             "assert not bad, bad\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run([sys.executable, "-c", code], cwd=root,

@@ -19,14 +19,14 @@ runner, on the CPU.
   synthetic route unquantized, BART on the TSV route unquantized and the
   synthetic route under ANT with ``--n8`` (OliVe through a CLI is held
   in ``tests/test_torch_squad.py``). The same predictions, and the
-  printed JSON equal (metrics within 1e-9). ``--train`` raises, so does
-  a run without ``--device cpu`` where there is no card, and a
+  printed JSON equal (metrics within 1e-9). A run without ``--device
+  cpu`` where there is no card raises (``--train`` too; the training
+  itself is held in ``tests/test_torch_image_tools.py``), and so does a
   multi-host environment;
 - ``tools/run_recipe.py``: every ``[[run]]`` of the six recipes maps to
   the port's module with the reference's flags, each accepted by the
-  port's parser, or raises naming its ROADMAP item (the ImageNet tools,
-  and ``train = true``); ``--set`` applies per run; ``--list`` and
-  ``--dry-run``.
+  port's parser, or raises naming its ROADMAP item (a tool the port
+  lacks); ``--set`` applies per run; ``--list`` and ``--dry-run``.
 
 The generated data comes from ``chip_smoke.py``'s writers, which the
 card's ``encoders`` phase uses at full size.
@@ -344,9 +344,9 @@ def test_glue_run_main_against_the_reference(case):
 
 
 def test_glue_run_raises_for_train_multihost_and_no_card(monkeypatch):
+    """A multi-host environment raises (not ported); without a card the
+    default device raises, for evaluation and for ``--train``."""
     argv = ["--task", "sst2", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        glue_run.main(argv + ["--train"])
     monkeypatch.setenv("ANT_DISTRIBUTED", "1")
     with pytest.raises(NotImplementedError, match="item 12"):
         glue_run.main(argv)
@@ -354,6 +354,8 @@ def test_glue_run_raises_for_train_multihost_and_no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         glue_run.main(["--task", "sst2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        glue_run.main(["--task", "sst2", "--train"])
 
 
 # ---------------------------------------------------------------------------
@@ -362,7 +364,10 @@ def test_glue_run_raises_for_train_multihost_and_no_card(monkeypatch):
 
 RECIPES = sorted(glob.glob(os.path.join(REPO, "recipes", "*.toml")))
 # a flag each tool requires that no recipe sets (passed after "--")
-REQUIRED = {"squad_run": ["--data", "dev.json"]}
+REQUIRED = {"squad_run": ["--data", "dev.json"],
+            "imagenet_eval": ["--data_dir", "synthetic"],
+            "imagenet_qat": ["--train_dir", "synthetic", "--val_dir",
+                             "synthetic"]}
 
 
 @pytest.mark.parametrize("path", RECIPES, ids=os.path.basename)
@@ -374,7 +379,7 @@ def test_every_recipe_run_maps_to_the_port(path):
     for run in doc["run"]:
         merged = {**defaults, **run}
         tool = merged["tool"]
-        if tool not in run_recipe.PORTED_TOOLS or merged.get("train"):
+        if tool not in run_recipe.PORTED_TOOLS:
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 run_recipe.build_command(run, defaults, [])
             continue
@@ -424,6 +429,11 @@ def test_run_recipe_main_dry_run_and_list(capsys):
                and l.endswith("--device cpu") for l in lines)
     assert run_recipe.main([glue, "--list"]) == 0
     assert "bert_large_mrpc" in capsys.readouterr().out
+    assert run_recipe.main([os.path.join(REPO, "recipes",
+                                         "ant_bert_glue.toml"), "--only",
+                            "sst2_IP-F", "--dry-run"]) == 0
+    line, = capsys.readouterr().out.splitlines()
+    assert " --train " in line and "--task sst2" in line
     with pytest.raises(NotImplementedError, match="item 11"):
-        run_recipe.main([os.path.join(REPO, "recipes",
-                                      "ant_bert_glue.toml"), "--dry-run"])
+        run_recipe.build_command({"name": "x", "tool": "spec_bench"}, {},
+                                 [])
