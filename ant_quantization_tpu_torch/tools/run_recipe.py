@@ -39,12 +39,11 @@ __all__ = ["PORTED_TOOLS", "MISSING_TOOLS", "load_recipe", "parse_sets",
 PACKAGE = "ant_quantization_tpu_torch"
 RESERVED = {"name", "tool", "notes"}
 PORTED_TOOLS = ("glue_run", "squad_run", "clm_eval", "serve_cli",
-                "imagenet_eval", "imagenet_qat", "qat_bench")
+                "imagenet_eval", "imagenet_qat", "qat_bench", "lm_bench",
+                "spec_bench")
 # the reference's tools that the port lacks, by the ROADMAP item that
 # ports them
 MISSING_TOOLS = {
-    "spec_bench": "ROADMAP Queue 1 item 11",
-    "lm_bench": "ROADMAP Queue 1 item 2",
     "tp_bench": "ROADMAP Queue 1 item 12",
 }
 

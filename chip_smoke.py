@@ -37,7 +37,7 @@ Phases, each printing one JSON line (numbers unrounded):
    reported);
 9. OliVe main path: OPT-6.7B under full OliVe W4A4 (OVP weights packed
    on the card by ``quantize_weights_ovp_i8``, OVP activations at all six
-   sites), INT8 KV and the int8 head, DEPTHS["olive"] (12) layers, full
+   sites), INT8 KV and the int8 head, DEPTHS["olive"] (6) layers, full
    width, served as in
    5: every decode site matmul runs K4 (launches counted as in 5), then
    the observed share of OVP outliers and victims in the weights and in
@@ -65,7 +65,7 @@ Phases, each printing one JSON line (numbers unrounded):
    version that must give identical tokens and logits;
 14. w4pack path: OPT-6.7B with packed 4-bit weights built on the card
    by ``quantize_weights_w4`` (ANT int grid at q/k/v: affine decode;
-   flint elsewhere: table decode), DEPTHS["w4pack"] (16) layers, served
+   flint elsewhere: table decode), DEPTHS["w4pack"] (8) layers, served
    as in 5: decode runs K6 (6 per layer and step), prefill K8 (6 per
    layer); K6 times at one decode layer (with
    each launch's plan, and its fixed cost per launch from the line through
@@ -75,7 +75,7 @@ Phases, each printing one JSON line (numbers unrounded):
    (every K6 call
    bit-equal, every K8 call within K8_RTOL, a K6 swap with identical
    tokens and logits);
-15. bloom_main: BLOOM-7b1 at full width (DEPTHS["bloom"], 10 of its 30
+15. bloom_main: BLOOM-7b1 at full width (DEPTHS["bloom"], 6 of its 30
    layers, fused qkv at N = 12,288, embed_ln, ALiBi, GELU, vocab 250,880),
    ANT W4A4 + INT8 KV + int8 head, max_seq 2048, served as in 5: decode
    runs K1 (4 per layer and step), attention K2; a profile;
@@ -85,7 +85,7 @@ Phases, each printing one JSON line (numbers unrounded):
    logit difference against serving it alone at B = 1; a forward with a
    (B,) pos0 of equal entries bit-equal to the scalar one;
 17. bloom_long: the same params at max_seq 16,384 (DEPTHS["bloom_long"],
-   6 layers), where the reference
+   4 layers), where the reference
    leaves its stacked attention kernel: a 4 x 15,872-token prompt in 31
    forward calls of 512 (the einsum fallback), then 64 greedy steps with
    attention on K7 (K2 0); a decode profile; K7 times per decode
@@ -115,7 +115,7 @@ Phases, each printing one JSON line (numbers unrounded):
    the plain head, the baseline of bench.py, OPT-6.7B 32 layers, served
    as in 5 (no kernel of the port launches), with its stream floor, a
    decode step held as in 22 and a profile;
-24. gpt2_main: GPT-2 XL at full width (DEPTHS["gpt2"], 12 of its 48
+24. gpt2_main: GPT-2 XL at full width (DEPTHS["gpt2"], 6 of its 48
    layers, d_model 1600,
    25 heads of 64, d_ff 6400, vocab 50,257, every site Conv1D, quantized
    per input channel on the card into ``kscale``), ANT W4A4 + INT8 KV +
@@ -226,6 +226,18 @@ arithmetic on the host and within 1e-5 of ``np.percentile``
    counted, the loss within 1e-4 relative and the running statistics
    within 1e-5 relative of the CPU's.
 
+31. bench_clis (run right after 7, on the main path's card state): the
+   port's measurement command lines through their ``main(argv)``, each
+   JSON line emitted with its seconds, launches and peak memory:
+   ``lm_bench`` at OPT-6.7B (decode with the bf16 baseline, 32 layers;
+   the prefill mode) and BLOOM-7b1 (decode, 30 layers), and
+   ``spec_bench`` at DEPTHS["serving"]; K1 and K2 launched exactly as
+   their shapes ask and no plain version; the times held to the main
+   path's profile and decode time, the MFU shares in (0, 100],
+   spec_bench's model to its own formula; then ``utils/profiling``'s
+   trace (it must name its region and K1's and K2's kernels) and
+   ``StepTimer`` around decode steps of the main-path engine.
+
 K2 at head_dim 80 and K7 at head_dim 64 are timed on random caches
 (``phase_times_headdim``, after 27).
 
@@ -279,8 +291,8 @@ SP_OVP_RTOL = 1e-3
 # bloom_ragged, "bloom_long"; GPT-2 XL (48): "gpt2" gpt2_main,
 # "gpt2_olive" (its decode is host-bound, about 0.8 s per step at 48
 # layers). OPT's ANT main path and the bf16 baseline run all 32.
-DEPTHS = {"serving": 8, "olive": 12, "w4pack": 16, "bloom": 10,
-          "bloom_long": 6, "gpt2": 12, "gpt2_olive": 2}
+DEPTHS = {"serving": 8, "olive": 6, "w4pack": 8, "bloom": 6,
+          "bloom_long": 4, "gpt2": 6, "gpt2_olive": 2}
 
 _T0 = time.perf_counter()
 
@@ -1130,7 +1142,7 @@ def phase_main(torch, gen, n_layers: int = 32):
     want = {"K1": 6 * c.n_layers * DECODE, "K2": c.n_layers * (1 + DECODE)}
     res = serve_path(torch, engine, ids, "main_path", want,
                      {"param_build_s": build_s})
-    return engine, res["launches"], ids
+    return engine, res, ids
 
 
 def ovp_shares(torch, engine, tok, steps: int = 8):
@@ -1807,6 +1819,7 @@ def phase_profile(torch, engine, ids, steps: int = 4, path: str = "ANT",
                         {"name": k[:100], "us": us / n, "count": c / n}
                         for us, k, c in rows[:10]]}
     emit(out)
+    return out
 
 
 def _greedy(torch, eng, cfg, ep, ids, k1fn, k2fn, steps: int = 8,
@@ -4254,6 +4267,262 @@ def phase_serve_cli(torch, gen, smi: str, n_layers: int = SERVE_LAYERS
     return res
 
 
+# The measurement command lines, on the main path's card after its
+# profile: lm_bench at OPT-6.7B (decode with the bf16 baseline, and the
+# prefill mode) and BLOOM-7b1 (decode, no baseline), at full depth;
+# spec_bench at the serving depth with a 2-layer draft; profiling's trace
+# and StepTimer on the main-path engine
+BENCH_OPT_DECODE, BENCH_BLOOM_DECODE = 16, 8
+BENCH_SPEC_DRAFT, BENCH_SPEC_ROUNDS = 2, 8
+BENCH_TRACE_STEPS, BENCH_TIMER_STEPS = 2, 8
+BENCH_REGION = "bench_clis_decode"
+# lm_bench decides whether the bf16 baseline fits by its own estimate of
+# the engine's peak memory (``bf16_bytes``): it must be within this share
+# of the peak the card measures (15.10 GB on an H100 against 15.02
+# estimated at OPT-6.7B)
+BENCH_BF16_EST_RTOL = 0.05
+
+
+def json_numbers(obj) -> list:
+    """Every number in a JSON tree."""
+    if isinstance(obj, bool):
+        return []
+    if isinstance(obj, (int, float)):
+        return [obj]
+    if isinstance(obj, dict):
+        obj = list(obj.values())
+    if isinstance(obj, list):
+        return [x for v in obj for x in json_numbers(v)]
+    return []
+
+
+def spec_formula(t_plain, t_verify, t_draft, k, batch) -> tuple:
+    """spec_bench's model, written out here: tokens/s at accept rates
+    0-1 and the break-even rate, rounded as its JSON line prints them."""
+    rc = k * t_draft + t_verify
+    return ({f"a={a:.1f}": round(batch * (1 + a * k) / rc, 1)
+             for a in (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)},
+            round(max(0.0, (rc / t_plain - 1) / k), 3))
+
+
+def phase_bench_clis(torch, engine, ids, main_res: dict, profile: dict,
+                     smi: str) -> None:
+    """The port's measurement command lines on the card, each through its
+    ``main(argv)`` with every count set to 0 around it, its JSON line
+    emitted beside its seconds, launches and peak memory:
+    - ``lm_bench --family opt-6.7b --decode 16`` (32 layers, the bf16
+      baseline): K1 at M = 4 (6 per layer and step) and K2, ms_per_step
+      at least the ANT profile's decode device time per step and at most
+      twice main_path's decode ms/step; the bf16 run's peak memory
+      within BENCH_BF16_EST_RTOL of lm_bench's own estimate
+      (``bf16_bytes``);
+    - ``lm_bench --family opt-6.7b --mode prefill``: K2 at T = 512 once
+      per layer and prefill, no K1 or K5 (the "w4" prefill's torch route,
+      ``stacked_prefill`` off), ms_per_prefill at least the ANT prefill
+      profile's device time, both MFU shares in (0, 100], bf16_layers 32;
+    - ``lm_bench --family bloom-7b1 --no-baseline --decode 8`` (30
+      layers: ALiBi, fused qkv, embed_ln): K1 4 per layer and step, K2;
+    - ``spec_bench`` at DEPTHS["serving"] layers, a BENCH_SPEC_DRAFT-layer
+      draft, k 4: K1 at M = 4 and at M = B (k + 1) = 20, K2 at T = 1 and
+      k + 1 (counted from each ``generate`` call's rounds); its modeled
+      curve and break-even equal ``spec_formula`` on its own unrounded
+      times (``spec_model``'s arguments);
+    - ``profiling.trace`` with ``annotate`` around BENCH_TRACE_STEPS
+      decode steps of the main-path engine: the trace names the region,
+      K1's and K2's kernels; a ``StepTimer`` over BENCH_TIMER_STEPS
+      fenced steps, whose p50 is at least the profile's device time per
+      step.
+    Every number finite and no plain version in any run."""
+    import glob
+    import tempfile
+    from ant_quantization_tpu_torch.serve import speculative
+    from ant_quantization_tpu_torch.tools import lm_bench, spec_bench
+    from ant_quantization_tpu_torch.utils import profiling
+    t_phase = time.perf_counter()
+    errs, runs = [], {}
+
+    def check(ok, msg):
+        if not ok:
+            errs.append(msg)
+
+    def cli(name, main_fn, argv, want):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = run_cli(main_fn, argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        reset_counts()
+        line = json.loads(out.splitlines()[-1])
+        want = want() if callable(want) else want
+        want = {k: want.get(k, 0) for k in counts}
+        got = {k: v["launches"] for k, v in counts.items()}
+        plain = {k: v["plain_calls"] for k, v in counts.items()}
+        runs[name] = {"argv": argv, "json": line, "seconds": seconds,
+                      "launches": got, "want_launches": want,
+                      "plain_calls": plain,
+                      "peak_bytes_over_before":
+                          torch.cuda.max_memory_allocated() - before}
+        emit({"phase": "bench_clis", "run": name, **runs[name],
+              "card": smi})
+        check(got == want, f"{name}: launches {got}, want {want}")
+        check(not any(plain.values()), f"{name}: plain versions ran")
+        check(all(math.isfinite(x) for x in json_numbers(line)),
+              f"{name}: a number is not finite")
+        return line
+
+    dev_step_ms = profile["decode"]["device_us_per_call"] / 1e3
+    opt = lm_bench.FAMILIES["opt-6.7b"]()
+    L, S = opt.n_layers, len(lm_bench.site_shapes(opt))
+    name = "lm_bench opt-6.7b decode"
+    dec = cli(name, lm_bench.main,
+              ["--family", "opt-6.7b", "--decode", str(BENCH_OPT_DECODE)],
+              {"K1": S * L * 4 * BENCH_OPT_DECODE,
+               "K2": L * (1 + 4 * BENCH_OPT_DECODE)})
+    seq = PREFILL + BENCH_OPT_DECODE + 32
+    bf16_est = lm_bench.bf16_bytes(opt, BATCH, PREFILL, seq)
+    runs[name]["bf16_bytes_estimate"] = bf16_est
+    check(dev_step_ms <= dec["ms_per_step"]
+          <= 2 * main_res["decode_ms_per_step"],
+          f"{name}: ms_per_step {dec['ms_per_step']} outside "
+          f"[{dev_step_ms}, 2 x {main_res['decode_ms_per_step']}]")
+    check("vs_bf16" in dec and "bf16_note" not in dec,
+          f"{name}: the bf16 baseline did not run")
+    peak = runs[name]["peak_bytes_over_before"]
+    check(abs(peak / bf16_est - 1) <= BENCH_BF16_EST_RTOL,
+          f"{name}: the bf16 run's peak {peak} B against lm_bench's "
+          f"estimate {bf16_est} B")
+
+    name = "lm_bench opt-6.7b prefill"
+    pre = cli(name, lm_bench.main, ["--family", "opt-6.7b", "--mode",
+                                    "prefill"],
+              {"K2": L * 2 * 4 * (1 + 3)})
+    dev_prefill_ms = profile["prefill"]["device_us_per_call"] / 1e3
+    check(pre["ms_per_prefill"] >= dev_prefill_ms,
+          f"{name}: ms_per_prefill {pre['ms_per_prefill']} below the "
+          f"profile's device time {dev_prefill_ms}")
+    check(all(0 < pre.get(k, 0) <= 100
+              for k in ("int8_mfu_pct", "bf16_mfu_pct")),
+          f"{name}: an MFU share outside (0, 100]")
+    check(pre.get("bf16_layers") == L, f"{name}: bf16_layers "
+          f"{pre.get('bf16_layers')}, want {L}")
+
+    bloom = lm_bench.FAMILIES["bloom-7b1"]()
+    Lb, Sb = bloom.n_layers, len(lm_bench.site_shapes(bloom))
+    cli("lm_bench bloom-7b1 decode", lm_bench.main,
+        ["--family", "bloom-7b1", "--no-baseline", "--decode",
+         str(BENCH_BLOOM_DECODE)],
+        {"K1": Sb * Lb * 4 * BENCH_BLOOM_DECODE,
+         "K2": Lb * (1 + 4 * BENCH_BLOOM_DECODE)})
+
+    Lt, Ld, k, reps = DEPTHS["serving"], BENCH_SPEC_DRAFT, 4, 48
+    calls, model_args = [], []
+    generate, spec_model = (speculative.SpeculativeDecoder.generate,
+                            spec_bench.spec_model)
+
+    def recorded_generate(self, prompt_ids, *a, **kw):
+        out = generate(self, prompt_ids, *a, **kw)
+        calls.append((tuple(prompt_ids.shape), len(self.accepted_hist)))
+        return out
+
+    def recorded_model(*a):
+        out = spec_model(*a)
+        model_args.append(a)
+        return out
+
+    def spec_want():
+        # the three fenced step loops (a 512-token prefill, then twice
+        # `reps` forwards at T = 1, k + 1 and 1), then each generate: its
+        # prompt (decode-size at 8 tokens) and R rounds of k + 1 draft
+        # steps and one verify
+        k1, k2 = 6 * 2 * reps * (2 * Lt + Ld), (1 + 2 * reps) * (2 * Lt + Ld)
+        for (b, t), r in calls:
+            k1 += 6 * (Lt + Ld) * (b * t <= 64) + 6 * (Lt + Ld * (k + 1)) * r
+            k2 += Lt * (1 + r) + Ld * (1 + (k + 1) * r)
+        return {"K1": k1, "K2": k2}
+
+    with mock.patch.object(speculative.SpeculativeDecoder, "generate",
+                           recorded_generate), \
+            mock.patch.object(spec_bench, "spec_model", recorded_model):
+        spec = cli("spec_bench", spec_bench.main,
+                   ["--layers", str(Lt), "--draft-layers", str(Ld),
+                    "--k", str(k), "--rounds", str(BENCH_SPEC_ROUNDS)],
+                   spec_want)
+    (tp, tv, td, kk, b), = model_args
+    model, be = spec_formula(tp, tv, td, kk, b)
+    check(spec["modeled_spec_tok_s"] == model
+          and spec["break_even_accept"] == be
+          and [spec[f"t_{n}_ms"] for n in ("plain", "verify", "draft")]
+          == [round(t * 1e3, 2) for t in (tp, tv, td)],
+          f"spec_bench: its model {spec['modeled_spec_tok_s']}, "
+          f"{spec['break_even_accept']}; the formula on its times "
+          f"{model}, {be}")
+
+    Lm = engine.cfg.lm.n_layers
+    engine.prefill(ids)
+    tok = ids[:, -1:]
+    torch.cuda.synchronize()
+    reset_counts()
+    with tempfile.TemporaryDirectory(prefix="trace_") as tdir:
+        t0 = time.perf_counter()
+        with profiling.trace(tdir):
+            with profiling.annotate(BENCH_REGION):
+                for _ in range(BENCH_TRACE_STEPS):
+                    tok = engine.decode(tok)[:, -1].argmax(-1, keepdim=True)
+        trace_s = time.perf_counter() - t0
+        files = glob.glob(os.path.join(tdir, "*.pt.trace.json"))
+        text = "".join(open(f).read() for f in files)
+    names = {n: n in text for n in (BENCH_REGION, "i8_stream_kernel",
+                                    "split_kernel", "combine_kernel")}
+    timer = profiling.StepTimer()
+    for _ in range(BENCH_TIMER_STEPS):
+        with timer.step():
+            logits = engine.decode(tok)
+        timer.fence(logits)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+    summary = timer.summary()
+    counts = read_counts()
+    reset_counts()
+    steps = BENCH_TRACE_STEPS + BENCH_TIMER_STEPS
+    want = {k: 0 for k in counts}
+    want.update(K1=6 * Lm * steps, K2=Lm * steps)
+    got = {k: v["launches"] for k, v in counts.items()}
+    runs["profiling"] = {
+        "trace_files": len(files), "trace_bytes": len(text),
+        "trace_s": trace_s, "trace_names": names,
+        "step_timer": summary, "launches": got, "want_launches": want,
+        "device_ms_per_step_profile": dev_step_ms}
+    check(len(files) == 1 and all(names.values()),
+          f"profiling: trace files {len(files)}, names {names}")
+    check(summary.get("steps") == BENCH_TIMER_STEPS - 1
+          and summary["p50_s"] * 1e3 >= dev_step_ms,
+          f"profiling: StepTimer {summary} against {dev_step_ms} ms")
+    check(got == want and not any(v["plain_calls"]
+                                  for v in counts.values()),
+          f"profiling: launches {got}, want {want}")
+    res = {"phase": "bench_clis_summary", "card": smi,
+           "phase_s": time.perf_counter() - t_phase,
+           "profiling": runs["profiling"],
+           "spec_bench_generate_calls": calls,
+           "checked_against": {
+               "profile_decode_device_ms_per_step": dev_step_ms,
+               "profile_prefill_device_ms": dev_prefill_ms,
+               "main_path_decode_ms_per_step":
+                   main_res["decode_ms_per_step"],
+               "bf16_bytes_estimate": bf16_est,
+               "bf16_peak_bytes_over_before":
+                   runs["lm_bench opt-6.7b decode"]
+                   ["peak_bytes_over_before"]},
+           "errors": errs, "pass": not errs}
+    emit(res)
+    if errs:
+        fail(f"bench_clis: {errs}")
+    torch.cuda.empty_cache()
+
+
 # The encoder PTQ path: BERT-base and BART-base at full width and depth,
 # through the port's glue_run and squad_run with the flags of
 # recipes/olive_glue.toml and olive_squad.toml (read by the port's
@@ -5340,9 +5609,11 @@ def main() -> int:
     serve = phase_serve_cli(torch, gen, smi)
     enc = phase_encoders(torch, smi)
     qat = phase_qat(torch, smi)
-    engine, counts, ids = phase_main(torch, gen)
+    engine, main_res, ids = phase_main(torch, gen)
+    counts = main_res["launches"]
     sites, k2_rows = phase_times(torch, engine)
-    phase_profile(torch, engine, ids)
+    profile = phase_profile(torch, engine, ids)
+    phase_bench_clis(torch, engine, ids, main_res, profile, smi)
     sp, sp_counts = phase_stacked_prefill(torch, engine, ids,
                                           "stacked_prefill_ant")
     phase_profile(torch, sp, ids, path="ANT stacked_prefill")

@@ -256,7 +256,9 @@ def test_package_imports_no_jax():
             "        'tools.squad_run', 'tools.run_recipe', 'harness.train',\n"
             "        'harness.resilient', 'models.resnet', 'models.cnn',\n"
             "        'models.vit', 'models.inception', 'tools.imagenet_eval',\n"
-            "        'tools.imagenet_qat', 'tools.qat_bench'}\n"
+            "        'tools.imagenet_qat', 'tools.qat_bench',\n"
+            "        'tools.lm_bench', 'tools.spec_bench',\n"
+            "        'utils.profiling'}\n"
             "assert {pkg.__name__ + '.' + m for m in want} <= set(mods), "
             "mods\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

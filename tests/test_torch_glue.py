@@ -434,6 +434,10 @@ def test_run_recipe_main_dry_run_and_list(capsys):
                             "sst2_IP-F", "--dry-run"]) == 0
     line, = capsys.readouterr().out.splitlines()
     assert " --train " in line and "--task sst2" in line
-    with pytest.raises(NotImplementedError, match="item 11"):
-        run_recipe.build_command({"name": "x", "tool": "spec_bench"}, {},
+    with pytest.raises(NotImplementedError, match="item 12"):
+        run_recipe.build_command({"name": "x", "tool": "tp_bench"}, {},
                                  [])
+    cmd = run_recipe.build_command({"name": "x", "tool": "spec_bench",
+                                    "layers": 8}, {}, ["--device", "cpu"])
+    assert cmd[-5:] == ["ant_quantization_tpu_torch.tools.spec_bench",
+                        "--layers", "8", "--device", "cpu"]

@@ -401,8 +401,7 @@ def test_run_recipe_dry_run_over_every_recipe(path, capsys):
     assert all(r.get("tool", ref.load_recipe(path).get("defaults", {}).get(
         "tool")) in run_recipe.PORTED_TOOLS
         for r in run_recipe.load_recipe(path)["run"])
-    assert sorted(run_recipe.MISSING_TOOLS) == ["lm_bench", "spec_bench",
-                                                "tp_bench"]
+    assert sorted(run_recipe.MISSING_TOOLS) == ["tp_bench"]
 
 
 def test_image_entry_points_need_a_card_by_default(monkeypatch):
