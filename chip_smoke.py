@@ -238,6 +238,17 @@ arithmetic on the host and within 1e-5 of ``np.percentile``
    trace (it must name its region and K1's and K2's kernels) and
    ``StepTimer`` around decode steps of the main-path engine.
 
+32. perfmodel (run last, after the bf16 baseline): the accelerator
+   performance model, which no kernel of the port serves (the tiling
+   search is int64/float64 torch passes over the 120 loop orders and a
+   network's layers at once), through its command lines on the card: the
+   full 48-row ``simulate --batch 64``, its CSV's SHA-256 and its cycle
+   geomeans those of the reference's table (PM_TABLE_SHA256,
+   PM_TABLE_GEOMEANS), the geomeans within 0.011 of Figure 13's;
+   ``arch_sweep --variable-precision`` and a sweep at 64/128 KB, printing
+   what the reference prints (PM_ARCH); seconds per run, the card's peak
+   memory grown by each, every kernel count 0.
+
 K2 at head_dim 80 and K7 at head_dim 64 are timed on random caches
 (``phase_times_headdim``, after 27).
 
@@ -4277,10 +4288,10 @@ BENCH_SPEC_DRAFT, BENCH_SPEC_ROUNDS = 2, 8
 BENCH_TRACE_STEPS, BENCH_TIMER_STEPS = 2, 8
 BENCH_REGION = "bench_clis_decode"
 # lm_bench decides whether the bf16 baseline fits by its own estimate of
-# the engine's peak memory (``bf16_bytes``): it must be within this share
-# of the peak the card measures (15.10 GB on an H100 against 15.02
-# estimated at OPT-6.7B)
-BENCH_BF16_EST_RTOL = 0.05
+# the engine's peak memory (``bf16_bytes``): an upper bound on the peak
+# the card measures, and at most this many times that peak, so that its
+# margin stays honest
+BENCH_BF16_EST_SLACK = 1.15
 
 
 def json_numbers(obj) -> list:
@@ -4313,9 +4324,9 @@ def phase_bench_clis(torch, engine, ids, main_res: dict, profile: dict,
     - ``lm_bench --family opt-6.7b --decode 16`` (32 layers, the bf16
       baseline): K1 at M = 4 (6 per layer and step) and K2, ms_per_step
       at least the ANT profile's decode device time per step and at most
-      twice main_path's decode ms/step; the bf16 run's peak memory
-      within BENCH_BF16_EST_RTOL of lm_bench's own estimate
-      (``bf16_bytes``);
+      twice main_path's decode ms/step; the bf16 run's peak memory at
+      most lm_bench's own estimate (``bf16_bytes``), and the estimate at
+      most BENCH_BF16_EST_SLACK times the peak;
     - ``lm_bench --family opt-6.7b --mode prefill``: K2 at T = 512 once
       per layer and prefill, no K1 or K5 (the "w4" prefill's torch route,
       ``stacked_prefill`` off), ms_per_prefill at least the ANT prefill
@@ -4392,9 +4403,10 @@ def phase_bench_clis(torch, engine, ids, main_res: dict, profile: dict,
     check("vs_bf16" in dec and "bf16_note" not in dec,
           f"{name}: the bf16 baseline did not run")
     peak = runs[name]["peak_bytes_over_before"]
-    check(abs(peak / bf16_est - 1) <= BENCH_BF16_EST_RTOL,
+    check(peak <= bf16_est <= BENCH_BF16_EST_SLACK * peak,
           f"{name}: the bf16 run's peak {peak} B against lm_bench's "
-          f"estimate {bf16_est} B")
+          f"estimate {bf16_est} B (want peak <= estimate <= "
+          f"{BENCH_BF16_EST_SLACK} x peak)")
 
     name = "lm_bench opt-6.7b prefill"
     pre = cli(name, lm_bench.main, ["--family", "opt-6.7b", "--mode",
@@ -4521,6 +4533,131 @@ def phase_bench_clis(torch, engine, ids, main_res: dict, profile: dict,
     if errs:
         fail(f"bench_clis: {errs}")
     torch.cuda.empty_cache()
+
+
+# The accelerator performance model (perfmodel/) through its command
+# lines, its tiling search on the card. The full table at batch 64 is held
+# to the reference's: the SHA-256 of the CSV that the reference's
+# tools/simulate.py writes (its native optimizer, csrc/tileopt.cc) and its
+# exact cycle geomeans, both checked against the reference on the CPU in
+# tests/test_torch_perfmodel_tools.py
+PM_BATCH = 64
+PM_TABLE_SHA256 = \
+    "6a6e644fbe0cf1f908b8a70a1c006922fb9f0a7065fe8840e3dc0e014979d489"
+PM_TABLE_GEOMEANS = {
+    "ant_os": 0.24389428525609602, "ant_ws": 0.2455051480977606,
+    "bitfusion": 0.689608472972763, "olaccel": 0.8047580258300638,
+    "adafloat": 1.0, "biscaled": 0.37742345539261735}
+# Figure 13's cycle geomeans, as tests/test_perfmodel_results.py:174 holds
+# them: over the 8 nets, BiScaled over vgg16 and resnet50
+PM_FIG13 = {"ant_os": 0.25, "ant_ws": 0.25, "bitfusion": 0.70,
+            "olaccel": 0.81, "adafloat": 1.00}
+PM_FIG13_BISCALED, PM_FIG13_TOL = 0.37, 0.011
+# arch_sweep's arguments and what the reference's tools/arch_sweep.py
+# prints for them
+PM_ARCH = {
+    ("--variable-precision", "--nets", "vgg16"):
+        "variable-precision speedup: 3.87x (area overhead 1.03x)\n"
+        "  variable: 62964034 cycles, 10.47 mm^2\n"
+        "  fixed   : 243658636 cycles, 10.18 mm^2\n",
+    ("--nets", "vgg16", "--sram-kb", "64", "128"):
+        "2 configurations within 3.5 mm^2; top 2 by cycles:\n"
+        "   array   act/wgt/out KB    area   Mcycles  energy uJ\n"
+        "  8x8       64/64/64       2.83    983.92   665871.0\n"
+        "  8x8       64/128/64       3.50    983.92   720275.3\n",
+}
+
+
+def fig13_geomeans(rows) -> dict:
+    """Geometric means of the normalized cycles, by accelerator."""
+    def geomean(accel, nets):
+        vals = [float(r["norm_cycles"]) for r in rows
+                if r["accel"] == accel and r["network"] in nets]
+        return math.exp(sum(math.log(v) for v in vals) / len(vals))
+    nets = {r["network"] for r in rows}
+    out = {a: geomean(a, nets) for a in PM_FIG13}
+    out["biscaled"] = geomean("biscaled", {"vgg16", "resnet50"})
+    return out
+
+
+def phase_perfmodel(torch, smi: str) -> dict:
+    """The performance model's command lines on the card, counts set to 0
+    around them:
+    - the full 48-row ``simulate --batch 64``: its CSV's SHA-256 is
+      PM_TABLE_SHA256 and its cycle geomeans are PM_TABLE_GEOMEANS
+      exactly, and within PM_FIG13_TOL of Figure 13's;
+    - ``arch_sweep`` with each argument list of PM_ARCH: it prints what
+      the reference prints;
+    - the card's peak memory grows during each run (the search ran on
+      it); K1-K9 launch 0 times and no plain version runs."""
+    import csv
+    import hashlib
+    import io
+    import tempfile
+    from ant_quantization_tpu_torch.tools import arch_sweep, simulate
+    t_phase = time.perf_counter()
+    errs, runs = [], {}
+
+    def check(ok, msg):
+        if not ok:
+            errs.append(msg)
+
+    reset_counts()
+
+    def run(name, main_fn, argv):
+        """One CLI run on the card: its output."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = run_cli(main_fn, list(argv))
+        torch.cuda.synchronize()
+        growth = torch.cuda.max_memory_allocated() - base
+        runs[name] = {"argv": list(argv),
+                      "seconds": time.perf_counter() - t0,
+                      "peak_bytes_over_before": growth}
+        check(growth > 0, f"{name}: the card's peak grew by {growth} B")
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="perfmodel_") as tdir:
+        path = os.path.join(tdir, "ant_res.csv")
+        full_out = run("simulate", simulate.main,
+                       ["--batch", str(PM_BATCH), "--out", path])
+        with open(path, "rb") as f:
+            full_csv = f.read()
+    digest = hashlib.sha256(full_csv).hexdigest()
+    rows = list(csv.DictReader(io.StringIO(full_csv.decode())))
+    geo = fig13_geomeans(rows)
+    check(len(rows) == 48 and digest == PM_TABLE_SHA256
+          and geo == PM_TABLE_GEOMEANS,
+          f"simulate: {len(rows)} rows, SHA-256 {digest}, geomeans {geo}; "
+          f"want 48 rows, {PM_TABLE_SHA256}, {PM_TABLE_GEOMEANS}")
+    want = {**PM_FIG13, "biscaled": PM_FIG13_BISCALED}
+    check(all(abs(geo[k] - v) < PM_FIG13_TOL for k, v in want.items()),
+          f"simulate: geomeans {geo}, Figure 13's {want} within "
+          f"{PM_FIG13_TOL}")
+    arch = {}
+    for argv, want_out in PM_ARCH.items():
+        tag = " ".join(argv)
+        got = run(f"arch_sweep {tag}", arch_sweep.main, argv)
+        arch[tag] = got.splitlines()
+        check(got == want_out, f"arch_sweep {tag}: {got!r}, the "
+              f"reference's {want_out!r}")
+    counts = read_counts()
+    reset_counts()
+    got = {k: (v["launches"], v["plain_calls"]) for k, v in counts.items()}
+    check(not any(a or b for a, b in got.values()),
+          f"perfmodel: kernel launches or plain calls {got}")
+    res = {"phase": "perfmodel", "card": smi, "runs": runs,
+           "simulate_summary": full_out.splitlines()[:7],
+           "table_sha256": digest, "fig13_geomeans": geo,
+           "arch_sweep": arch, "launches": got,
+           "phase_s": time.perf_counter() - t_phase,
+           "errors": errs, "pass": not errs}
+    emit(res)
+    if errs:
+        fail(f"perfmodel: {errs}")
+    return res
 
 
 # The encoder PTQ path: BERT-base and BART-base at full width and depth,
@@ -5681,6 +5818,7 @@ def main() -> int:
     del ant_ep
     torch.cuda.empty_cache()
     phase_bf16_baseline(torch, gen)
+    perfmodel = phase_perfmodel(torch, smi)
     new_paths = {
         **{f"scheduler run {k} (tpd {r['ticks_per_dispatch']})":
            r["launches"] for k, r in sched["runs"].items()},
@@ -5937,6 +6075,8 @@ def main() -> int:
                   and "ms_per_step" in r},
           "qat_bench": qat["qat_bench"],
           "qat_phase_s": qat["phase_s"],
+          "perfmodel": {k: perfmodel[k] for k in ("runs", "fig13_geomeans",
+                                                  "phase_s")},
           "seconds": time.perf_counter() - t_start})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

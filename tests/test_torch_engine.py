@@ -244,7 +244,8 @@ def test_unported_features_raise():
 def test_package_imports_no_jax():
     """Importing every module of the port (all of the package, walked by
     ``pkgutil.walk_packages``) loads none of jax, flax, optax and the
-    reference package."""
+    reference package, nor matplotlib (absent on the card's host;
+    ``plot_results`` imports it when it draws)."""
     code = ("import importlib, pkgutil, sys\n"
             "import ant_quantization_tpu_torch as pkg\n"
             "mods = [m.name for m in pkgutil.walk_packages(\n"
@@ -258,11 +259,18 @@ def test_package_imports_no_jax():
             "        'models.vit', 'models.inception', 'tools.imagenet_eval',\n"
             "        'tools.imagenet_qat', 'tools.qat_bench',\n"
             "        'tools.lm_bench', 'tools.spec_bench',\n"
-            "        'utils.profiling'}\n"
+            "        'utils.profiling', 'perfmodel.model',\n"
+            "        'perfmodel.simulator', 'perfmodel.sram',\n"
+            "        'perfmodel.energy', 'perfmodel.nets',\n"
+            "        'perfmodel.results', 'perfmodel.arch',\n"
+            "        'perfmodel.graph', 'perfmodel.loopnest',\n"
+            "        'tools.simulate', 'tools.arch_sweep',\n"
+            "        'tools.print_result', 'tools.plot_results'}\n"
             "assert {pkg.__name__ + '.' + m for m in want} <= set(mods), "
             "mods\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'optax', 'ant_quantization_tpu')]\n"
+            "('jax', 'flax', 'optax', 'ant_quantization_tpu', "
+            "'matplotlib')]\n"
             "assert not bad, bad\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run([sys.executable, "-c", code], cwd=root,

@@ -232,6 +232,47 @@ def test_bf16_bytes_counts_the_static_footprint():
     assert lm_bench.bf16_bytes(c, 4, 1024, 608) > est
 
 
+def _uncounted_estimate(c, batch, prefill, max_seq):
+    """The gate's estimate before F6's repair: the weights, head, position
+    table, raw cache and largest transient, with no margin."""
+    weights = 2 * c.n_layers * sum(K * N for K, N in
+                                   lm_bench.site_shapes(c).values())
+    wpe = (2 * (max_seq + 2) * c.d_model
+           if c.positions in ("learned", "learned_offset2") else 0)
+    cache = 2 * 2 * c.n_layers * batch * c.n_heads * max_seq * c.head_dim
+    m = batch * prefill
+    transient = max(4 * m * c.vocab_size,
+                    10 * batch * c.n_heads * prefill * max_seq,
+                    10 * m * c.d_ff) + 16 * m * c.d_model
+    return weights + 2 * c.vocab_size * c.d_model + wpe + cache + transient
+
+
+@pytest.mark.parametrize("mode", ["decode", "prefill"])
+def test_bf16_gate_refuses_between_the_two_estimates(mode, monkeypatch):
+    """F6: the estimate is an upper bound on the card's measured peak
+    (15.10 GB for the OPT-6.7B decode run at bs 4, max_seq 560, where the
+    uncounted estimate said 15.02), within 1.15 times it; at a budget
+    between the uncounted estimate and the repaired one the gate refuses
+    the full-depth bf16 run it used to admit."""
+    opt = lm_bench.FAMILIES["opt-6.7b"]()
+    assert _uncounted_estimate(opt, 4, 512, 560) < 15.10e9
+    assert 15.10e9 < lm_bench.bf16_bytes(opt, 4, 512, 560) <= 1.15 * 15.10e9
+    geom = {**TINY, **SHAPES["opt"]}
+    monkeypatch.setitem(lm_bench.FAMILIES, "tiny",
+                        lambda: tlm.LMConfig(**geom))
+    c = tlm.LMConfig(**{**geom, "max_seq": 74})
+    old, new = _uncounted_estimate(c, 2, 40, 74), lm_bench.bf16_bytes(
+        c, 2, 40, 74)
+    assert old < new
+    extra = ["--device", "cpu"] + (["--mode", "prefill"]
+                                   if mode == "prefill" else [])
+    got = _run(lm_bench.main, extra, repr((old + new) / 2))
+    if mode == "decode":
+        assert "bf16_note" in got and "vs_bf16" not in got, got
+    else:
+        assert got["bf16_layers"] < TINY["n_layers"], got
+
+
 def test_main_needs_a_card_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
