@@ -15,6 +15,19 @@ at 0); attention divides the f32 scores by f32(sqrt(head_dim)), masks
 with the f32 minimum and takes an f32 softmax. f32 products run without
 TF32. Prefill and decode with an f32 cache (``init_kv_caches``; decode
 writes the new K/V into the given cache in place and returns it).
+Tensor parallel: ``forward(..., tp_group=)`` runs the model on this
+rank's shards (``parallel/mesh.py``'s rules; :func:`tp_logits` places
+them), with the collectives of ``parallel/comm.py`` where the
+reference's GSPMD program has them. The embeddings are split along the
+model dimension and each lookup is gathered; q, k, v, qkv and fc_in are
+column parallel and out and fc_out row parallel (``QuantDense``). Split
+q, k and v give each rank its own heads (and their ALiBi slopes); the
+fused qkv's contiguous column shard mixes q, k and v, so its output is
+gathered, attention runs on every head, and the rank keeps its slice of
+the result for the row-parallel out. The tied head multiplies this
+rank's slice of the model dimension and sums over the group; an untied
+head's columns are gathered. Every rank of the group gets the same
+logits, and a backward gives each rank the gradient of its shards.
 HuggingFace checkpoints load through ``models/import_hf.py``; the BERT
 and BART encoders (``models/bert.py``, ``models/bart.py``) reuse this
 module's ``LayerNorm`` and ``Embed``, the ViT (``models/vit.py``) its
@@ -29,17 +42,19 @@ from typing import Any, Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from .._ext import resolve_device
 from ..kernels.qmatmul import tf32_off
 from ..nn.config import QuantConfig
-from ..nn.layers import QuantDense
+from ..nn.layers import QuantDense, load_quant_tree
+from ..parallel import comm
 
 __all__ = ["LMConfig", "gpt2_config", "opt_config", "bloom_config",
            "alibi_slopes", "conv1d_site_names", "ALL_SITES",
            "TransformerLM", "Block", "SelfAttention", "LayerNorm", "Embed",
-           "init_kv_caches", "params_tree"]
+           "init_kv_caches", "params_tree", "tp_logits"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,7 +141,9 @@ def _qdense(c: LMConfig, qcfg: QuantConfig, in_features: int,
     """QuantDense with the site's quantizer axes (``conv1d_sites``)."""
     ca, pa = (0, 1) if name in conv1d_site_names(c) else (-1, 0)
     return QuantDense(in_features, features, qcfg, dtype=c.dtype,
-                      channel_axis=ca, pair_axis=pa, device=device)
+                      channel_axis=ca, pair_axis=pa, device=device,
+                      parallel="row" if name in ("out", "fc_out")
+                      else "column")
 
 
 class LayerNorm(nn.Module):
@@ -158,8 +175,12 @@ class Embed(nn.Module):
         self.embedding = nn.Parameter(torch.empty((n, d), device=device))
         nn.init.normal_(self.embedding, std=1.0 / math.sqrt(d))
 
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.embedding[ids].to(self.dtype)
+    def forward(self, ids: torch.Tensor, tp_group=None) -> torch.Tensor:
+        """The rows of ``ids``; under a ``tp_group`` the table is split
+        along d and the rank's columns are gathered."""
+        y = self.embedding[ids].to(self.dtype)
+        return y if tp_group is None else comm.gather_from_group(
+            y, tp_group, -1)
 
 
 def _activation(name: str, x: torch.Tensor) -> torch.Tensor:
@@ -185,13 +206,20 @@ class SelfAttention(nn.Module):
         self.out = _qdense(c, qcfg, d, d, "out", device)
 
     def forward(self, x, mask, alibi_bias=None, kv_cache=None,
-                cache_index=None):
+                cache_index=None, tp_group=None):
         c = self.c
-        h, hd = c.n_heads, c.head_dim
+        hd = c.head_dim
         if c.fused_qkv:
-            q, k, v = self.qkv(x).split(c.d_model, dim=-1)
+            qkv = self.qkv(x, tp_group)
+            if tp_group is not None:
+                qkv = comm.gather_from_group(qkv, tp_group, -1)
+            q, k, v = qkv.split(c.d_model, dim=-1)
         else:
-            q, k, v = self.q(x), self.k(x), self.v(x)
+            q, k, v = (getattr(self, n)(x, tp_group) for n in ("q", "k", "v"))
+        h = q.shape[-1] // hd           # this rank's heads
+        if alibi_bias is not None and h < c.n_heads:
+            r = dist.get_rank(tp_group)
+            alibi_bias = alibi_bias[:, r * h:(r + 1) * h]
         B, T = x.shape[0], x.shape[1]
         q = q.reshape(B, T, h, hd)
         k = k.reshape(B, T, h, hd)
@@ -212,7 +240,10 @@ class SelfAttention(nn.Module):
                            device=x.device)
         attn = torch.softmax(torch.where(mask, scores, neg), dim=-1)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v.to(attn.dtype))
-        return self.out(out.reshape(B, T, c.d_model)), new_cache
+        out = out.reshape(B, T, h * hd)
+        if c.fused_qkv and tp_group is not None:
+            out = comm.scatter_to_group(out, tp_group, -1)
+        return self.out(out, tp_group), new_cache
 
 
 class Block(nn.Module):
@@ -226,12 +257,13 @@ class Block(nn.Module):
         self.fc_out = _qdense(c, qcfg, c.d_ff, c.d_model, "fc_out", device)
 
     def forward(self, x, mask, alibi_bias=None, kv_cache=None,
-                cache_index=None):
+                cache_index=None, tp_group=None):
         a, new_cache = self.attn(self.ln_1(x), mask, alibi_bias, kv_cache,
-                                 cache_index)
+                                 cache_index, tp_group)
         x = x + a
-        h = _activation(self.c.activation, self.fc_in(self.ln_2(x)))
-        return x + self.fc_out(h), new_cache
+        h = _activation(self.c.activation,
+                        self.fc_in(self.ln_2(x), tp_group))
+        return x + self.fc_out(h, tp_group), new_cache
 
 
 class TransformerLM(nn.Module):
@@ -241,7 +273,9 @@ class TransformerLM(nn.Module):
     ``cache_index`` the fill position; returns (logits, caches). Weights
     start as normal samples of std 1/sqrt(fan in) (LayerNorms at 1 and 0,
     biases 0); load real ones with ``load_state_dict`` (a reference
-    params tree through ``convert.from_jax_lm_params``)."""
+    params tree through ``convert.from_jax_lm_params``). ``tp_group``:
+    the model's parameters are this rank's shards (see the module's
+    docstring and :func:`tp_logits`)."""
 
     def __init__(self, cfg: LMConfig, qcfg: QuantConfig, device=None):
         super().__init__()
@@ -268,25 +302,28 @@ class TransformerLM(nn.Module):
             nn.init.normal_(self.lm_head.kernel,
                             std=1.0 / math.sqrt(c.d_model))
 
-    def forward(self, input_ids, kv_caches=None, cache_index=None):
+    def forward(self, input_ids, kv_caches=None, cache_index=None,
+                tp_group=None):
         with tf32_off():
-            return self._forward(input_ids, kv_caches, cache_index)
+            return self._forward(input_ids, kv_caches, cache_index,
+                                 tp_group)
 
-    def _forward(self, input_ids, kv_caches, cache_index):
+    def _forward(self, input_ids, kv_caches, cache_index, tp_group):
         c = self.cfg
+        g = tp_group
         dev = self.ln_f.scale.device
         ids = torch.as_tensor(input_ids, device=dev).long()
         B, T = ids.shape
-        x = self.wte(ids)
+        x = self.wte(ids, g)
         if cache_index is None:
             pos0, kv_len = 0, T
         else:
             pos0, kv_len = int(cache_index), kv_caches[0][0].shape[1]
         positions = pos0 + torch.arange(T, device=dev)
         if c.positions == "learned":
-            x = x + self.wpe(positions)
+            x = x + self.wpe(positions, g)
         elif c.positions == "learned_offset2":
-            x = x + self.wpe(positions + 2)
+            x = x + self.wpe(positions + 2, g)
         if c.embed_ln:
             x = self.embed_ln(x)
         q_pos = positions[:, None]
@@ -302,14 +339,23 @@ class TransformerLM(nn.Module):
         for i in range(c.n_layers):
             kv = kv_caches[i] if kv_caches is not None else None
             x, nc = getattr(self, f"h_{i}")(x, mask, alibi_bias, kv,
-                                            pos0 if kv is not None else None)
+                                            pos0 if kv is not None else None,
+                                            g)
             if new_caches is not None:
                 new_caches.append(nc)
         x = self.ln_f(x)
-        if c.tie_word_embeddings:
-            logits = x @ self.wte.embedding.t().to(x.dtype)
+        if g is None:
+            head = (self.wte.embedding.t() if c.tie_word_embeddings
+                    else self.lm_head.kernel)
+            logits = x @ head.to(x.dtype)
+        elif c.tie_word_embeddings:
+            logits = comm.reduce_from_group(
+                comm.scatter_to_group(x, g, -1)
+                @ self.wte.embedding.t().to(x.dtype), g)
         else:
-            logits = x @ self.lm_head.kernel.to(x.dtype)
+            logits = comm.gather_from_group(
+                comm.copy_to_group(x, g) @ self.lm_head.kernel.to(x.dtype),
+                g, -1)
         if new_caches is not None:
             return logits, new_caches
         return logits
@@ -337,3 +383,28 @@ def params_tree(model: nn.Module) -> Dict:
             node = node.setdefault(part, {})
         node[leaf] = p.detach()
     return tree
+
+
+def tp_logits(model: "TransformerLM", params: Dict, quant, ids,
+              tp_group) -> torch.Tensor:
+    """Logits (B, T, V) of this rank's batch rows ``ids`` from this rank's
+    shards of the params tree (``params_tree``'s form; leaves that
+    require grad get their gradients) and of the quant tree (None or {}
+    when unquantized), run through ``model`` (any instance of the
+    config: its own parameters are not read, and its states are set to
+    ``quant``) with ``torch.func.functional_call``. Every rank of
+    ``tp_group`` gets the same logits."""
+    if quant:
+        load_quant_tree(model, quant)
+    flat: Dict = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+            else:
+                flat[".".join(path + (k,))] = v
+
+    walk(params, ())
+    return torch.func.functional_call(model, flat, (ids,),
+                                      {"tp_group": tp_group}, strict=True)

@@ -34,17 +34,20 @@ and f32 attention products between them.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.nn import functional as F
 
 from ..calibrate.search import apply_quant, calibrate
 from ..calibrate.spec import QuantState, SiteConfig, placeholder_state
 from ..kernels.qmatmul import tf32_off
+from ..parallel import comm
 from .config import QuantConfig
 
 __all__ = ["QuantSite", "QuantDense", "QuantConv", "QuantMultiHeadAttention",
@@ -85,14 +88,29 @@ class QuantDense(nn.Module):
     and signed, the input per tensor; OVP pairs run along the reduction
     axis. GPT-2's Conv1D sites pass ``channel_axis=0, pair_axis=1`` (per
     input channel, pairs along the output axis). The product runs in
-    ``dtype`` (default ``qcfg.compute_dtype``) without TF32."""
+    ``dtype`` (default ``qcfg.compute_dtype``) without TF32.
+
+    Tensor parallel: with a ``tp_group`` the layer holds this rank's shard
+    (``parallel/mesh.py``'s rules) and runs as Megatron-LM's layer of its
+    ``parallel`` kind. A "column" layer holds a slice of the output
+    columns and their bias; its input enters through ``copy_to_group``.
+    A "row" layer holds a slice of the input rows; its partial product is
+    summed over the group, then the whole bias is added once. A Conv1D
+    state's alpha runs along the input axis, so a column layer gathers it
+    and a row layer takes its slice. States do not calibrate under a
+    group."""
 
     def __init__(self, in_features: int, features: int, qcfg: QuantConfig,
                  use_bias: bool = True, dtype: Any = None,
-                 channel_axis: int = -1, pair_axis: int = 0, device=None):
+                 channel_axis: int = -1, pair_axis: int = 0, device=None,
+                 parallel: str = "column"):
         super().__init__()
+        if parallel not in ("column", "row"):
+            raise ValueError(f"parallel must be 'column' or 'row', got "
+                             f"{parallel!r}")
         self.qcfg = qcfg
         self.dtype = dtype
+        self.parallel = parallel
         self.kernel = nn.Parameter(torch.empty((in_features, features),
                                                device=device))
         self.bias = (nn.Parameter(torch.zeros((features,), device=device))
@@ -104,15 +122,42 @@ class QuantDense(nn.Module):
         self.calibrating = False
         nn.init.normal_(self.kernel, std=1.0 / math.sqrt(in_features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        qk = self.weight_q(self.kernel, self.calibrating)
+    def forward(self, x: torch.Tensor, tp_group=None) -> torch.Tensor:
+        if tp_group is None:
+            qk = self.weight_q(self.kernel, self.calibrating)
+        else:
+            if self.calibrating:
+                raise ValueError("a tensor-parallel layer does not "
+                                 "calibrate")
+            qk = self._tp_weight(tp_group)
+            if self.parallel == "column":
+                x = comm.copy_to_group(x, tp_group)
         qx = self.input_q(x, self.calibrating)
         dtype = self.dtype or self.qcfg.compute_dtype
         with tf32_off():
             y = torch.matmul(qx.to(dtype), qk.to(dtype))
+        if tp_group is not None and self.parallel == "row":
+            y = comm.reduce_from_group(y, tp_group)
         if self.bias is not None:
             y = y + self.bias.to(dtype)
         return y
+
+    def _tp_weight(self, group) -> torch.Tensor:
+        """This rank's weight shard, fake-quantized with its state (a
+        Conv1D alpha gathered or sliced to the shard's input rows)."""
+        site = self.weight_q
+        st = site.state
+        if st is None:
+            return self.kernel
+        if site.cfg.channel_axis == 0 and st.alpha.ndim:
+            if self.parallel == "column":
+                alpha = comm.all_gather(st.alpha, group, 0)
+            else:
+                alpha = st.alpha.chunk(dist.get_world_size(group))[
+                    dist.get_rank(group)]
+            st = dataclasses.replace(st, alpha=alpha)
+        return apply_quant(self.kernel.to(torch.float32), st,
+                           site.cfg).to(self.kernel.dtype)
 
 
 def _pairs(v, n: int = 2) -> Tuple[int, ...]:

@@ -57,9 +57,14 @@ Routing follows the reference (``_prepare_stacked``):
   fallback as torch ops. The bf16 cache always takes that einsum, read
   raw.
 
+Tensor parallelism (``serve/sharded.py``) runs this forward on each
+rank's shards: the kernels above on local heads and local columns or
+rows, an f32 all-reduce of the row-parallel partials before their bias,
+and, for a "w4" prefill of int8-exact sites, the sequence-parallel
+prefill on the quantized rings of ``parallel/collective_matmul.py``.
+
 On a CUDA device the kernels run and nothing else; on the CPU their plain
-versions run. Features of the reference engine that this slice does not
-port raise ``NotImplementedError`` naming their ROADMAP item.
+versions run.
 """
 
 from __future__ import annotations
@@ -70,6 +75,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from .._ext import resolve_device
@@ -88,8 +94,11 @@ from ..kernels.stacked import (stacked_quant_matmul,
                                stacked_quant_matmul_p4)
 from ..models.transformer_lm import (ALL_SITES, LMConfig, alibi_slopes,
                                      conv1d_site_names)
-from ..ops.ovp import apply_ovp
+from ..ops.ovp import apply_ovp, victim_mask
 from ..ops.snap import snap_concat, snap_value
+from ..parallel import comm
+from ..parallel.collective_matmul import (matmul_reducescatter_i8,
+                                          ring_allgather_matmul_i8)
 
 __all__ = ["EngineConfig", "quantize_lm_head", "quantize_activation",
            "quantize_activation_ovp", "weight_entry", "packed_weight_entry",
@@ -136,18 +145,16 @@ class EngineConfig:
     sp_prefill: bool = True
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch engine yet (ROADMAP Queue 1 "
-        f"item {item})")
-
-
 def _check_config(cfg: EngineConfig) -> None:
     c = cfg.lm
     if cfg.weight_mode not in ("w4", "w4pack", "bf16"):
         raise ValueError(f"unknown weight_mode {cfg.weight_mode!r}")
-    if cfg.tp_axis is not None or cfg.tp_size != 1:
-        raise _not_ported("tensor parallelism", "12")
+    if cfg.tp_size < 1 or (cfg.tp_size > 1 and cfg.tp_axis is None):
+        raise ValueError(f"tp_size {cfg.tp_size} needs a tp_axis "
+                         "(serve.sharded.tp_engine_config)")
+    if c.n_heads % cfg.tp_size or c.d_ff % cfg.tp_size:
+        raise ValueError(f"{c.n_heads} heads and d_ff {c.d_ff} do not split "
+                         f"over tp_size {cfg.tp_size}")
     if c.activation not in ("relu", "gelu", "gelu_new"):
         raise ValueError(f"unknown activation {c.activation!r}")
 
@@ -728,7 +735,8 @@ def _attention(cfg: EngineConfig, route: str, q: torch.Tensor, kv: QuantKV,
 
 
 def forward(cfg: EngineConfig, ep: Dict, ids: torch.Tensor, kv: QuantKV,
-            pos0, last_index=None) -> Tuple[torch.Tensor, QuantKV]:
+            pos0, last_index=None,
+            tp_group=None) -> Tuple[torch.Tensor, QuantKV]:
     """Shared prefill/decode forward: writes the new K/V at ``pos0`` (in
     place) and attends over the cache.
 
@@ -737,12 +745,29 @@ def forward(cfg: EngineConfig, ep: Dict, ids: torch.Tensor, kv: QuantKV,
     ``last_index``: scalar or (B,) prompt position whose logits a serving
     prefill needs; logits then come back (B, 1, V) and ln_f / lm_head run
     on those rows only (exact: both are per-position).
+
+    Under tensor parallelism (a config from
+    ``serve.sharded.tp_engine_config``) ``ep`` and ``kv`` are this rank's
+    shards and ``tp_group`` the tp process group
+    (``serve.sharded.make_sharded_forward`` passes it): the rank serves
+    n_heads / tp_size heads, sums the row-parallel partials of out and
+    fc_out over the group before their bias, and a prefill that passes
+    :func:`_sp_gate` runs sequence parallel (:func:`_sp_forward`).
     """
     _check_config(cfg)
     c = cfg.lm
     top, lay = ep["top"], ep["layers"]
     B, T = ids.shape
     dev = ids.device
+    if (cfg.tp_axis is None) != (tp_group is None):
+        raise ValueError("a tensor-parallel config (tp_axis) runs with its "
+                         "tp group, and only it does "
+                         "(serve.sharded.make_sharded_forward)")
+    if tp_group is not None and dist.get_world_size(tp_group) != \
+            cfg.tp_size:
+        raise ValueError(f"tp group of {dist.get_world_size(tp_group)} "
+                         f"ranks for tp_size {cfg.tp_size}")
+    tp_rank = dist.get_rank(tp_group) if tp_group is not None else 0
     if isinstance(pos0, torch.Tensor) and pos0.ndim:
         write_at = [int(p) for p in pos0.tolist()]      # one host read
         if len(write_at) != B:
@@ -760,13 +785,30 @@ def forward(cfg: EngineConfig, ep: Dict, ids: torch.Tensor, kv: QuantKV,
     if "embed_ln" in top:
         x = _ln(x, top["embed_ln"]["scale"], top["embed_ln"]["bias"],
                 c.ln_eps)
-    slopes = (torch.tensor(alibi_slopes(c.n_heads), dtype=torch.float32,
-                           device=dev) if c.positions == "alibi" else None)
-    heads, hd = c.n_heads, c.head_dim
+    # this rank's heads, and their ALiBi slopes
+    heads, hd = c.n_heads // cfg.tp_size, c.head_dim
+    slopes = None
+    if c.positions == "alibi":
+        slopes = torch.tensor(alibi_slopes(c.n_heads)[
+            tp_rank * heads:(tp_rank + 1) * heads], dtype=torch.float32,
+            device=dev)
     d_attn = heads * hd
     M = B * T
-    stk = _prepare_stacked(cfg, ep, M)
     route = attention_route(c, T, kv.k.shape[3], cfg.kv_int8)
+    if _sp_gate(cfg, ep, B, T, tp_group):
+        return _sp_forward(cfg, ep, x, kv, pos_vec, write_at, last_index,
+                           slopes, heads, route, tp_group)
+    stk = _prepare_stacked(cfg, ep, M)
+
+    def row(name: str, a2d: torch.Tensor, l: int) -> torch.Tensor:
+        """A row-parallel site: the partials summed over the tp group,
+        then the bias once (the plain site without a group)."""
+        if tp_group is None:
+            return _site_matmul(cfg, ep, name, a2d, l, stk)
+        y = comm.all_reduce(_site_matmul_nobias(cfg, ep, name, a2d, l, stk),
+                            tp_group)
+        return (y + lay[name]["bias"][l]).to(cfg.dtype)
+
     for l in range(c.n_layers):
         h = _ln(x, lay["ln_1"]["scale"][l], lay["ln_1"]["bias"][l],
                 c.ln_eps)
@@ -781,18 +823,128 @@ def forward(cfg: EngineConfig, ep: Dict, ids: torch.Tensor, kv: QuantKV,
         append_kv_stacked(kv, kh, vh, l, write_at)
         a = _attention(cfg, route, qh, kv, l, pos_vec, slopes).reshape(
             M, d_attn)
-        x = x + _site_matmul(cfg, ep, "out", a, l, stk).reshape(
-            B, T, c.d_model)
+        x = x + row("out", a, l).reshape(B, T, c.d_model)
         h = _ln(x, lay["ln_2"]["scale"][l], lay["ln_2"]["bias"][l],
                 c.ln_eps)
         h2 = _act(c.activation, _site_matmul(
             cfg, ep, "fc_in", h.reshape(M, c.d_model), l, stk))
-        x = x + _site_matmul(cfg, ep, "fc_out", h2, l, stk).reshape(
-            B, T, c.d_model)
+        x = x + row("fc_out", h2, l).reshape(B, T, c.d_model)
     if last_index is not None:
         x = _take_last(x, last_index)
     x = _ln(x, top["ln_f"]["scale"], top["ln_f"]["bias"], c.ln_eps)
     return _lm_logits(top, x), kv
+
+
+def _sp_site_ok(site: Dict) -> bool:
+    """A site the quantized rings serve: int8 weights scaled per output
+    channel with an int8-exact activation codebook (``a_q``), or OliVe's
+    OVP activations with K4's encode tables. A Conv1D site (``kscale``)
+    is not: its scale runs along K and cannot follow the dot."""
+    if "w_i8" not in site or "oscale" not in site:
+        return False
+    if "a_out" in site:
+        return "aovp_enc" in site
+    return "a_q" in site
+
+
+def _sp_gate(cfg: EngineConfig, ep: Dict, B: int, T: int,
+             tp_group) -> bool:
+    """The reference's gate of the sequence-parallel prefill: under TP
+    (tp_size > 1), a prefill (T > 1) of more than ``stacked_max_m`` rows
+    that splits evenly over the ranks, "w4" with activation quantization,
+    every site servable by the rings. Decode keeps the replicated path."""
+    M = B * T
+    return bool(cfg.sp_prefill and tp_group is not None and cfg.tp_size > 1
+                and M > cfg.stacked_max_m and T > 1
+                and cfg.weight_mode == "w4" and cfg.act_bits
+                and M % cfg.tp_size == 0 and M >= cfg.tp_size
+                and all(_sp_site_ok(ep["layers"][s])
+                        for s in _site_names(cfg.lm)))
+
+
+def _sp_quant(site: Dict, v2d: torch.Tensor, l: int):
+    """An activation as the rings' int8 codes: (codes, is_ovp, the scale
+    of the integer domain). Plain sites snap onto the int8 codebook
+    (per-tensor: every rank snaps alike). Full-OliVe sites snap onto the
+    grid || outlier concat by K4's midpoint and tie tables, zero the OVP
+    victims along K (a pair never straddles a K shard: K_loc is even) and
+    encode sign-offset bytes, as K4 encodes in its kernel."""
+    if "aovp_enc" in site:
+        prescale = site["a_alpha"][l] / site["a_grid"][l].max()
+        xs = v2d.to(torch.float32) / prescale
+        mids, ties = site["aovp_mids"][l], site["aovp_ties"][l]
+        enc = site["aovp_enc"][l]
+        codes = enc[0].expand(xs.shape).clone()
+        for j in range(mids.shape[0]):
+            take = (xs > mids[j]) | ((xs == mids[j]) & (ties[j] > 0))
+            codes = torch.where(take, enc[j + 1], codes)
+        codes = torch.where(victim_mask(codes.abs() > 64.0, pair_axis=-1),
+                            torch.zeros_like(codes), codes)
+        return codes.to(torch.int8), True, prescale * site["aovp_unit"][l]
+    a_scale = site["a_scale"][l]
+    xq = snap_value(v2d.to(torch.float32) / a_scale,
+                    site["a_q"][l]).to(torch.int8)
+    return xq, False, a_scale
+
+
+def _sp_site(cfg: EngineConfig, site: Dict, v2d: torch.Tensor, l: int,
+             group, ring) -> torch.Tensor:
+    xq, a_ovp, ascale = _sp_quant(site, v2d, l)
+    acc = ring(xq, site["w_i8"][l], group, w_ovp="ovp" in site,
+               a_ovp=a_ovp)
+    y = acc.to(torch.float32) * (ascale * site["oscale"][l])[None, :]
+    return (y + site["bias"][l]).to(cfg.dtype)
+
+
+def _sp_forward(cfg: EngineConfig, ep: Dict, x: torch.Tensor, kv: QuantKV,
+                pos_vec: torch.Tensor, write_at, last_index,
+                slopes: Optional[torch.Tensor], heads: int, route: str,
+                group) -> Tuple[torch.Tensor, QuantKV]:
+    """The sequence-parallel prefill (the reference's ``sp`` branch): the
+    residual stream rides the layers as this rank's shard of the B*T rows.
+    Column sites run the all-gather ring on int8 codes ((M_loc, K) shard
+    -> (M, N_loc): every row, this rank's columns), so attention and the
+    cache see every position of this rank's heads; row sites run the
+    reduce-scatter ring on exact int32 partial sums ((M, K_loc) -> (M_loc,
+    N)). No all-reduce runs. At the end the hidden rows under
+    ``last_index`` are gathered ((M, D) rather than (M, V)), or else
+    every rank's logits rows. Plain int8 sites give the single-device
+    prefill's values bit for bit."""
+    c = cfg.lm
+    lay, top = ep["layers"], ep["top"]
+    B, T = x.shape[:2]
+    M = B * T
+    m = M // cfg.tp_size
+    i = dist.get_rank(group)
+    hd = c.head_dim
+    col = lambda name, v, l: _sp_site(cfg, lay[name], v, l, group,
+                                      ring_allgather_matmul_i8)
+    row = lambda name, v, l: _sp_site(cfg, lay[name], v, l, group,
+                                      matmul_reducescatter_i8)
+    xs = x.reshape(M, c.d_model)[i * m:(i + 1) * m].contiguous()
+    for l in range(c.n_layers):
+        h = _ln(xs, lay["ln_1"]["scale"][l], lay["ln_1"]["bias"][l],
+                c.ln_eps)
+        if c.fused_qkv:
+            qh, kh, vh = (t.reshape(B, T, heads, hd) for t in col(
+                "qkv", h, l).split(heads * hd, dim=-1))
+        else:
+            qh, kh, vh = (col(n, h, l).reshape(B, T, heads, hd)
+                          for n in ("q", "k", "v"))
+        append_kv_stacked(kv, kh, vh, l, write_at)
+        a = _attention(cfg, route, qh, kv, l, pos_vec, slopes)
+        xs = xs + row("out", a.reshape(M, heads * hd), l)
+        h = _ln(xs, lay["ln_2"]["scale"][l], lay["ln_2"]["bias"][l],
+                c.ln_eps)
+        xs = xs + row("fc_out", _act(c.activation, col("fc_in", h, l)), l)
+    if last_index is not None:
+        xl = _take_last(comm.all_gather(xs, group, 0).reshape(B, T, -1),
+                        last_index)
+        xl = _ln(xl, top["ln_f"]["scale"], top["ln_f"]["bias"], c.ln_eps)
+        return _lm_logits(top, xl), kv
+    xs = _ln(xs, top["ln_f"]["scale"], top["ln_f"]["bias"], c.ln_eps)
+    logits = comm.all_gather(_lm_logits(top, xs[None])[0], group, 0)
+    return logits.reshape(B, T, -1), kv
 
 
 def init_cache(cfg: EngineConfig, batch: int, device=None) -> QuantKV:

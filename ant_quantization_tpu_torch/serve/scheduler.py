@@ -38,6 +38,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels.kv_cache import QuantKV
 from . import engine as eng
 from .sampling import SamplingConfig, sample
 
@@ -88,13 +89,17 @@ class ContinuousBatcher:
                  pad_id: int = 0,
                  forward_fn: Optional[Callable] = None,
                  sampling: Optional[SamplingConfig] = None,
-                 seed: int = 0):
+                 seed: int = 0, kv: Optional[QuantKV] = None):
         """``forward_fn(ep, ids, kv, pos0, last_index=None) -> (logits,
         kv)`` defaults to :func:`engine.forward`; one without a
         ``last_index`` parameter gets the whole padded prompt's logits
-        and the batcher takes the last real position's. The cache is
-        built empty on the params' device. ``sampling`` applies to every
-        slot; the default (temperature 0) is exact greedy."""
+        and the batcher takes the last real position's. ``kv`` is the
+        slots' cache (an empty one of ``batch_slots`` rows); by default it
+        is built empty on the params' device. Pass
+        ``serve.sharded.make_sharded_forward``'s forward with this rank's
+        shards (``ep``, ``kv``) to batch over a tp mesh. ``sampling``
+        applies to every slot; the default (temperature 0) is exact
+        greedy."""
         self.cfg = cfg
         self.ep = ep
         self.B = batch_slots
@@ -117,7 +122,8 @@ class ContinuousBatcher:
             self._fwd_last = False
         # re-seeded from (seed, tick) before every tick's draws
         self._gen = torch.Generator(device=self.device)
-        self.kv = eng.init_cache(cfg, batch_slots, device=self.device)
+        self.kv = kv if kv is not None else eng.init_cache(
+            cfg, batch_slots, device=self.device)
         self._scratch = None            # the batch-1 prefill cache
         self.lengths = np.zeros(batch_slots, np.int64)   # fill depth
         self.slot_req: List[Optional[Request]] = [None] * batch_slots
@@ -246,7 +252,10 @@ class ContinuousBatcher:
         ids[0, :T] = torch.as_tensor(prompt, dtype=torch.int64)
         ids = ids.to(self.device)
         if self._scratch is None:
-            self._scratch = eng.init_cache(self.cfg, 1, device=self.device)
+            # the slots' cache at batch 1 (a tp rank's holds its heads)
+            self._scratch = QuantKV(*(t.new_zeros((t.shape[0], 1)
+                                                  + t.shape[2:])
+                                      for t in self.kv))
         zero = torch.zeros((1,), dtype=torch.int32)
         if self._fwd_last:
             logits, self._scratch = self._fwd(self.ep, ids, self._scratch,

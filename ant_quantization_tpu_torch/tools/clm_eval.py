@@ -28,6 +28,7 @@ from ..harness import data as D
 from ..harness import zoo
 from ..harness.evaluate import calibrate_on_batches, lm_perplexity
 from ..nn.config import QuantConfig
+from ..parallel.distributed import initialize_from_env
 from ..utils.logging import setup_logger
 
 __all__ = ["parse_args", "load_tokens", "main"]
@@ -84,11 +85,9 @@ def load_tokens(args, log) -> np.ndarray:
 
 def main(argv=None) -> dict:
     """Run the evaluation; prints the JSON result and returns it."""
-    if os.environ.get("ANT_COORDINATOR") or os.environ.get("ANT_DISTRIBUTED"):
-        raise NotImplementedError(
-            "multi-host evaluation (ANT_COORDINATOR / ANT_DISTRIBUTED) is "
-            "not ported to PyTorch yet (ROADMAP Queue 1 item 12)")
     args = parse_args(argv)
+    # a no-op unless the environment asks for a world of ranks
+    initialize_from_env(device=args.device)
     dev = resolve_device(args.device)
     log = setup_logger("clm_eval")
 

@@ -20,7 +20,8 @@ without ``--data_dir``, seeded synthetic batches (random ids in [0,
 ``--weights`` the model keeps the port's own random init (normal with std
 1/sqrt(fan in)), not flax's (smoke-test mode).
 
-A multi-host environment raises (not ported).
+Under ``ANT_COORDINATOR`` or ``ANT_DISTRIBUTED=1`` the process first joins
+its world of ranks (``parallel/distributed.py``).
 
 Examples:
   python -m ant_quantization_tpu_torch.tools.glue_run --task sst2 \\
@@ -35,7 +36,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 
 import numpy as np
 import torch
@@ -46,6 +46,7 @@ from ..harness import train as T
 from ..harness import zoo
 from ..harness.evaluate import calibrate_on_batches, glue_eval
 from ..nn.config import QuantConfig
+from ..parallel.distributed import initialize_from_env
 from ..utils.logging import setup_logger
 
 __all__ = ["parse_args", "main"]
@@ -122,11 +123,9 @@ def encoded_batches(args, split, tokenizer, shuffle_seed=None):
 
 def main(argv=None) -> dict:
     """Run the evaluation; prints the JSON result and returns it."""
-    if os.environ.get("ANT_COORDINATOR") or os.environ.get("ANT_DISTRIBUTED"):
-        raise NotImplementedError(
-            "multi-host evaluation (ANT_COORDINATOR / ANT_DISTRIBUTED) is "
-            "not ported to PyTorch yet (ROADMAP Queue 1 item 12)")
     args = parse_args(argv)
+    # a no-op unless the environment asks for a world of ranks
+    initialize_from_env(device=args.device)
     dev = resolve_device(args.device)
     log = setup_logger("glue_run")
     num_labels = D.glue_num_labels(args.task)

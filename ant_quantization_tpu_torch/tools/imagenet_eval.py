@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 
 from .._ext import resolve_device
 from ..harness import checkpoint as C
@@ -32,6 +31,7 @@ from ..harness import train as T
 from ..harness import zoo
 from ..harness.evaluate import calibrate_on_batches
 from ..nn.config import QuantConfig
+from ..parallel.distributed import initialize_from_env
 from ..utils.logging import setup_logger
 
 __all__ = ["parse_args", "main"]
@@ -73,11 +73,9 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     """Run the evaluation; prints the JSON result and returns it."""
-    if os.environ.get("ANT_COORDINATOR") or os.environ.get("ANT_DISTRIBUTED"):
-        raise NotImplementedError(
-            "multi-host evaluation (ANT_COORDINATOR / ANT_DISTRIBUTED) is "
-            "not ported to PyTorch yet (ROADMAP Queue 1 item 12)")
     args = parse_args(argv)
+    # a no-op unless the environment asks for a world of ranks
+    initialize_from_env(device=args.device)
     dev = resolve_device(args.device)
     log = setup_logger("imagenet_eval")
     qcfg = QuantConfig(mode=args.mode, wbit=args.wbit, abit=args.abit,

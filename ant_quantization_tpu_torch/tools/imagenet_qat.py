@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 
 from .._ext import resolve_device
 from ..harness import checkpoint as C
@@ -41,6 +40,7 @@ from ..harness import zoo
 from ..harness.evaluate import calibrate_on_batches
 from ..models.resnet import batch_stats_tree
 from ..nn.config import QuantConfig
+from ..parallel.distributed import initialize_from_env
 from ..utils.logging import setup_logger
 
 __all__ = ["parse_args", "main"]
@@ -87,11 +87,9 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     """Run the QAT; prints the final JSON result and returns it."""
-    if os.environ.get("ANT_COORDINATOR") or os.environ.get("ANT_DISTRIBUTED"):
-        raise NotImplementedError(
-            "multi-host training (ANT_COORDINATOR / ANT_DISTRIBUTED) is "
-            "not ported to PyTorch yet (ROADMAP Queue 1 item 12)")
     args = parse_args(argv)
+    # a no-op unless the environment asks for a world of ranks
+    initialize_from_env(device=args.device)
     dev = resolve_device(args.device)
     log = setup_logger("imagenet_qat")
     qcfg = QuantConfig(mode=args.mode, wbit=args.wbit, abit=args.abit,

@@ -40,12 +40,10 @@ PACKAGE = "ant_quantization_tpu_torch"
 RESERVED = {"name", "tool", "notes"}
 PORTED_TOOLS = ("glue_run", "squad_run", "clm_eval", "serve_cli",
                 "imagenet_eval", "imagenet_qat", "qat_bench", "lm_bench",
-                "spec_bench")
+                "spec_bench", "tp_bench")
 # the reference's tools that the port lacks, by the ROADMAP item that
-# ports them
-MISSING_TOOLS = {
-    "tp_bench": "ROADMAP Queue 1 item 12",
-}
+# ports them (none is left)
+MISSING_TOOLS: dict = {}
 
 
 def load_recipe(path: str) -> dict:

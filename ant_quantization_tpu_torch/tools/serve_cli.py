@@ -43,6 +43,7 @@ from ..harness.evaluate import calibrate_on_batches
 from ..models.transformer_lm import LMConfig, conv1d_site_names, params_tree
 from ..nn.config import QuantConfig
 from ..numerics.bitcodec import W4_KEYS, pack_w4_stack, unpack_w4_stack
+from ..parallel.distributed import initialize_from_env
 from ..serve import engine as eng
 from ..serve.sampling import SamplingConfig
 from ..serve.scheduler import ContinuousBatcher, Request
@@ -187,11 +188,9 @@ def read_prompts(args, tokenizer):
 
 
 def main(argv=None):
-    if os.environ.get("ANT_COORDINATOR") or os.environ.get("ANT_DISTRIBUTED"):
-        raise NotImplementedError(
-            "multi-host serving (ANT_COORDINATOR / ANT_DISTRIBUTED) is not "
-            "ported to the PyTorch engine yet (ROADMAP Queue 1 item 12)")
     args = parse_args(argv)
+    # a no-op unless the environment asks for a world of ranks
+    initialize_from_env(device=args.device)
     dev = resolve_device(args.device)
     qcfg = QuantConfig(mode=args.mode, family=args.family, wbit=args.wbit,
                        abit=args.abit, w_low=args.w_low, w_up=args.w_up,

@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 
 import numpy as np
 import torch
@@ -31,6 +30,7 @@ from ..harness import zoo
 from ..harness.evaluate import calibrate_on_batches
 from ..harness.tokenization import load_tokenizer
 from ..nn.config import QuantConfig
+from ..parallel.distributed import initialize_from_env
 from ..utils.logging import setup_logger
 
 __all__ = ["parse_args", "main"]
@@ -72,11 +72,9 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     """Run the evaluation; prints the JSON result and returns it."""
-    if os.environ.get("ANT_COORDINATOR") or os.environ.get("ANT_DISTRIBUTED"):
-        raise NotImplementedError(
-            "multi-host evaluation (ANT_COORDINATOR / ANT_DISTRIBUTED) is "
-            "not ported to PyTorch yet (ROADMAP Queue 1 item 12)")
     args = parse_args(argv)
+    # a no-op unless the environment asks for a world of ranks
+    initialize_from_env(device=args.device)
     dev = resolve_device(args.device)
     log = setup_logger("squad_run")
 

@@ -37,7 +37,7 @@ Phases, each printing one JSON line (numbers unrounded):
    reported);
 9. OliVe main path: OPT-6.7B under full OliVe W4A4 (OVP weights packed
    on the card by ``quantize_weights_ovp_i8``, OVP activations at all six
-   sites), INT8 KV and the int8 head, DEPTHS["olive"] (6) layers, full
+   sites), INT8 KV and the int8 head, DEPTHS["olive"] (4) layers, full
    width, served as in
    5: every decode site matmul runs K4 (launches counted as in 5), then
    the observed share of OVP outliers and victims in the weights and in
@@ -65,7 +65,7 @@ Phases, each printing one JSON line (numbers unrounded):
    version that must give identical tokens and logits;
 14. w4pack path: OPT-6.7B with packed 4-bit weights built on the card
    by ``quantize_weights_w4`` (ANT int grid at q/k/v: affine decode;
-   flint elsewhere: table decode), DEPTHS["w4pack"] (8) layers, served
+   flint elsewhere: table decode), DEPTHS["w4pack"] (4) layers, served
    as in 5: decode runs K6 (6 per layer and step), prefill K8 (6 per
    layer); K6 times at one decode layer (with
    each launch's plan, and its fixed cost per launch from the line through
@@ -75,7 +75,7 @@ Phases, each printing one JSON line (numbers unrounded):
    (every K6 call
    bit-equal, every K8 call within K8_RTOL, a K6 swap with identical
    tokens and logits);
-15. bloom_main: BLOOM-7b1 at full width (DEPTHS["bloom"], 6 of its 30
+15. bloom_main: BLOOM-7b1 at full width (DEPTHS["bloom"], 4 of its 30
    layers, fused qkv at N = 12,288, embed_ln, ALiBi, GELU, vocab 250,880),
    ANT W4A4 + INT8 KV + int8 head, max_seq 2048, served as in 5: decode
    runs K1 (4 per layer and step), attention K2; a profile;
@@ -85,7 +85,7 @@ Phases, each printing one JSON line (numbers unrounded):
    logit difference against serving it alone at B = 1; a forward with a
    (B,) pos0 of equal entries bit-equal to the scalar one;
 17. bloom_long: the same params at max_seq 16,384 (DEPTHS["bloom_long"],
-   4 layers), where the reference
+   2 layers), where the reference
    leaves its stacked attention kernel: a 4 x 15,872-token prompt in 31
    forward calls of 512 (the einsum fallback), then 64 greedy steps with
    attention on K7 (K2 0); a decode profile; K7 times per decode
@@ -115,7 +115,7 @@ Phases, each printing one JSON line (numbers unrounded):
    the plain head, the baseline of bench.py, OPT-6.7B 32 layers, served
    as in 5 (no kernel of the port launches), with its stream floor, a
    decode step held as in 22 and a profile;
-24. gpt2_main: GPT-2 XL at full width (DEPTHS["gpt2"], 6 of its 48
+24. gpt2_main: GPT-2 XL at full width (DEPTHS["gpt2"], 4 of its 48
    layers, d_model 1600,
    25 heads of 64, d_ff 6400, vocab 50,257, every site Conv1D, quantized
    per input channel on the card into ``kscale``), ANT W4A4 + INT8 KV +
@@ -249,6 +249,29 @@ arithmetic on the host and within 1e-5 of ``np.percentile``
    what the reference prints (PM_ARCH); seconds per run, the card's peak
    memory grown by each, every kernel count 0.
 
+33. parallel (run last): tensor parallelism as two gloo ranks on the
+   one card (NCCL takes a card a rank), started with the ``spawn``
+   method after the kernels are built: OPT-6.7B at full width and
+   DEPTHS["parallel"] (8) layers, ANT W4A4 + INT8 KV + int8 head, 16
+   heads a rank, against the one-process engine on the same weights; a
+   4 x 512 prefill through the sequence-parallel int8 rings, whose
+   logits and each rank's cache shard must be bit-equal to one process
+   (else the first LayerNorm whose rows differ is named), with no K1 or
+   K5 launch; PAR_DECODE decode steps on the one-process run's tokens
+   with K1 six times and K2 once per layer and step on each rank, every
+   site of two steps held to the one-process site on the same input
+   (``_par_hold``), each rank's attention held to K2's plain arithmetic
+   on its own q and cache shard, and the site inputs held to one
+   process's (``_par_inputs_gate``: at step 0 layer 0's q, k, v and
+   attention output bit-equal, the first input that differs after a row
+   all-reduce, the first with a moved A4 code at most PAR_FIRST_MOVED_MAX
+   of its codes moved),
+   the logits reported; a 2-stage ``gpipe`` of
+   OPT-width blocks against the sequential stack; one short
+   ``tp_bench`` (its JSON line printed); NCCL's refusal of two ranks on
+   one card; NCCL at one rank, tp 1, bit-equal to the plain engine; and
+   ``multihost_dryrun --device cuda`` at 2 processes of one rank.
+
 K2 at head_dim 80 and K7 at head_dim 64 are timed on random caches
 (``phase_times_headdim``, after 27).
 
@@ -302,8 +325,9 @@ SP_OVP_RTOL = 1e-3
 # bloom_ragged, "bloom_long"; GPT-2 XL (48): "gpt2" gpt2_main,
 # "gpt2_olive" (its decode is host-bound, about 0.8 s per step at 48
 # layers). OPT's ANT main path and the bf16 baseline run all 32.
-DEPTHS = {"serving": 8, "olive": 6, "w4pack": 8, "bloom": 6,
-          "bloom_long": 4, "gpt2": 6, "gpt2_olive": 2}
+# "parallel" is the tensor-parallel engine of phase_parallel (two ranks).
+DEPTHS = {"serving": 8, "olive": 4, "w4pack": 4, "bloom": 4,
+          "bloom_long": 2, "gpt2": 4, "gpt2_olive": 2, "parallel": 8}
 
 _T0 = time.perf_counter()
 
@@ -1001,18 +1025,20 @@ def ovp_weight_params(torch, cfg, olive_ep):
     return {"layers": layers, "top": olive_ep["top"]}
 
 
-def random_engine_params(torch, cfg, seed: int, sites: bool = True):
+def random_engine_params(torch, cfg, seed: int, sites: bool = True,
+                         device="cuda"):
     """Random W4A4 engine params built on the card, one site at a time,
     from a seeded generator (the construction bench.py uses: int8
     codebook values in [-64, 64), flint grids, alpha 3), for the sites of
     ``cfg``'s geometry; the top has a position table for learned
     positions and an embedding LayerNorm where the model has one.
     ``sites=False`` leaves out the matmul sites (LayerNorms and the top
-    only)."""
+    only). ``device`` is a card (default "cuda"), or the CPU for a
+    rehearsal."""
     import numpy as np
     from ant_quantization_tpu_torch.kernels.qmatmul import int8_codebook
     from ant_quantization_tpu_torch.numerics import codebooks as cb
-    gen = torch.Generator(device="cuda")
+    gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     c = cfg.lm
     L, d = c.n_layers, c.d_model
@@ -1024,27 +1050,27 @@ def random_engine_params(torch, cfg, seed: int, sites: bool = True):
     for name, (K, N) in (engine_layer_shapes(c).items() if sites else ()):
         layers[name] = {
             "w_i8": torch.randint(-64, 64, (L, N, K), dtype=torch.int8,
-                                  device="cuda", generator=gen),
-            "oscale": torch.full((L, N), 2e-3 * w_unit, device="cuda"),
-            "bias": torch.zeros((L, N), device="cuda"),
+                                  device=device, generator=gen),
+            "oscale": torch.full((L, N), 2e-3 * w_unit, device=device),
+            "bias": torch.zeros((L, N), device=device),
             "a_q": torch.tensor(np.stack([aq16] * L).astype(np.float32),
-                                device="cuda"),
-            "a_scale": torch.full((L,), float(a_scale), device="cuda"),
+                                device=device),
+            "a_scale": torch.full((L,), float(a_scale), device=device),
         }
     for name in ("ln_1", "ln_2"):
-        layers[name] = {"scale": torch.ones((L, d), device="cuda"),
-                        "bias": torch.zeros((L, d), device="cuda")}
-    ln = lambda: {"scale": torch.ones((d,), device="cuda"),
-                  "bias": torch.zeros((d,), device="cuda")}
+        layers[name] = {"scale": torch.ones((L, d), device=device),
+                        "bias": torch.zeros((L, d), device=device)}
+    ln = lambda: {"scale": torch.ones((d,), device=device),
+                  "bias": torch.zeros((d,), device=device)}
     top = {}
     if c.positions != "alibi":
-        top["wpe"] = (torch.randn((cfg.max_seq + 2, d), device="cuda",
+        top["wpe"] = (torch.randn((cfg.max_seq + 2, d), device=device,
                                   generator=gen) * 0.02).to(cfg.dtype)
     top["wte_i8"] = torch.randint(-127, 128, (c.vocab_size, d),
-                                  dtype=torch.int8, device="cuda",
+                                  dtype=torch.int8, device=device,
                                   generator=gen)
     top["wte_scale"] = torch.full((c.vocab_size,), 0.02 / 127.0,
-                                  device="cuda")
+                                  device=device)
     top["ln_f"] = ln()
     if c.embed_ln:
         top["embed_ln"] = ln()
@@ -5709,6 +5735,604 @@ def phase_qat(torch, smi: str) -> dict:
     return res
 
 
+# The parallel phase: tensor parallelism as two gloo ranks on one card
+# (NCCL takes one card per rank; the script needs one card).
+PAR_TP = 2
+PAR_DECODE = 8
+PAR_SEED = 3
+PAR_HOLD_STEPS = (0, PAR_DECODE - 1)
+# a TP row site's all-reduced f32 output against the one-process site on
+# the gathered input: within this share of its sum of term magnitudes
+# |xq| @ |w| (scaled), as hold_sites holds a site
+PAR_ROW_RTOL = 1e-5
+# at decode step 0 the cache and the embeddings equal one process's, so
+# the first site whose input differs follows a row all-reduce (an f32 sum
+# of two partials against one full-K sum: a bf16 rounding apart, moving
+# no code); the first site whose input holds a moved A4 code (a value an
+# ulp from a midpoint) may have at most this share of its codes moved.
+# From there the move spreads through the layers; a fault between sites
+# would move a large share at once.
+PAR_FIRST_MOVED_MAX = 1e-3
+GPIPE_LAYERS, GPIPE_MICRO, GPIPE_ROWS, GPIPE_SEED = 4, 4, 128, 11
+PAR_TP_BENCH = ["--tp", str(PAR_TP), "--layers", "2", "--prefill", "128",
+                "--decode", "8"]
+
+
+def _digest(torch, t) -> int:
+    """An order-free fingerprint of a tensor's bits: the sum of its
+    elements' bit patterns times their positions' weights in int64
+    (wrapping, so any summation order gives the same number)."""
+    bits = {1: torch.int8, 2: torch.int16, 4: torch.int32}[t.element_size()]
+    v = t.contiguous().view(bits).reshape(-1).to(torch.int64)
+    w = torch.arange(v.numel(), device=v.device) % 1000003 + 1
+    return int((v * w).sum())
+
+
+def _row_digests(torch, t):
+    """One fingerprint per row of a (..., D) tensor (int64, on the host)."""
+    bits = {2: torch.int16, 4: torch.int32}[t.element_size()]
+    v = t.contiguous().view(bits).reshape(-1, t.shape[-1]).to(torch.int64)
+    w = torch.arange(v.shape[1], device=v.device) % 1000003 + 1
+    return (v * w).sum(dim=1).cpu().numpy()
+
+
+def _ln_recorder(torch, teng, calls: list):
+    """``teng._ln`` recording each call's input and output row
+    fingerprints (the residual stream entering every LayerNorm)."""
+    real = teng._ln
+
+    def ln(x, scale, bias, eps):
+        y = real(x, scale, bias, eps)
+        calls.append((_row_digests(torch, x), _row_digests(torch, y)))
+        return y
+
+    return mock.patch.object(teng, "_ln", ln)
+
+
+def _site_recorder(teng, rec: list):
+    """Every site matmul's input and bias-free output of a TP forward, and
+    after a row site the all-reduced sum, onto ``rec`` (host f32)."""
+    real_nb, real_ar = teng._site_matmul_nobias, teng.comm.all_reduce
+
+    def nb(cfg_, ep_, name, x2d, l, stk):
+        y = real_nb(cfg_, ep_, name, x2d, l, stk)
+        rec.append({"name": name, "layer": l, "x_dtype": str(x2d.dtype),
+                    "x": x2d.float().cpu(), "y": y.float().cpu()})
+        return y
+
+    def ar(t, group):
+        out = real_ar(t, group)
+        rec[-1]["reduced"] = out.float().cpu()
+        return out
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(teng, "_site_matmul_nobias", nb))
+    stack.enter_context(mock.patch.object(teng.comm, "all_reduce", ar))
+    return stack
+
+
+def _attn_recorder(torch, teng, rows: list):
+    """``teng._attention`` holding each call's output against K2's plain
+    arithmetic on the same q and the rank's own cache shard (K2_TOL,
+    bf16), one row per layer onto ``rows``; the plain version's call
+    count is left alone, since this is a comparison."""
+    from ant_quantization_tpu_torch.kernels import attention as k2
+    real = teng._attention
+
+    def attention(cfg_, route, q, kv, l, pos0, slopes):
+        out = real(cfg_, route, q, kv, l, pos0, slopes)
+        want = k2._attend_plain(q.transpose(1, 2), kv.k[l], kv.v[l],
+                                kv.k_scale[l], kv.v_scale[l], pos0, slopes,
+                                cfg_.dtype).transpose(1, 2)
+        rows.append({"layer": l, "route": route, "heads": q.shape[2],
+                     "max_abs_err": float((out.float() - want.float())
+                                          .abs().max()),
+                     "within": k2_close(torch, out, want, "bf16")})
+        return out
+
+    return mock.patch.object(teng, "_attention", attention)
+
+
+def par_rank(n_layers: int, ids, tokens, device: str) -> dict:
+    """One rank of the parallel phase (started by ``run_ranks``): the
+    OPT-6.7B engine's shards at ``n_layers`` layers, one sequence-parallel
+    prefill of ``ids`` and the decode steps of ``tokens`` (the
+    one-process run's greedy tokens), launches counted; a 2-stage
+    ``gpipe``; one short ``tp_bench``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ant_quantization_tpu_torch.parallel import distributed as rt
+    from ant_quantization_tpu_torch.parallel.mesh import make_mesh
+    from ant_quantization_tpu_torch.parallel.pipeline import (
+        gpipe, shard_stage_params)
+    from ant_quantization_tpu_torch.serve import engine as teng
+    from ant_quantization_tpu_torch.serve import sharded as sh
+    from ant_quantization_tpu_torch.tools import tp_bench
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sync = (torch.cuda.synchronize if device.startswith("cuda")
+            else (lambda: None))
+    dev = rt.rank_device()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    print(json.dumps({"phase": "parallel_rank", "rank": rank,
+                      "backend": dist.get_backend(), "device": str(dev),
+                      "layout": f"{world} ranks on {cards} card"}),
+          flush=True)
+    cfg = opt_engine_config(n_layers, torch.bfloat16)
+    mesh = make_mesh((1, world))
+    tcfg = sh.tp_engine_config(cfg, mesh)
+    full = random_engine_params(torch, cfg, seed=PAR_SEED, device=dev)
+    ep = sh.shard_engine_params(full, tcfg, mesh)
+    del full
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    fwd = sh.make_sharded_forward(tcfg, mesh)
+    ids = torch.as_tensor(ids, device=dev)
+    B, T = ids.shape
+    fresh = lambda: sh.shard_cache(teng.init_cache(cfg, B, device=dev),
+                                   mesh)
+    out = {"rank": rank}
+    with torch.no_grad():
+        kv = fresh()                        # warm-up: libraries, buffers
+        lg, kv = fwd(ep, ids[:, :32], kv, 0, last_index=31)
+        fwd(ep, lg[:, -1].argmax(-1, keepdim=True), kv, 32)
+        sync()
+        kv, lns = fresh(), []
+        reset_counts()
+        with _ln_recorder(torch, teng, lns):
+            t0 = time.perf_counter()
+            logits, kv = fwd(ep, ids, kv, 0, last_index=T - 1)
+            sync()
+        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        out["prefill_launches"] = read_counts()
+        out["ln_digests"] = lns
+        out["logits"] = logits.float().cpu().numpy()
+        out["cache_digests"] = [[_digest(torch, t[l]) for t in kv]
+                                for l in range(n_layers)]
+        reset_counts()
+        steps, holds, attn, t_dec = [], {}, {}, 0.0
+        for i, tok in enumerate(tokens):
+            tok = torch.as_tensor(tok, device=dev)
+            rec, arows = [], []
+            ctx = contextlib.ExitStack()
+            if i in PAR_HOLD_STEPS:
+                ctx.enter_context(_site_recorder(teng, rec))
+                ctx.enter_context(_attn_recorder(torch, teng, arows))
+            t0 = time.perf_counter()
+            with ctx:
+                lg, kv = fwd(ep, tok, kv, T + i)
+                sync()
+            t_dec += time.perf_counter() - t0
+            steps.append(lg[:, -1].float().cpu().numpy())
+            if rec:
+                holds[i], attn[i] = rec, arows
+        out["decode_launches"] = read_counts()
+        reset_counts()
+        out["decode_ms_per_step"] = t_dec / len(tokens) * 1e3
+        out["decode_logits"] = np.stack(steps)
+        out["holds"] = holds
+        out["attention_holds"] = attn
+        # the device kernels of one more decode step and of one more
+        # sequence-parallel prefill, by their names in a device trace
+        L = n_layers
+        out["decode_traced"] = traced_counts(
+            torch, lambda: fwd(ep, tok, kv, T + len(tokens)),
+            {"i8_stream_kernel": 6 * L, "split_kernel<128": L})
+        out["prefill_traced"] = traced_counts(
+            torch, lambda: fwd(ep, ids, fresh(), 0, last_index=T - 1),
+            {"prefill_kernel<128>": L, "i8_stream_kernel": 0,
+             "snap_i8_kernel": 0, "i8_wgmma_kernel": 0})
+        reset_counts()
+        del ep, kv
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        # a 2-stage GPipe of OPT-width blocks against the sequential stack
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(GPIPE_SEED)
+        d = cfg.lm.d_model
+        stack = {"w": torch.randn((GPIPE_LAYERS, d, d), device=dev,
+                                  generator=gen) / math.sqrt(d),
+                 "b": torch.randn((GPIPE_LAYERS, d), device=dev,
+                                  generator=gen) * 0.1}
+        x = torch.randn((GPIPE_MICRO, GPIPE_ROWS, d), device=dev,
+                        generator=gen)
+
+        def blocks(params, h):
+            for w, b in zip(params["w"], params["b"]):
+                h = torch.tanh(h @ w + b)
+            return h
+
+        pmesh = make_mesh((world,), ("pp",))
+        local = shard_stage_params(stack, pmesh)
+        sync()
+        t0 = time.perf_counter()
+        y = gpipe(blocks, pmesh)(local, x)
+        sync()
+        gp_ms = (time.perf_counter() - t0) * 1e3
+        want = torch.stack([blocks(stack, x[m]) for m in range(len(x))])
+        out["gpipe"] = {"stages": world, "microbatches": GPIPE_MICRO,
+                        "layers": GPIPE_LAYERS,
+                        "rows_per_microbatch": GPIPE_ROWS, "d": d,
+                        "ms": gp_ms, "bit_equal": bool(torch.equal(y, want)),
+                        "max_abs_err": float((y - want).abs().max())}
+        del stack, x, y, want, local
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    out["tp_bench"] = tp_bench.bench(tp_bench.parse_args(
+        PAR_TP_BENCH + ["--device", device]))
+    return out
+
+
+def traced_counts(torch, fn, want: dict, tries: int = 3) -> tuple:
+    """Device kernels of one call of ``fn`` whose names contain each key of
+    ``want``, by torch.profiler (``_profiled``), and the traces taken. A
+    trace can lose an event and never gains one (``traced_kernels``), so
+    each count is the largest over the traces, taken again (at most
+    ``tries`` in all) while a count is short of ``want``."""
+    best = dict.fromkeys(want, 0)
+    for n in range(1, tries + 1):
+        _, rows = _profiled(torch, fn)
+        for key in want:
+            best[key] = max(best[key], sum(c for _, k, c in rows if key in k))
+        if all(best[k] >= v for k, v in want.items()):
+            break
+    return best, n
+
+
+def par_unreachable():
+    raise AssertionError("a refused world started")
+
+
+def _par_first_difference(ref_lns, rank_lns, rank: int, m: int,
+                          n_layers: int):
+    """Name the first LayerNorm input or output whose rows differ between
+    the one-process prefill and this rank's rows of the sequence-parallel
+    one (the residual entering each LayerNorm, in forward order)."""
+    import numpy as np
+    names = [f"layer {l} {n}" for l in range(n_layers)
+             for n in ("ln_1", "ln_2")] + ["ln_f"]
+    for name, (ri, ro), (gi, go) in zip(names, ref_lns, rank_lns):
+        rows = slice(None) if name == "ln_f" else slice(rank * m,
+                                                        (rank + 1) * m)
+        if not np.array_equal(ri[rows], gi):
+            return f"the residual entering {name}"
+        if not np.array_equal(ro[rows], go):
+            return f"the output of {name} (same input)"
+    return "the head (every LayerNorm equal)"
+
+
+def _par_hold(torch, teng, cfg, ep, holds: list, stk) -> dict:
+    """The decode holds: every site of the recorded TP steps against the
+    one-process site on the same input. A column site's output columns
+    must equal the one-process product's bit for bit; a row site's
+    all-reduced sum (the two ranks' inputs side by side) within
+    PAR_ROW_RTOL of its scaled sum of term magnitudes."""
+    from ant_quantization_tpu_torch.kernels.qmatmul import int8_matmul
+    from ant_quantization_tpu_torch.ops.snap import snap_value
+    stats = {"column_sites": 0, "row_sites": 0, "column_bit_equal": True,
+             "row_max_err_over_size": 0.0, "inputs_equal": True}
+    dtype = {"torch.bfloat16": torch.bfloat16, "torch.float32":
+             torch.float32}
+    for recs in zip(*holds):
+        recs = [{k: torch.as_tensor(v) if k in ("x", "y", "reduced") else v
+                 for k, v in r.items()} for r in recs]
+        name, l = recs[0]["name"], recs[0]["layer"]
+        row = name in ("out", "fc_out")
+        xs = [r["x"] for r in recs]
+        if row:
+            x = torch.cat(xs, dim=1)
+        else:
+            x = xs[0]
+            stats["inputs_equal"] &= all(torch.equal(x, v) for v in xs)
+        x = x.to("cuda", dtype[recs[0]["x_dtype"]])
+        want = teng._site_matmul_nobias(cfg, ep, name, x, l, stk).float()
+        if not row:
+            stats["column_sites"] += 1
+            n = want.shape[1] // len(recs)
+            for i, r in enumerate(recs):
+                stats["column_bit_equal"] &= torch.equal(
+                    r["y"], want[:, i * n:(i + 1) * n].cpu())
+            continue
+        stats["row_sites"] += 1
+        site = ep["layers"][name]
+        a_scale = site["a_scale"][l]
+        xq = snap_value(x.float() / a_scale, site["a_q"][l]).to(torch.int8)
+        size = (int8_matmul(xq.abs(), site["w_i8"][l].abs()).float()
+                * (a_scale * site["oscale"][l])[None, :]).cpu()
+        for r in recs:
+            err = ((r["reduced"] - want.cpu()).abs() / size.clamp_min(
+                1e-30)).max()
+            stats["row_max_err_over_size"] = max(
+                stats["row_max_err_over_size"], float(err))
+    stats["pass"] = (stats["column_bit_equal"] and stats["inputs_equal"]
+                     and stats["row_max_err_over_size"] <= PAR_ROW_RTOL
+                     and stats["column_sites"] + stats["row_sites"] > 0)
+    return stats
+
+
+def _par_inputs_gate(torch, ep, holds: list, ref: list) -> dict:
+    """One held decode step's site inputs on the ranks against one
+    process's, site by site in forward order: each input (a row site's
+    the ranks' side by side) compared bit for bit, and its A4 codes
+    (``snap_value`` of x / a_scale) compared. At step 0, layer 0 the q, k
+    and v inputs and the attention output (out's input: each rank's 16
+    heads) must equal one process's; the first site whose input differs
+    must follow a row all-reduce (fc_in or a later layer's q, k, v), and
+    the first with a moved code may have at most PAR_FIRST_MOVED_MAX of
+    its codes moved."""
+    from ant_quantization_tpu_torch.ops.snap import snap_value
+    rows, first, first_moved = [], None, None
+    for recs, want in zip(zip(*holds), ref):
+        name, l = want["name"], want["layer"]
+        if any((r["name"], r["layer"]) != (name, l) for r in recs):
+            raise AssertionError(f"site order: {name} {l} against "
+                                 f"{[(r['name'], r['layer']) for r in recs]}")
+        xs = [torch.as_tensor(r["x"]) for r in recs]
+        x = torch.cat(xs, dim=1) if name in ("out", "fc_out") else xs[0]
+        w = torch.as_tensor(want["x"])
+        site = ep["layers"][name]
+        a_scale, a_q = site["a_scale"][l], site["a_q"][l]
+        codes = [snap_value(t.to(a_scale.device) / a_scale, a_q)
+                 for t in (x, w)]
+        row = {"layer": l, "site": name, "values": w.numel(),
+               "differ": int((x != w).sum()),
+               "moved": int((codes[0] != codes[1]).sum())}
+        rows.append(row)
+        if first is None and row["differ"]:
+            first = row
+        if first_moved is None and row["moved"]:
+            first_moved = row
+    return {"sites": rows, "first_difference": first,
+            "first_moved": first_moved,
+            "moved_share": sum(r["moved"] for r in rows)
+            / sum(r["values"] for r in rows)}
+
+
+def phase_parallel(torch, smi: str, n_layers: int = None,
+                   device: str = "cuda:0") -> dict:
+    """Tensor parallelism on the card: OPT-6.7B at full width and
+    DEPTHS["parallel"] layers, W4A4 + INT8 KV + int8 head, served by two
+    gloo ranks on one card (16 heads each; collectives staged through the
+    host) against the one-process engine on the same weights: a 4 x 512
+    prefill through the sequence-parallel rings (M = 2048), logits and
+    each rank's cache shard bit-equal (else the first LayerNorm whose
+    rows differ is named), no K1 or K5 launch in it; PAR_DECODE
+    teacher-forced decode steps with K1 six times and K2 once per layer
+    and step on each rank, every site of two steps held to the
+    one-process site (``_par_hold``), each rank's attention against K2's
+    plain arithmetic on its own q and cache shard, and the site inputs
+    against one process's (``_par_inputs_gate``), the logits reported; a
+    2-stage gpipe of OPT-width blocks; one short tp_bench; NCCL's refusal
+    of two
+    ranks on one card; NCCL at one rank, tp 1, bit-equal to the plain
+    engine; and ``multihost_dryrun --device cuda`` at 2 processes of one
+    rank."""
+    import numpy as np
+    from ant_quantization_tpu_torch.parallel import distributed as rt
+    from ant_quantization_tpu_torch.parallel.mesh import make_mesh
+    from ant_quantization_tpu_torch.serve import engine as teng
+    from ant_quantization_tpu_torch.serve import sharded as sh
+    n_layers = n_layers or DEPTHS["parallel"]
+    t_phase = time.perf_counter()
+    cfg = opt_engine_config(n_layers, torch.bfloat16)
+    c = cfg.lm
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(PAR_SEED)
+    ids = torch.randint(0, c.vocab_size, (BATCH, PREFILL), device="cuda",
+                        generator=gen)
+    ep = random_engine_params(torch, cfg, seed=PAR_SEED)
+    T = ids.shape[1]
+    ref_lns, ref_steps, tokens, ref_holds = [], [], [], {}
+    with torch.no_grad():
+        kv = teng.init_cache(cfg, BATCH, device="cuda")
+        with _ln_recorder(torch, teng, ref_lns):
+            ref_logits, kv = teng.forward(cfg, ep, ids, kv, 0,
+                                          last_index=T - 1)
+        ref_cache = [[_digest(torch, t[l][:, r * (c.n_heads // PAR_TP):
+                                           (r + 1) * (c.n_heads // PAR_TP)])
+                      for t in kv] for r in range(PAR_TP)
+                     for l in range(n_layers)]
+        tok = ref_logits[:, -1].argmax(-1, keepdim=True)
+        for i in range(PAR_DECODE):
+            tokens.append(tok.cpu().numpy())
+            rec = []
+            with (_site_recorder(teng, rec) if i in PAR_HOLD_STEPS
+                  else contextlib.nullcontext()):
+                lg, kv = teng.forward(cfg, ep, tok, kv, T + i)
+            if rec:
+                ref_holds[i] = rec
+            ref_steps.append(lg[:, -1].float().cpu().numpy())
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+        del kv
+    ref_logits = ref_logits.float().cpu().numpy()
+    ref_steps = np.stack(ref_steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ranks = rt.run_ranks(par_rank, PAR_TP,
+                         (n_layers, ids.cpu().numpy(), tokens, device),
+                         backend="gloo", device=device, timeout_s=600)
+    ranks_s = time.perf_counter() - t0
+    m = BATCH * PREFILL // PAR_TP
+    res = {"phase": "parallel", "card": smi, "model": "OPT-6.7B",
+           "layers": n_layers, "d_model": c.d_model, "heads": c.n_heads,
+           "heads_per_rank": c.n_heads // PAR_TP, "tp": PAR_TP,
+           "backend": "gloo", "ranks_on_one_card": PAR_TP,
+           "batch": BATCH, "prefill_tokens": PREFILL,
+           "prefill_rows_M": BATCH * PREFILL, "decode_steps": PAR_DECODE,
+           "ranks_s": ranks_s}
+    want_pre = {k: 0 for k in all_counts()}
+    want_pre["K2"] = n_layers
+    want_dec = {k: 0 for k in all_counts()}
+    want_dec.update(K1=6 * n_layers * PAR_DECODE,
+                    K2=n_layers * PAR_DECODE)
+    per_rank, failures = [], []
+    stk = teng._prepare_stacked(cfg, ep, BATCH)
+    for r in ranks:
+        k = r["rank"]
+        cache_eq = r["cache_digests"] == [
+            ref_cache[k * n_layers + l] for l in range(n_layers)]
+        logits_eq = bool(np.array_equal(r["logits"], ref_logits))
+        pre = {q: v["launches"] for q, v in r["prefill_launches"].items()}
+        dec = {q: v["launches"] for q, v in r["decode_launches"].items()}
+        plain = sum(v["plain_calls"] for v in r["prefill_launches"].values()
+                    ) + sum(v["plain_calls"]
+                            for v in r["decode_launches"].values())
+        row = {"rank": k, "prefill_ms": r["prefill_ms"],
+               "decode_ms_per_step": r["decode_ms_per_step"],
+               "prefill_logits_bit_equal": logits_eq,
+               "prefill_cache_bit_equal": cache_eq,
+               "prefill_launches": pre, "decode_launches": dec,
+               "plain_calls": plain,
+               "decode_logits_max_abs_err": float(np.abs(
+                   r["decode_logits"] - ref_steps).max()),
+               "decode_logits_top_abs": float(np.abs(ref_steps).max()),
+               "decode_argmax_agree": float((r["decode_logits"].argmax(-1)
+                                             == ref_steps.argmax(-1)).mean()),
+               "gpipe": r["gpipe"]}
+        if not (logits_eq and cache_eq):
+            row["first_difference"] = _par_first_difference(
+                ref_lns, r["ln_digests"], k, m, n_layers)
+            failures.append(f"rank {k}: the SP prefill differs from one "
+                            f"process at {row['first_difference']}")
+        if pre != want_pre:
+            failures.append(f"rank {k}: SP prefill launches {pre}, want "
+                            f"{want_pre}")
+        if dec != want_dec:
+            failures.append(f"rank {k}: decode launches {dec}, want "
+                            f"{want_dec}")
+        if plain:
+            failures.append(f"rank {k}: plain versions ran")
+        row["decode_traced"], row["prefill_traced"] = (
+            r["decode_traced"], r["prefill_traced"])
+        want_tr = ({"i8_stream_kernel": 6 * n_layers,
+                    "split_kernel<128": n_layers},
+                   {"prefill_kernel<128>": n_layers, "i8_stream_kernel": 0,
+                    "snap_i8_kernel": 0, "i8_wgmma_kernel": 0})
+        for got, want in zip((r["decode_traced"][0],
+                              r["prefill_traced"][0]), want_tr):
+            if dict(got) != want:
+                failures.append(f"rank {k}: device kernels {dict(got)}, "
+                                f"want {want}")
+        if not r["gpipe"]["max_abs_err"] <= 1e-5:
+            failures.append(f"rank {k}: gpipe off the sequential stack")
+        per_rank.append(row)
+    res["ranks"] = per_rank
+    holds, inputs = {}, {}
+    for s in PAR_HOLD_STEPS:
+        holds[s] = _par_hold(torch, teng, cfg, ep,
+                             [r["holds"][s] for r in ranks], stk)
+        if not holds[s]["pass"]:
+            failures.append(f"decode step {s}: a TP site off the "
+                            f"one-process site: {holds[s]}")
+        att = [a for r in ranks for a in r["attention_holds"][s]]
+        holds[s]["attention"] = {
+            "calls": len(att), "heads": sorted({a["heads"] for a in att}),
+            "routes": sorted({a["route"] for a in att}),
+            "max_abs_err": max(a["max_abs_err"] for a in att),
+            "within_k2_tol": all(a["within"] for a in att)}
+        if not (holds[s]["attention"]["within_k2_tol"]
+                and len(att) == PAR_TP * n_layers):
+            failures.append(f"decode step {s}: a rank's attention off K2's "
+                            f"plain arithmetic: {holds[s]['attention']}")
+        inputs[s] = _par_inputs_gate(torch, ep,
+                                     [r["holds"][s] for r in ranks],
+                                     ref_holds[s])
+        emit({"phase": "parallel_decode_inputs", "step": s,
+              "first_difference": inputs[s]["first_difference"],
+              "first_moved": inputs[s]["first_moved"],
+              "moved_share": inputs[s]["moved_share"],
+              "sites": inputs[s]["sites"]})
+    res["decode_holds"] = holds
+    first0 = inputs[PAR_HOLD_STEPS[0]]["first_difference"]
+    moved0 = inputs[PAR_HOLD_STEPS[0]]["first_moved"]
+    layer0 = {r["site"]: r["differ"] for r in
+              inputs[PAR_HOLD_STEPS[0]]["sites"] if r["layer"] == 0}
+    res["decode_inputs"] = {
+        "layer0_step0_attention_bit_equal": all(
+            layer0[n] == 0 for n in ("q", "k", "v", "out")),
+        "step0_first_difference": first0, "step0_first_moved": moved0,
+        "moved_share": {s: inputs[s]["moved_share"] for s in inputs},
+        "first_moved_max": PAR_FIRST_MOVED_MAX}
+    if not res["decode_inputs"]["layer0_step0_attention_bit_equal"]:
+        failures.append(f"decode step 0, layer 0: q, k, v or the attention "
+                        f"output differs from one process: {layer0}")
+    after_reduce = first0 is None or first0["site"] == "fc_in" or (
+        first0["site"] in ("q", "k", "v") and first0["layer"] >= 1)
+    if not after_reduce:
+        failures.append(f"decode step 0: the first site input that differs "
+                        f"from one process is {first0}")
+    if moved0 is not None and moved0["moved"] > \
+            PAR_FIRST_MOVED_MAX * moved0["values"]:
+        failures.append(f"decode step 0: the first site with moved A4 "
+                        f"codes moved too many: {moved0}")
+    res["tp_bench"] = ranks[0]["tp_bench"]
+    print(json.dumps(ranks[0]["tp_bench"]), flush=True)
+    # NCCL refuses two ranks on one card at the rendezvous
+    try:
+        rt.run_ranks(par_unreachable, 2, backend="nccl", device=device,
+                     timeout_s=120)
+        failures.append("NCCL started two ranks on one card")
+    except RuntimeError as e:
+        res["nccl_two_ranks_refused"] = "NCCL needs one card per rank" in \
+            str(e)
+        if not res["nccl_two_ranks_refused"]:
+            failures.append(f"NCCL refusal: {str(e)[-500:]}")
+    # NCCL at one rank, tp 1: the sharded forward is the plain engine
+    rt.initialize(f"127.0.0.1:{rt.free_port()}", 1, 0, "nccl", device)
+    try:
+        mesh = make_mesh((1, 1))
+        tcfg = sh.tp_engine_config(cfg, mesh)
+        eps = sh.shard_engine_params(ep, tcfg, mesh)
+        fwd = sh.make_sharded_forward(tcfg, mesh)
+        with torch.no_grad():
+            kv = sh.shard_cache(teng.init_cache(cfg, BATCH, device="cuda"),
+                                mesh)
+            lg, kv = fwd(eps, ids, kv, 0, last_index=T - 1)
+            eq = bool(np.array_equal(lg.float().cpu().numpy(), ref_logits))
+            for i in range(2):
+                lg, kv = fwd(eps, torch.as_tensor(tokens[i], device="cuda"),
+                             kv, T + i)
+                eq &= bool(np.array_equal(lg[:, -1].float().cpu().numpy(),
+                                          ref_steps[i]))
+        res["nccl_world1_bit_equal"] = eq
+        if not eq:
+            failures.append("NCCL world of one: the sharded forward is not "
+                            "the plain engine's")
+        del eps, kv
+    finally:
+        rt.shutdown()
+    del ep
+    torch.cuda.empty_cache()
+    # the multi-host dryrun on the card: two processes of one rank each
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m",
+         "ant_quantization_tpu_torch.tools.multihost_dryrun", "--device",
+         "cuda", "--num-processes", "2", "--devices-per-process", "1",
+         "--timeout", "300"], capture_output=True, text=True, timeout=360,
+        cwd=REPO)
+    dry = p.stdout + p.stderr
+    res["multihost_dryrun"] = {
+        "rc": p.returncode, "seconds": time.perf_counter() - t0,
+        "passed": "MULTIHOST DRYRUN PASSED" in dry,
+        "multihost_ok": dry.count("MULTIHOST OK"),
+        "serving_ok": dry.count("SERVING OK")}
+    if not (res["multihost_dryrun"]["passed"]
+            and res["multihost_dryrun"]["multihost_ok"] == 2
+            and res["multihost_dryrun"]["serving_ok"] == 2):
+        failures.append(f"multihost_dryrun: {dry[-1500:]}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["failures"] = failures
+    emit(res)
+    if failures:
+        fail("parallel: " + "; ".join(failures))
+    return res
+
+
+
+
 def main() -> int:
     try:
         import torch
@@ -5819,6 +6443,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_bf16_baseline(torch, gen)
     perfmodel = phase_perfmodel(torch, smi)
+    par = phase_parallel(torch, smi)
     new_paths = {
         **{f"scheduler run {k} (tpd {r['ticks_per_dispatch']})":
            r["launches"] for k, r in sched["runs"].items()},
@@ -5843,7 +6468,10 @@ def main() -> int:
          "plain_ms": sum(s["plain_ms"] for s in sites),
          "bound_ms": sum(s["bound_ms"] for s in sites), "bound_by": "bytes",
          "library_ms": sum(s["library_ms"] for s in sites),
-         "launches_serving_paths": {k: v["K1"] for k, v in new_paths.items()}},
+         "launches_serving_paths": {k: v["K1"] for k, v in new_paths.items()},
+         "launches_parallel": {
+             f"rank {r['rank']} decode (local shards)":
+             r["decode_launches"]["K1"] for r in par["ranks"]}},
         {"name": "stacked_int8_kv_attention (K2)", "route": "cuda",
          "source": "ant_quantization_tpu_torch/csrc/int8_kv_attention.cu",
          "replaces": "ant_quantization_tpu/kernels/attention.py:207",
@@ -5862,6 +6490,10 @@ def main() -> int:
          "library_note": "SDPA on the dequantized bf16 cache (causal at "
                          "prefill)",
          "launches_serving_paths": {k: v["K2"] for k, v in new_paths.items()},
+         "launches_parallel": {
+             f"rank {r['rank']} {part} (local heads)": r[f"{part}_launches"][
+                 "K2"] for r in par["ranks"] for part in ("prefill",
+                                                          "decode")},
          "launches_gpt2": {"gpt2_main": gpt2_counts["K2"]["launches"],
                            "gpt2_olive": gpt2o_counts["K2"]["launches"]},
          "head_dims": [128, 64, 80],
@@ -6077,6 +6709,10 @@ def main() -> int:
           "qat_phase_s": qat["phase_s"],
           "perfmodel": {k: perfmodel[k] for k in ("runs", "fig13_geomeans",
                                                   "phase_s")},
+          "parallel": {k: par[k] for k in ("phase_s", "ranks_s",
+                                           "tp_bench", "decode_inputs",
+                                           "nccl_world1_bit_equal",
+                                           "multihost_dryrun")},
           "seconds": time.perf_counter() - t_start})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -187,9 +187,10 @@ def test_unported_features_raise():
     """The unquantized options (dense bf16 weights, "w4" without
     activation quantization, the bf16 cache) and GPT-2's Conv1D sites
     (per-input-channel ``kscale``, ROADMAP Queue 1 item 5, from the port's
-    build_engine_params and from a reference tree) build and serve;
-    tensor parallelism (item 12) still raises, and so does a head_dim that
-    the attention kernels are not built for, on the card's path."""
+    build_engine_params and from a reference tree) build and serve; a
+    tensor-parallel config is accepted and its forward asks for its tp
+    group; a head_dim that the attention kernels are not built for raises
+    on the card's path."""
     _, tcfg = _configs()
     params, quant = _model(seed=5)
     for i in range(_GEOM["n_layers"]):
@@ -225,8 +226,19 @@ def test_unported_features_raise():
                                  kv, 0)
         assert logits.shape == (1, 3, 128), change
         assert bool(torch.isfinite(logits).all()), change
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
+    # tensor parallelism: a tp axis and a size that splits the heads and
+    # d_ff; its forward runs with its tp group (serve.sharded)
+    tp2 = dataclasses.replace(tcfg, tp_size=2, tp_axis="tp")
+    teng._check_config(tp2)
+    with pytest.raises(ValueError, match="needs a tp_axis"):
         teng._check_config(dataclasses.replace(tcfg, tp_size=2))
+    with pytest.raises(ValueError, match="do not split"):
+        teng._check_config(dataclasses.replace(tcfg, tp_size=3,
+                                               tp_axis="tp"))
+    ep = teng.build_engine_params(tcfg, params, quant, device="cpu")
+    with pytest.raises(ValueError, match="tp group"):
+        teng.forward(tp2, ep, torch.zeros((1, 3), dtype=torch.int64),
+                     teng.init_cache(tcfg, 1, device="cpu"), 0)
     # a head_dim the CUDA kernels are not built for: both wrappers' card
     # paths raise before they build or launch anything
     B, H, S, D = 1, 2, 64, 96
@@ -265,7 +277,12 @@ def test_package_imports_no_jax():
             "        'perfmodel.results', 'perfmodel.arch',\n"
             "        'perfmodel.graph', 'perfmodel.loopnest',\n"
             "        'tools.simulate', 'tools.arch_sweep',\n"
-            "        'tools.print_result', 'tools.plot_results'}\n"
+            "        'tools.print_result', 'tools.plot_results',\n"
+            "        'parallel.distributed', 'parallel.mesh',\n"
+            "        'parallel.comm', 'parallel.collective_matmul',\n"
+            "        'parallel.pipeline',\n"
+            "        'serve.sharded', 'tools.tp_bench',\n"
+            "        'tools.multihost_dryrun'}\n"
             "assert {pkg.__name__ + '.' + m for m in want} <= set(mods), "
             "mods\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -60,6 +60,8 @@ from ant_quantization_tpu_torch.harness import metrics as tM
 from ant_quantization_tpu_torch.harness import tokenization as ttok
 from ant_quantization_tpu_torch.models import bart as tba
 from ant_quantization_tpu_torch.models import bert as tb
+from ant_quantization_tpu_torch.parallel.distributed import (free_port,
+                                                             shutdown)
 from ant_quantization_tpu_torch.tools import glue_run, run_recipe
 
 import chip_smoke as cs
@@ -344,12 +346,33 @@ def test_glue_run_main_against_the_reference(case):
 
 
 def test_glue_run_raises_for_train_multihost_and_no_card(monkeypatch):
-    """A multi-host environment raises (not ported); without a card the
-    default device raises, for evaluation and for ``--train``."""
-    argv = ["--task", "sst2", "--device", "cpu"]
+    """Under ``ANT_COORDINATOR`` glue_run joins a world of one rank and
+    gives the same result as outside one; ``ANT_DISTRIBUTED=1`` without a
+    launcher's variables raises naming them; without a card the default
+    device raises, for evaluation and for ``--train``."""
+    for k in ("ANT_COORDINATOR", "ANT_DISTRIBUTED", "RANK", "WORLD_SIZE",
+              "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    argv = ["--task", "sst2", "--model_family", "bert", "--weights",
+            hf_dir("bert"), "--batch_size", "8", "--calib_batches", "1",
+            "--max_seq_length", "32", "--disable_quant"]
+    with tiny_presets():
+        alone = run_port(glue_run.main, argv)
+        monkeypatch.setenv("ANT_COORDINATOR", f"127.0.0.1:{free_port()}")
+        monkeypatch.setenv("ANT_NUM_PROCESSES", "1")
+        monkeypatch.setenv("ANT_PROCESS_ID", "0")
+        try:
+            in_world = run_port(glue_run.main, argv)
+            assert torch.distributed.is_initialized()
+            assert torch.distributed.get_world_size() == 1
+            assert torch.distributed.get_backend() == "gloo"
+        finally:
+            shutdown()
+    assert_same_json(in_world, alone)
+    monkeypatch.delenv("ANT_COORDINATOR")
     monkeypatch.setenv("ANT_DISTRIBUTED", "1")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        glue_run.main(argv)
+    with pytest.raises(RuntimeError, match="MASTER_ADDR and MASTER_PORT"):
+        glue_run.main(["--task", "sst2", "--device", "cpu"])
     monkeypatch.delenv("ANT_DISTRIBUTED")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -434,8 +457,12 @@ def test_run_recipe_main_dry_run_and_list(capsys):
                             "sst2_IP-F", "--dry-run"]) == 0
     line, = capsys.readouterr().out.splitlines()
     assert " --train " in line and "--task sst2" in line
-    with pytest.raises(NotImplementedError, match="item 12"):
-        run_recipe.build_command({"name": "x", "tool": "tp_bench"}, {},
+    cmd = run_recipe.build_command({"name": "x", "tool": "tp_bench",
+                                    "tp": 2}, {}, ["--device", "cpu"])
+    assert cmd[1:] == ["-m", "ant_quantization_tpu_torch.tools.tp_bench",
+                       "--tp", "2", "--device", "cpu"]
+    with pytest.raises(NotImplementedError, match="no ROADMAP item"):
+        run_recipe.build_command({"name": "x", "tool": "no_such_tool"}, {},
                                  [])
     cmd = run_recipe.build_command({"name": "x", "tool": "spec_bench",
                                     "layers": 8}, {}, ["--device", "cpu"])

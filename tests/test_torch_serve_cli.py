@@ -26,8 +26,9 @@ vocab 1024; fp16 weights in two safetensors shards, written here).
   loaded by the port, serves the converted engine's greedy tokens;
 - ``clm_eval --disable_quant``: the perplexity within 1e-5 relative of
   the JAX chain's ``lm_perplexity`` on the same blocks;
-- without ``--device cpu`` and without a card both CLIs raise, and a
-  multi-host environment raises ``NotImplementedError``.
+- without ``--device cpu`` and without a card both CLIs raise; under
+  ``ANT_COORDINATOR`` both join a world of one rank and give the same
+  output as outside one.
 """
 
 import contextlib
@@ -55,6 +56,8 @@ from ant_quantization_tpu_torch.harness import checkpoint
 from ant_quantization_tpu_torch.harness.safetensors_io import (
     write_safetensors)
 from ant_quantization_tpu_torch.kernels import stacked as tk
+from ant_quantization_tpu_torch.parallel.distributed import (free_port,
+                                                             shutdown)
 from ant_quantization_tpu_torch.serve import engine as teng
 from ant_quantization_tpu_torch.serve.scheduler import (ContinuousBatcher,
                                                         Request)
@@ -311,10 +314,32 @@ def test_clm_eval_perplexity_matches_the_jax_chain():
     (serve_cli.main, ["--model", "opt:125m"]),
     (clm_eval.main, ["--model", "opt:125m", "--dataset", "synthetic"])])
 def test_clis_need_a_card_or_the_cpu(main, argv, monkeypatch):
-    monkeypatch.setenv("ANT_COORDINATOR", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        main(argv)
+    """Under ``ANT_COORDINATOR`` a CLI joins a world of one rank (gloo on
+    the CPU) and serves or evaluates as outside one; without ``--device
+    cpu`` and without a card it raises."""
+    for k in ("ANT_COORDINATOR", "ANT_DISTRIBUTED"):
+        monkeypatch.delenv(k, raising=False)
+    tiny = (_serve_args("ant") if main is serve_cli.main else
+            ["--model", _model_dir(), "--dataset", "synthetic", "--device",
+             "cpu", "--block_size", "16", "--batch_size", "2",
+             "--max_blocks", "2"])
+    alone = _run(main, tiny)
+    monkeypatch.setenv("ANT_COORDINATOR", f"127.0.0.1:{free_port()}")
+    monkeypatch.setenv("ANT_NUM_PROCESSES", "1")
+    monkeypatch.setenv("ANT_PROCESS_ID", "0")
+    try:
+        in_world = _run(main, tiny)
+        assert torch.distributed.is_initialized()
+        assert torch.distributed.get_world_size() == 1
+        assert torch.distributed.get_backend() == "gloo"
+    finally:
+        shutdown()
     monkeypatch.delenv("ANT_COORDINATOR")
+    if main is serve_cli.main:
+        assert _tokens(in_world)[0] == _tokens(alone)[0]
+    else:
+        assert json.loads(in_world)["perplexity"] == json.loads(
+            alone)["perplexity"]
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
