@@ -1,23 +1,22 @@
-// K2: causal attention of q against layer l of the stacked INT8 KV cache,
-// hand-written for Hopper (sm_90a).
-//
-// Replaces the reference's Pallas kernel
-// ant_quantization_tpu/kernels/attention.py:stacked_int8_kv_attention
-// (_stacked_kernel). Per (b, h, t), with q scaled by a multiply by
-// f32(1/sqrt(D)):
+// The prefill regime of K2 and K7: causal attention of T > 16 queries
+// against one layer of the INT8 KV cache, hand-written for Hopper
+// (sm_90a). Per (b, h, t), with q scaled by a multiply by f32(1/sqrt(D)):
 //
 //   s   = (q . k_i8[pos]) * k_scale[pos] + slope * rel,  rel = pos - (pos0[b] + t)
 //   s   = f32 min where rel > 0                          (causal mask)
 //   p   = exp(s - max)
 //   out = (sum_pos p * v_scale[pos] * v_i8[pos]) / sum_pos p,  cast to bf16 or f32
 //
-// One launch of the wrapper serves any T, in one of two regimes.
-//
-// Decode (T <= 16). Bound: the cache read, 2 * D bytes and two f32 scales
-// per visible position against 4 * D flops per query. The positions are
-// split across blocks and the partial softmax states combined in split
-// order (kv_split.cuh, shared with K7), so B * H * splits blocks fill the
-// 132 SMs where one block per (b, h) would leave them idle.
+// Replaces the reference's Pallas kernel
+// ant_quantization_tpu/kernels/attention.py:stacked_int8_kv_attention
+// (_stacked_kernel). The wrapper (kernels/attention.py) makes one launch a
+// call, on the layer's view of the stacked cache: T <= 16 goes to the
+// split pass of int8_kv_attention_split.cu (kv_split.cuh), which K7 shares
+// (the positions split across blocks, the partial softmax states combined
+// in split order, so B * H * splits blocks fill the 132 SMs where one
+// block per (b, h) would leave them idle; bound: the cache read, 2 * D
+// bytes and two f32 scales per visible position against 4 * D flops per
+// query); T > 16 to the kernel here.
 //
 // Prefill (T > 16). Bound: at T = 512 the bytes (the cache and q read
 // once, the output written once) over the HBM rate, the products on the
@@ -34,7 +33,7 @@
 // per block into shared memory and read as A fragments with ldmatrix.
 // K and V tiles of 64 positions arrive as int8
 // through cp.async with their scales beside them, are widened to bf16 in
-// shared memory (rows padded to D + 8 bf16, so the ldmatrix reads of 8 rows
+// shared memory (rows padded to W + 8 bf16, so the ldmatrix reads of 8 rows
 // hit distinct banks), and are read with ldmatrix (K) and ldmatrix.trans
 // (V, the col-major B operand of the PV product). The score accumulators
 // are scaled by k_scale, given the ALiBi term and masked (on the tiles
@@ -51,8 +50,16 @@
 // differ from the plain version, so the result agrees within a tolerance
 // (stated by the callers), not bit for bit; it does not depend on how
 // blocks are scheduled.
+//
+// Both regimes (this kernel and the split pass) serve every head_dim D
+// from 1 to 256: their kernels are
+// built for the widths of KV_WIDTHS (kv_split.cuh), and D runs at the
+// smallest width W >= D with zeros past D in q and in the K and V tiles
+// (at D == W a variant with D a compile-time constant).
+// A cache row of D bytes arrives in copies of 16 bytes where D is a
+// multiple of 16 (and of 8 or 4 bytes, or single bytes, where it is not).
 
-#include "kv_split.cuh"
+#include "kv_split.cuh"  // KV_WIDTHS, chunk_bytes
 
 namespace {
 
@@ -63,28 +70,46 @@ constexpr float NEG_BIG = -3.4028234663852886e+38f;  // f32 min
 
 constexpr int NP = 3;         // bf16 terms of each f32 operand
 
-// head_dim D: 64, 80 or 128 (the entry point refuses others). A row of a
-// widened tile is D + 8 bf16 (2 D + 16 bytes: a multiple of 16, and 8
-// rows of one ldmatrix start in 8 distinct 16-byte bank groups at each of
-// the three).
-template <int D>
+// Width W, one of KV_WIDTHS (kv_split.cuh), serves head_dims up to W. A
+// row of a widened tile is W + 8 bf16 (2 W + 16 bytes: a multiple of 16,
+// W / 8 + 1 groups of 16 bytes, an odd count, so the 8 rows of one
+// ldmatrix start in 8 distinct 16-byte bank groups at every W).
+template <int W>
 struct Smem {
-  static constexpr int BSTR = D + 8;  // bf16 row stride of the widened tiles
+  static constexpr int BSTR = W + 8;  // bf16 row stride of the widened tiles
   __nv_bfloat16 q[NP][QB * BSTR]; // qs = f32(q) * qscale, three terms
-  int8_t k8[KT * D];              // cp.async landing zone, int8
-  int8_t v8[KT * D];
+  int8_t k8[KT * W];              // landing zone, int8, row stride W
+  int8_t v8[KT * W];
   __nv_bfloat16 kb[KT * BSTR];    // widened tiles
   __nv_bfloat16 vb[KT * BSTR];
   float ksc[KT];
   float vsc[KT];
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
+// G bytes (16, 8 or 4) from gmem to smem, asynchronously; zeros when
+// !valid (nothing is read then)
+template <int G>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem,
+                                         bool valid) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
+  const int n = valid ? G : 0;  // 0: fill the G bytes with zeros
+  static_assert(G == 16 || G == 8 || G == 4, "");
+  if (G == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(gmem), "r"(n));
+  else if (G == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+                 "l"(gmem), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                 "l"(gmem), "r"(n));
+}
+
+// one element of q (B, H, T, D), f32 or bf16, as f32
+__device__ __forceinline__ float q_at(const void* q, int q_bf16, long off) {
+  return q_bf16 ? __bfloat162float(
+                      reinterpret_cast<const __nv_bfloat16*>(q)[off])
+                : reinterpret_cast<const float*>(q)[off];
 }
 
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
@@ -151,21 +176,26 @@ __device__ __forceinline__ float quad_sum(float v) {
 // Fragment layouts (m16n8k16, g = lane / 4, t = lane % 4): an A fragment
 // holds rows g and g + 8 at columns 2t, 2t + 1 (regs 0, 1) and 2t + 8,
 // 2t + 9 (regs 2, 3); a C fragment rows g (c0, c1) and g + 8 (c2, c3) at
-// columns 2t, 2t + 1. QK^T takes D / 16 k-steps of 16 dims, PV D / 8
-// n-tiles of 8 output dims (D = 64: 4 and 8; 80: 5 and 10; 128: 8, 16).
-template <int D>
+// columns 2t, 2t + 1. QK^T takes W / 16 k-steps of 16 dims, PV W / 8
+// n-tiles of 8 output dims (W = 16: 1 and 2; 96: 6 and 12; 256: 16 and
+// 32). Past the head_dim D < W, q and the K and V tiles are zero, so the
+// extra products add exact zeros, and the output columns there are not
+// written. EXACT: D == W and 16-byte cache rows, D a compile-time
+// constant (as in kv_split.cuh).
+template <int W, bool EXACT>
 __global__ void __launch_bounds__(NT)
 prefill_kernel(const void* __restrict__ q, int q_bf16,
                const int8_t* __restrict__ kc, const int8_t* __restrict__ vc,
                const float* __restrict__ ks, const float* __restrict__ vs,
                const int* __restrict__ pos0, const float* __restrict__ slopes,
                void* out, int out_bf16, int B, int H, int T, int S,
-               float qscale) {
-  static_assert(D % 16 == 0, "");
-  constexpr int BSTR = Smem<D>::BSTR;
-  constexpr int NC = D / 16;  // 16-byte chunks of an int8 row; k-steps
+               int d_arg, float qscale) {
+  static_assert(W % 16 == 0, "");
+  const int D = EXACT ? W : d_arg;
+  constexpr int BSTR = Smem<W>::BSTR;
+  constexpr int NC = W / 16;  // 16-byte chunks of a tile row; k-steps
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw);
+  Smem<W>& sm = *reinterpret_cast<Smem<W>*>(smem_raw);
   // blocks run the last query tiles (the most key tiles) of every head
   // first, so the long blocks do not trail at the end of the grid
   const int n_bh = B * H, n_qb = gridDim.x / n_bh;
@@ -181,22 +211,28 @@ prefill_kernel(const void* __restrict__ q, int q_bf16,
   const int n_tiles = min(p0 + t_last, S - 1) / KT + 1;
   const int r0 = t0 + 16 * warp + g;  // this thread's query rows r0, r0 + 8
 
-  // qs = f32(q) * qscale in three bf16 terms, rows t0 .. t0 + 63
-  for (int i = tid; i < QB * D / 2; i += NT) {
-    const int rr = i / (D / 2), c = 2 * (i % (D / 2)), r = t0 + rr;
+  // qs = f32(q) * qscale in three bf16 terms, rows t0 .. t0 + 63, zero
+  // past D
+  for (int i = tid; i < QB * W / 2; i += NT) {
+    const int rr = i / (W / 2), c = 2 * (i % (W / 2)), r = t0 + rr;
     float x0 = 0.0f, x1 = 0.0f;
-    if (r < T) {
+    if (r < T && c < D) {
       const long off = (bh * T + r) * D + c;
-      if (q_bf16) {
-        const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
-            reinterpret_cast<const __nv_bfloat16*>(q) + off);
-        x0 = __low2float(v);
-        x1 = __high2float(v);
+      if (D % 2 == 0) {  // c + 1 < D, and the pair is aligned
+        if (q_bf16) {
+          const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
+              reinterpret_cast<const __nv_bfloat16*>(q) + off);
+          x0 = __low2float(v);
+          x1 = __high2float(v);
+        } else {
+          const float2 v = *reinterpret_cast<const float2*>(
+              reinterpret_cast<const float*>(q) + off);
+          x0 = v.x;
+          x1 = v.y;
+        }
       } else {
-        const float2 v = *reinterpret_cast<const float2*>(
-            reinterpret_cast<const float*>(q) + off);
-        x0 = v.x;
-        x1 = v.y;
+        x0 = q_at(q, q_bf16, off);
+        if (c + 1 < D) x1 = q_at(q, q_bf16, off + 1);
       }
     }
     uint32_t t3[NP];
@@ -210,14 +246,51 @@ prefill_kernel(const void* __restrict__ q, int q_bf16,
   const int a_off = (16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1)) * BSTR +
                     8 * (lane >> 4);
 
-  auto issue = [&](int tile) {  // the int8 codes of one tile, async
+  // the landing zone's columns D .. W - 1 stay zero: no tile load
+  // writes them
+  if constexpr (!EXACT) {
+    for (int i = tid; i < KT * (W - D); i += NT) {
+      const int j = i / (W - D), d = D + i % (W - D);
+      sm.k8[j * W + d] = 0;
+      sm.v8[j * W + d] = 0;
+    }
+  }
+  // each row's D bytes in 16-byte chunks, NC a row (a compile-time
+  // count), each one asynchronous copy where D and the cache's address
+  // allow 16 bytes, else copies of cb = 8 or 4 bytes (asynchronous) or
+  // single bytes (loaded and stored by the thread); the chunks at and
+  // past D stay zero
+  const int cb = EXACT ? 16 : kvsplit::chunk_bytes(kc, vc, D);
+  auto issue = [&](int tile) {  // the int8 codes of one tile
     const int k0 = tile * KT;
     for (int i = tid; i < KT * NC; i += NT) {
-      const int j = i / NC, c = i % NC, pos = k0 + j;
+      const int j = i / NC, c0 = 16 * (i % NC), pos = k0 + j;
+      if (c0 >= D) continue;
       const bool ok = pos < S;
-      const long off = (row0 + (ok ? pos : 0)) * D + c * 16;
-      cp_async16(&sm.k8[j * D + c * 16], kc + off, ok);
-      cp_async16(&sm.v8[j * D + c * 16], vc + off, ok);
+      const long off = (row0 + (ok ? pos : 0)) * D + c0;
+      int8_t* kd = &sm.k8[j * W + c0];
+      int8_t* vd = &sm.v8[j * W + c0];
+      if (cb == 16) {
+        cp_async<16>(kd, kc + off, ok);
+        cp_async<16>(vd, vc + off, ok);
+        continue;
+      }
+      const int n = min(16, D - c0);
+      for (int e = 0; e < n; e += cb) {
+        switch (cb) {
+          case 8:
+            cp_async<8>(kd + e, kc + off + e, ok);
+            cp_async<8>(vd + e, vc + off + e, ok);
+            break;
+          case 4:
+            cp_async<4>(kd + e, kc + off + e, ok);
+            cp_async<4>(vd + e, vc + off + e, ok);
+            break;
+          default:
+            kd[e] = ok ? kc[off + e] : (int8_t)0;
+            vd[e] = ok ? vc[off + e] : (int8_t)0;
+        }
+      }
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };
@@ -230,9 +303,9 @@ prefill_kernel(const void* __restrict__ q, int q_bf16,
     }
   };
 
-  float o[D / 8][4];
+  float o[W / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < W / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
@@ -245,8 +318,8 @@ prefill_kernel(const void* __restrict__ q, int q_bf16,
     __syncthreads();  // tile `it` landed; the previous tile's readers done
     for (int i = tid; i < KT * NC; i += NT) {
       const int j = i / NC, c = i % NC;
-      const int4 kw = *reinterpret_cast<const int4*>(&sm.k8[j * D + c * 16]);
-      const int4 vw = *reinterpret_cast<const int4*>(&sm.v8[j * D + c * 16]);
+      const int4 kw = *reinterpret_cast<const int4*>(&sm.k8[j * W + c * 16]);
+      const int4 vw = *reinterpret_cast<const int4*>(&sm.v8[j * W + c * 16]);
       uint4* kd = reinterpret_cast<uint4*>(&sm.kb[j * BSTR + c * 16]);
       uint4* vd = reinterpret_cast<uint4*>(&sm.vb[j * BSTR + c * 16]);
       uint2 a = widen4(kw.x), bb = widen4(kw.y), cc = widen4(kw.z),
@@ -322,7 +395,7 @@ prefill_kernel(const void* __restrict__ q, int q_bf16,
         s[j][e] = p * sm.vsc[8 * j + 2 * t4 + (e & 1)];
       }
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < W / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
 
@@ -356,41 +429,68 @@ prefill_kernel(const void* __restrict__ q, int q_bf16,
     const int r = r0 + 8 * hh;
     const float l = quad_sum(l_run[hh]);
     if (r >= T) continue;
-    const long base = (bh * T + r) * D + 2 * t4;
+    const long base = (bh * T + r) * D;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < W / 8; ++n) {
+      const int col = 8 * n + 2 * t4;  // this thread's columns col, col + 1
+      if (col >= D) continue;  // (not break: keeps the loop unrolled)
       const float a = o[n][2 * hh] / l, c = o[n][2 * hh + 1] / l;
-      if (out_bf16)
-        *reinterpret_cast<__nv_bfloat162*>(
-            reinterpret_cast<__nv_bfloat16*>(out) + base + 8 * n) =
-            __floats2bfloat162_rn(a, c);
-      else
-        *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + base +
-                                   8 * n) = make_float2(a, c);
+      if (D % 2 == 0) {  // col + 1 < D, and the pair is aligned
+        if (out_bf16)
+          *reinterpret_cast<__nv_bfloat162*>(
+              reinterpret_cast<__nv_bfloat16*>(out) + base + col) =
+              __floats2bfloat162_rn(a, c);
+        else
+          *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + base +
+                                     col) = make_float2(a, c);
+      } else if (out_bf16) {
+        __nv_bfloat16* o16 = reinterpret_cast<__nv_bfloat16*>(out) + base;
+        o16[col] = __float2bfloat16(a);
+        if (col + 1 < D) o16[col + 1] = __float2bfloat16(c);
+      } else {
+        float* o32 = reinterpret_cast<float*>(out) + base;
+        o32[col] = a;
+        if (col + 1 < D) o32[col + 1] = c;
+      }
     }
   }
 }
 
-template <int D>
-cudaError_t launch_prefill(const void* q, int q_bf16, const int8_t* kl,
-                           const int8_t* vl, const float* ksl,
-                           const float* vsl, const int* pos0,
-                           const float* slopes, void* out, int out_bf16,
-                           int B, int H, int T, int S, float qscale,
-                           cudaStream_t st) {
-  static bool attr_set = false;  // one per head_dim
+template <int W, bool EXACT>
+cudaError_t launch_prefill_e(const void* q, int q_bf16, const int8_t* kl,
+                             const int8_t* vl, const float* ksl,
+                             const float* vsl, const int* pos0,
+                             const float* slopes, void* out, int out_bf16,
+                             int B, int H, int T, int S, int D, float qscale,
+                             cudaStream_t st) {
+  static bool attr_set = false;  // one per instantiation
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        prefill_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)sizeof(Smem<D>));
+        prefill_kernel<W, EXACT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Smem<W>));
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
   const int grid = (T + QB - 1) / QB * B * H;
-  prefill_kernel<D><<<grid, NT, sizeof(Smem<D>), st>>>(
+  prefill_kernel<W, EXACT><<<grid, NT, sizeof(Smem<W>), st>>>(
       q, q_bf16, kl, vl, ksl, vsl, pos0, slopes, out, out_bf16, B, H, T, S,
-      qscale);
+      D, qscale);
   return cudaGetLastError();
+}
+
+template <int W>
+cudaError_t launch_prefill(const void* q, int q_bf16, const int8_t* kl,
+                           const int8_t* vl, const float* ksl,
+                           const float* vsl, const int* pos0,
+                           const float* slopes, void* out, int out_bf16,
+                           int B, int H, int T, int S, int D, float qscale,
+                           cudaStream_t st) {
+  if (D == W && kvsplit::chunk_bytes(kl, vl, D) == 16)
+    return launch_prefill_e<W, true>(q, q_bf16, kl, vl, ksl, vsl, pos0,
+                                     slopes, out, out_bf16, B, H, T, S, D,
+                                     qscale, st);
+  return launch_prefill_e<W, false>(q, q_bf16, kl, vl, ksl, vsl, pos0, slopes,
+                                    out, out_bf16, B, H, T, S, D, qscale, st);
 }
 
 }  // namespace
@@ -401,46 +501,27 @@ const char* aq_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// q (B, H, T, D) f32, or bf16 when q_bf16 (converted exactly); kc, vc (L,
-// B, H, S, D) int8; ks, vs (L, B, H, S) f32; pos0 (B,) int32; slopes (H,)
-// f32 or null (no ALiBi); out (B, H, T, D) bf16 or f32. For T <= 16 the
-// scratch part_o (B, H, n_split, T, D) f32 and part_m, part_l (B, H,
-// n_split, T) f32, n_split = ceil(S / span), span a multiple of 64; unused
-// above. All on the device, contiguous; D is 64, 80 or 128 (any other:
+// K2's and K7's prefill regime on one layer: q (B, H, T, D) f32, or bf16
+// when q_bf16 (converted exactly), T > 16; kc, vc (B, H, S, D) int8 (one
+// layer of the stacked cache, or K7's layer); ks, vs (B, H, S) f32; pos0
+// (B,) int32; slopes (H,) f32 or null (no ALiBi); out (B, H, T, D) bf16
+// or f32. All on the device, contiguous; 1 <= D <= 256 (any other:
 // cudaErrorInvalidValue). Returns a cudaError_t.
-int stacked_int8_kv_attention(const void* q, int q_bf16, const int8_t* kc,
+int int8_kv_attention_prefill(const void* q, int q_bf16, const int8_t* kc,
                               const int8_t* vc, const float* ks,
                               const float* vs, const int* pos0,
-                              const float* slopes, float* part_o,
-                              float* part_m, float* part_l, void* out,
-                              int out_bf16, int l, int B, int H, int T, int S,
-                              int D, int span, float qscale, void* stream) {
+                              const float* slopes, void* out, int out_bf16,
+                              int B, int H, int T, int S, int D, float qscale,
+                              void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const long lo = (long)l * B * H * S;
-  const int8_t* kl = kc + lo * D;
-  const int8_t* vl = vc + lo * D;
-  const float* ksl = ks + lo;
-  const float* vsl = vs + lo;
-  if (T <= 16)
-    return (int)kvsplit::launch(q, q_bf16, kl, vl, ksl, vsl, pos0, slopes,
-                                part_o, part_m, part_l, out, out_bf16, B, H,
-                                T, S, D, span, qscale, st);
-  switch (D) {
-    case 64:
-      return (int)launch_prefill<64>(q, q_bf16, kl, vl, ksl, vsl, pos0,
-                                     slopes, out, out_bf16, B, H, T, S,
-                                     qscale, st);
-    case 80:
-      return (int)launch_prefill<80>(q, q_bf16, kl, vl, ksl, vsl, pos0,
-                                     slopes, out, out_bf16, B, H, T, S,
-                                     qscale, st);
-    case 128:
-      return (int)launch_prefill<128>(q, q_bf16, kl, vl, ksl, vsl, pos0,
-                                      slopes, out, out_bf16, B, H, T, S,
-                                      qscale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (T <= 16 || D < 1) return (int)cudaErrorInvalidValue;
+#define K2_PREFILL_W(WW)                                                      \
+  if (D <= WW)                                                                \
+    return (int)launch_prefill<WW>(q, q_bf16, kc, vc, ks, vs, pos0, slopes,   \
+                                   out, out_bf16, B, H, T, S, D, qscale, st);
+  KV_WIDTHS(K2_PREFILL_W)
+#undef K2_PREFILL_W
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

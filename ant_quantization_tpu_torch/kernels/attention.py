@@ -11,16 +11,18 @@ passes the view ``cache.k[l]``, no copy). Both compute, per (b, h, t):
     rel = k_pos - (pos0[b] + t);  s = f32 min where rel > 0
     out = ((exp(s - max) * v_scale) @ v_i8) / sum(exp(s - max))
 
-On a CUDA tensor each wrapper launches its hand-written Hopper kernel
-(``csrc/int8_kv_attention.cu``: one launch for any T, with the positions
-split across blocks for T <= 16 and the products on the bf16 tensor cores
-above; ``csrc/int8_kv_attention_split.cu``: T <= 16, the positions split
-across blocks; the split pass is ``csrc/kv_split.cuh`` in both), built
-for the head_dims of ``HEAD_DIMS`` (64: GPT-2, OPT-125m and -1.3b,
-BLOOM-560m; 80: BLOOM-3b; 128); any other head_dim raises
-``NotImplementedError`` on the card. On a CPU tensor it runs its plain
-version, which repeats the reference kernel's
-arithmetic in plain PyTorch. :func:`attention_oracle` is the reference's
+On a CUDA tensor each wrapper makes one launch of a hand-written Hopper
+kernel on the layer (K2: the view ``k[l]`` of its stack, no copy): up to
+``K7_MAX_T`` queries the split pass (``csrc/int8_kv_attention_split.cu``
+on ``csrc/kv_split.cuh``: the positions split across blocks), above it
+the prefill kernel (``csrc/int8_kv_attention.cu``: the products on the
+bf16 tensor cores). Both serve every head_dim from 1 to
+``MAX_HEAD_DIM`` (256): the kernels are built for the widths of
+``KERNEL_WIDTHS`` and a head_dim D runs at the smallest of them at or
+above D, with zeros past D (:func:`kernel_width`); a larger head_dim
+raises ``NotImplementedError`` on the card. On a CPU tensor each runs its
+plain version, which repeats the reference kernel's arithmetic in plain
+PyTorch. :func:`attention_oracle` is the reference's
 test oracle (it divides by sqrt(D) where the kernels multiply).
 :func:`stacked_int8_kv_attention_hilo` repeats the tensor-core arithmetic
 of K2's prefill regime (each f32 operand as three bf16 terms) on the CPU,
@@ -40,7 +42,8 @@ from .. import _ext
 __all__ = ["stacked_int8_kv_attention", "stacked_int8_kv_attention_plain",
            "int8_kv_attention", "int8_kv_attention_plain",
            "attention_oracle", "stacked_int8_kv_attention_hilo",
-           "split_ranges", "COUNTS", "K7_COUNTS", "K7_MAX_T", "HEAD_DIMS"]
+           "split_ranges", "kernel_width", "COUNTS", "K7_COUNTS", "K7_MAX_T",
+           "KERNEL_WIDTHS", "MAX_HEAD_DIM"]
 
 # launches of each CUDA kernel, and calls of its plain version
 COUNTS = {"launches": 0, "plain_calls": 0}        # K2
@@ -49,12 +52,23 @@ K7_COUNTS = {"launches": 0, "plain_calls": 0}
 _SOURCE = "int8_kv_attention.cu"
 _SPLIT_SOURCE = "int8_kv_attention_split.cu"
 _NEG_BIG = float(np.finfo(np.float32).min)
-K7_MAX_T = 16       # K7 serves at most this many queries per call;
-                    # K2 splits the positions at this T and below
+K7_MAX_T = 16       # K2 and K7 split the positions at this T and
+                    # below; above it both take the prefill kernel
 _KT = 64            # key positions per tile of the kernels
 _SPAN_MAX = 512     # positions per split block, at most
 _SPLIT_BLOCKS = 16 * 132   # split blocks to aim for: 16 per H100 SM
-HEAD_DIMS = (64, 80, 128)  # the head_dims the CUDA kernels are built for
+# the widths the CUDA kernels are built for: KV_WIDTHS of csrc/kv_split.cuh
+KERNEL_WIDTHS = (16, 32, 64, 80, 96, 128, 256)
+# the largest head_dim served: one head's K and V tiles of 64 positions,
+# widened to bf16, and the 64 queries of a prefill block in three bf16
+# terms fit the 227 KB of shared memory at width 256 (about 197 KB)
+MAX_HEAD_DIM = KERNEL_WIDTHS[-1]
+
+
+def kernel_width(D: int) -> int:
+    """The width the CUDA kernels serve head_dim ``D`` at: the smallest of
+    ``KERNEL_WIDTHS`` at or above it (q and the tiles are zero past D)."""
+    return next(w for w in KERNEL_WIDTHS if w >= D)
 
 
 def _qscale(D: int) -> float:
@@ -153,10 +167,11 @@ def _checked_operands(q, k, v, k_scale, v_scale, pos0, slopes, out_dtype,
     pointer, 0 when there are none (the kernels then add no ALiBi term)."""
     B, H, T, D = q.shape
     dev = q.device
-    if D not in HEAD_DIMS:
+    if not 1 <= D <= MAX_HEAD_DIM:
         raise NotImplementedError(
-            f"the CUDA kernels are built for head_dim {HEAD_DIMS}, got {D}: "
-            "not served yet (ROADMAP Queue 2, head_dims served)")
+            f"the CUDA kernels serve head_dim 1 to {MAX_HEAD_DIM}, got {D}: "
+            "one head's tiles must fit in shared memory (ROADMAP Queue 3, "
+            "the deliberate limit)")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"out_dtype {out_dtype} not supported")
     checks = [("q", q, q.dtype, (B, H, T, D)),
@@ -183,42 +198,50 @@ def _split_scratch(B, H, T, S, D, dev):
     return span, part_o, part_ml
 
 
-def _entry(lib, name: str, n_int: int):
-    """A C entry point taking (q, q_bf16, the cache, pos0, slopes and
-    scratch pointers, out, out_bf16, ``n_int`` ints, qscale, stream)."""
+def _entry(lib, name: str, n_scratch: int):
+    """A C entry point taking (q, q_bf16, the cache, pos0 and slopes
+    pointers, ``n_scratch`` scratch pointers, out, out_bf16, B, H, T, S, D,
+    then for the split pass its span, qscale, stream)."""
     fn = getattr(lib, name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_int]
-                       + [ctypes.c_void_p] * 9
+                       + [ctypes.c_void_p] * (6 + n_scratch)
                        + [ctypes.c_void_p, ctypes.c_int]
-                       + [ctypes.c_int] * n_int
+                       + [ctypes.c_int] * (5 + (n_scratch > 0))
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(l, q, k, v, k_scale, v_scale, pos0, slopes, out_dtype):
+def _launch(q, k, v, k_scale, v_scale, pos0, slopes, out_dtype, counts):
+    """One launch on one layer's (B, H, S, D) cache (a view of K2's
+    stack, or K7's layer): the split pass up to ``K7_MAX_T`` queries, the
+    prefill kernel above; counted in ``counts``."""
     B, H, T, D = q.shape
-    L, _, _, S, _ = k.shape
+    S = k.shape[2]
     dev = q.device
+    if T < 1:
+        raise ValueError(f"at least one query expected, got {T}")
     slopes_ptr = _checked_operands(q, k, v, k_scale, v_scale, pos0, slopes,
-                                   out_dtype, (L, B, H, S))
-    lib = _ext.load(_SOURCE)
-    fn = _entry(lib, "stacked_int8_kv_attention", 7)
-    if T <= K7_MAX_T:
-        span, part_o, part_ml = _split_scratch(B, H, T, S, D, dev)
-        parts = (part_o.data_ptr(), part_ml[0].data_ptr(),
-                 part_ml[1].data_ptr())
-    else:
-        span, parts = _KT, (0, 0, 0)
+                                   out_dtype, (B, H, S))
     out = torch.empty((B, H, T, D), dtype=out_dtype, device=dev)
-    code = fn(q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
-              v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-              pos0.data_ptr(), slopes_ptr, *parts, out.data_ptr(),
-              int(out_dtype == torch.bfloat16), l, B, H, T, S, D, span,
-              _qscale(D), _ext.stream_ptr(dev))
-    _ext.check(lib, code, "stacked_int8_kv_attention")
-    COUNTS["launches"] += 1
+    head = (q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
+            v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+            pos0.data_ptr(), slopes_ptr)
+    tail = (out.data_ptr(), int(out_dtype == torch.bfloat16), B, H, T, S, D)
+    if T <= K7_MAX_T:
+        name, lib = "int8_kv_attention_split", _ext.load(_SPLIT_SOURCE)
+        span, part_o, part_ml = _split_scratch(B, H, T, S, D, dev)
+        code = _entry(lib, name, 3)(
+            *head, part_o.data_ptr(), part_ml[0].data_ptr(),
+            part_ml[1].data_ptr(), *tail, span, _qscale(D),
+            _ext.stream_ptr(dev))
+    else:
+        name, lib = "int8_kv_attention_prefill", _ext.load(_SOURCE)
+        code = _entry(lib, name, 0)(*head, *tail, _qscale(D),
+                                    _ext.stream_ptr(dev))
+    _ext.check(lib, code, name)
+    counts["launches"] += 1
     return out
 
 
@@ -230,8 +253,8 @@ def stacked_int8_kv_attention(l: int, q: torch.Tensor, k: torch.Tensor,
     """Causal attention of q against layer ``l`` of the stacked cache.
 
     l:                layer index (Python int)
-    q:                (B, H, T, D) float, D in ``HEAD_DIMS`` on the card;
-                      query t sits at pos0[b] + t
+    q:                (B, H, T, D) float, D <= ``MAX_HEAD_DIM`` on the
+                      card; query t sits at pos0[b] + t
     k, v:             (L, B, H, S, D) int8 codes (the port's flat cache)
     k_scale, v_scale: (L, B, H, S) f32 per-position scales
     pos0:             (B,) int32 first query position per sequence
@@ -241,34 +264,11 @@ def stacked_int8_kv_attention(l: int, q: torch.Tensor, k: torch.Tensor,
     if not 0 <= l < k.shape[0]:
         raise IndexError(f"layer {l} outside a cache of {k.shape[0]}")
     if q.is_cuda:
-        return _launch(l, _kernel_q(q), k, v, k_scale, v_scale, pos0,
-                       slopes, out_dtype)
+        return _launch(_kernel_q(q), k[l], v[l], k_scale[l], v_scale[l],
+                       pos0, slopes, out_dtype, COUNTS)
     return stacked_int8_kv_attention_plain(l, q, k, v, k_scale, v_scale,
                                            pos0, slopes,
                                            out_dtype=out_dtype)
-
-
-def _launch_split(q, k, v, k_scale, v_scale, pos0, slopes, out_dtype):
-    B, H, T, D = q.shape
-    S = k.shape[2]
-    dev = q.device
-    if not 1 <= T <= K7_MAX_T:
-        raise ValueError(f"K7 takes 1 to {K7_MAX_T} queries, got {T}")
-    slopes_ptr = _checked_operands(q, k, v, k_scale, v_scale, pos0, slopes,
-                                   out_dtype, (B, H, S))
-    lib = _ext.load(_SPLIT_SOURCE)
-    fn = _entry(lib, "int8_kv_attention_split", 6)
-    span, part_o, part_ml = _split_scratch(B, H, T, S, D, dev)
-    out = torch.empty((B, H, T, D), dtype=out_dtype, device=dev)
-    code = fn(q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
-              v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-              pos0.data_ptr(), slopes_ptr, part_o.data_ptr(),
-              part_ml[0].data_ptr(), part_ml[1].data_ptr(), out.data_ptr(),
-              int(out_dtype == torch.bfloat16), B, H, T, S, D, span,
-              _qscale(D), _ext.stream_ptr(dev))
-    _ext.check(lib, code, "int8_kv_attention_split")
-    K7_COUNTS["launches"] += 1
-    return out
 
 
 def int8_kv_attention(q: torch.Tensor, k_i8: torch.Tensor,
@@ -276,11 +276,12 @@ def int8_kv_attention(q: torch.Tensor, k_i8: torch.Tensor,
                       v_scale: torch.Tensor, pos0: torch.Tensor,
                       slopes: Optional[torch.Tensor] = None, *,
                       out_dtype=torch.bfloat16) -> torch.Tensor:
-    """K7: causal attention of up to ``K7_MAX_T`` queries against one
-    layer's cache.
+    """K7: causal attention of T queries against one layer's cache (the
+    reference's engine sends it at most ``K7_MAX_T``; more take the
+    prefill kernel on the layer, one launch all the same).
 
-    q:                (B, H, T, D) float, T <= 16, D in ``HEAD_DIMS`` on
-                      the card; query t sits at pos0[b] + t
+    q:                (B, H, T, D) float, D <= ``MAX_HEAD_DIM`` on the
+                      card; query t sits at pos0[b] + t
     k_i8, v_i8:       (B, H, S, D) int8 codes (a layer of the stacked
                       cache: ``cache.k[l]`` is a contiguous view)
     k_scale, v_scale: (B, H, S) f32 per-position scales
@@ -289,8 +290,8 @@ def int8_kv_attention(q: torch.Tensor, k_i8: torch.Tensor,
     returns           (B, H, T, D) out_dtype
     """
     if q.is_cuda:
-        return _launch_split(_kernel_q(q), k_i8, v_i8, k_scale, v_scale,
-                             pos0, slopes, out_dtype)
+        return _launch(_kernel_q(q), k_i8, v_i8, k_scale, v_scale, pos0,
+                       slopes, out_dtype, K7_COUNTS)
     return int8_kv_attention_plain(q, k_i8, v_i8, k_scale, v_scale, pos0,
                                    slopes, out_dtype=out_dtype)
 
@@ -316,11 +317,14 @@ def stacked_int8_kv_attention_hilo(
     qs = f32(q) * qscale and p * v_scale each split into ``parts`` bf16
     terms (the kernel takes 3) against the exact int8 codes, f32 sums, an
     online softmax over key tiles of 64 taken in order, with the rescale
-    of the running output and sum."""
+    of the running output and sum; at the kernel's width (q, k and v
+    zero past D, qscale of D itself, the columns past D dropped)."""
     B, H, T, D = q.shape
     S = k.shape[3]
-    qp = _bf16_parts(q.to(torch.float32) * _qscale(D), parts)
-    kf, vf = k[l].to(torch.float32), v[l].to(torch.float32)
+    pad = kernel_width(D) - D
+    widen = lambda a: torch.nn.functional.pad(a, (0, pad))
+    qp = _bf16_parts(widen(q.to(torch.float32)) * _qscale(D), parts)
+    kf, vf = widen(k[l].to(torch.float32)), widen(v[l].to(torch.float32))
     rel = _rel(pos0, T, S)[:, None]                          # (B, 1, T, S)
     if slopes is None:
         slopes = torch.zeros(H, dtype=torch.float32, device=q.device)
@@ -328,7 +332,7 @@ def stacked_int8_kv_attention_hilo(
         torch.float32)
     m = torch.full((B, H, T, 1), -float("inf"), device=q.device)
     lsum = torch.zeros((B, H, T, 1), device=q.device)
-    o = torch.zeros((B, H, T, D), device=q.device)
+    o = torch.zeros((B, H, T, D + pad), device=q.device)
     kmax = min(int(pos0.max()) + T - 1, S - 1)
     for k0 in range(0, kmax + 1, _KT):
         sl = slice(k0, min(k0 + _KT, S))
@@ -343,7 +347,7 @@ def stacked_int8_kv_attention_hilo(
         pv = _bf16_parts(p * v_scale[l][:, :, None, sl], parts)
         o = o * corr + sum(torch.matmul(a, vf[:, :, sl]) for a in pv)
         m = m_new
-    return (o / lsum).to(out_dtype)
+    return (o[..., :D] / lsum).to(out_dtype)
 
 
 def attention_oracle(q, k_i8, v_i8, k_scale, v_scale, pos0, slopes=None):

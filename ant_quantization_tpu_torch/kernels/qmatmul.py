@@ -41,6 +41,20 @@ K9 launches ``csrc/w8a8_matmul.cu`` on a CUDA tensor and runs its plain
 version on a CPU tensor; both are bit-equal to the reference (exact
 int32 sums, the same f32 steps). Its weight is N-major ``(N, K)``, as
 the port stores every int8 weight (the reference's is ``(K, N)``).
+
+Both serve any K the reference serves (K8 any even K, K9 any K). Where a
+kernel needs a K quantum (K8: K/2 a multiple of 16, the 16-byte rows of
+its TMA copies; K9: K a multiple of 16, of 64 above 64 rows), the
+operands are padded with zeros: x on each call (a copy of x), the weight
+once per stack where it is a layer view ``stack[l]``, as the engine
+passes it (``_weight_padded`` keeps the padded stack, K_pad / K of the
+stack's bytes, as long as the stack lives), any other weight on each
+call. K8's x is padded in each split-K half, its
+packed bytes with code 0 in both nibbles at the end of each row: a zero
+x column times any finite grid value is an exact 0 in every bf16 term.
+K9's weight takes zero int8 columns (x's pad snaps to the codebook value
+nearest 0, which need not be 0), so the int32 sums are the unpadded
+ones.
 """
 
 from __future__ import annotations
@@ -63,8 +77,8 @@ __all__ = ["int8_codebook", "quantize_weights_w4_i8", "OVP_OFFSET",
            "f32_out_product", "K8_RTOL", "TERM_BOUND", "bf16_terms",
            "w4_term_plan", "w4_products", "quantized_matmul_w4",
            "quantized_matmul_w4_plain", "int8_matmul", "w8a8_snap",
-           "fused_w8a8_matmul", "fused_w8a8_matmul_plain", "K8_COUNTS",
-           "K9_COUNTS"]
+           "fused_w8a8_matmul", "fused_w8a8_matmul_plain", "w4_padded",
+           "w8a8_padded", "K8_COUNTS", "K9_COUNTS"]
 
 # launches of each CUDA kernel, and calls of its plain version
 K8_COUNTS = {"launches": 0, "plain_calls": 0}
@@ -446,14 +460,48 @@ def quantized_matmul_w4_plain(x: torch.Tensor, packed: torch.Tensor,
     return f32_product(x, w) * scale.to(torch.float32)[None, :]
 
 
+def _weight_padded(w: torch.Tensor, key: tuple, make) -> torch.Tensor:
+    """``make(w)``, the padded copy of a weight, made once per layout
+    ``key``: where ``w`` is a layer view ``stack[l]`` of a contiguous
+    stack (the engine's sites), the stack is padded once
+    (``kernels/stacked.py:_padded``, which keeps the copy as long as the
+    stack lives) and its layer returned; any other tensor is padded on
+    each call."""
+    from .stacked import _padded
+    base = w._base
+    if (base is not None and w.is_contiguous() and base.is_contiguous()
+            and tuple(base.shape[1:]) == tuple(w.shape)):
+        off = w.storage_offset() - base.storage_offset()
+        if off % w.numel() == 0:
+            return _padded(base, key, lambda: make(base))[off // w.numel()]
+    return make(w)
+
+
+def w4_padded(x: torch.Tensor, packed: torch.Tensor):
+    """x (M, K) and packed (N, K/2) with each half of K padded to a
+    multiple of 16, as K8's kernel takes them: x's halves with zero
+    columns, the packed rows with zero bytes (code 0 in both nibbles)."""
+    h = packed.shape[-1]
+    if h % 16 == 0:
+        return x, packed
+    h_pad = -(-h // 16) * 16
+    zx = x.new_zeros((x.shape[0], h_pad - h))
+    xp = torch.cat([x[:, :h], zx, x[:, h:], zx], dim=1)
+    return xp, _weight_padded(
+        packed, ("w4", h_pad),
+        lambda w: torch.nn.functional.pad(w, (0, h_pad - h)))
+
+
 def _launch_w4(x, packed, scale, terms, unit):
     N, K2 = packed.shape
     M, K = x.shape
     dev = x.device
-    if K != 2 * K2 or K2 % 16 or M == 0:
-        raise ValueError(f"x (M, {2 * K2}) with K/2 a multiple of 16 "
-                         f"expected, got x {tuple(x.shape)}, packed "
-                         f"{tuple(packed.shape)}")
+    if K != 2 * K2 or M == 0:
+        raise ValueError(f"x (M, {2 * K2}) expected, got x "
+                         f"{tuple(x.shape)}, packed {tuple(packed.shape)}")
+    x, packed = w4_padded(x, packed)
+    K2 = packed.shape[1]
+    K = 2 * K2
     for name, t, dt, shape in (("x", x, x.dtype, (M, K)),
                                ("packed", packed, torch.uint8, (N, K2)),
                                ("scale", scale, torch.float32, (N,)),
@@ -500,6 +548,8 @@ def quantized_matmul_w4(x: torch.Tensor, packed: torch.Tensor,
             dtypes are taken to f32
     packed: (N, K/2) uint8 split-K packed codes: one layer of the
             engine's (L, N, K/2) stack is the view ``stack[l]``, no copy
+            (where K/2 is no multiple of 16 the stack is padded once,
+            :func:`w4_padded`)
     scale:  (N,) f32 per-output-channel scale, alpha / max(grid)
     grid:   (16,) f32 integer-domain codebook
     terms, unit: :func:`w4_term_plan` of ``grid`` as (3, 16) and () f32
@@ -522,6 +572,18 @@ def quantized_matmul_w4(x: torch.Tensor, packed: torch.Tensor,
 
 
 # K9: the fused W8A8 matmul for a standalone weight.
+
+def w8a8_padded(x: torch.Tensor, w_i8: torch.Tensor):
+    """x (M, K) and w_i8 (N, K) padded along K with zeros to K9's quantum
+    (16 up to 64 rows, else 64)."""
+    K = x.shape[1]
+    quantum = 16 if x.shape[0] <= 64 else 64
+    k_pad = -(-K // quantum) * quantum
+    if k_pad == K:
+        return x, w_i8
+    pad = lambda t: torch.nn.functional.pad(t, (0, k_pad - K))
+    return pad(x), _weight_padded(w_i8, ("w8a8", k_pad), pad)
+
 
 def w8a8_snap(x: torch.Tensor, a_q: torch.Tensor,
               a_scale: torch.Tensor) -> torch.Tensor:
@@ -557,9 +619,8 @@ def _launch_w8a8(x, w_i8, a_q, a_scale, out_scale):
     N = w_i8.shape[0]
     G = a_q.shape[0]
     dev = x.device
-    if K % 16 or (M > 64 and K % 64) or M == 0:
-        raise ValueError(f"K9 needs K a multiple of 16 (of 64 above 64 "
-                         f"rows) and M > 0, got M {M}, K {K}")
+    if M == 0:
+        raise ValueError("K9 needs M > 0")
     if G > _W8A8_MAX_G:
         raise ValueError(f"K9 takes at most {_W8A8_MAX_G} codebook "
                          f"entries, got {G}")
@@ -573,6 +634,8 @@ def _launch_w8a8(x, w_i8, a_q, a_scale, out_scale):
                 or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous {dt} tensor of "
                              f"shape {shape} on {dev}")
+    x, w_i8 = w8a8_padded(x, w_i8)
+    K = x.shape[1]
     if x.data_ptr() % 16 or w_i8.data_ptr() % 16:
         raise ValueError("x and w_i8 must be 16-byte aligned")
     from .stacked import launch_k1_args

@@ -17,8 +17,8 @@ by default. Every rank
   5. checks that the loss is the same on every rank (rank 0's, broadcast),
   6. serves one prefill and one decode step through the tensor-parallel
      engine and holds the logits to the one-process engine (2e-4; on a
-     card the engine reads the flagship's weights as heads of 64, the
-     narrowest its attention kernels serve),
+     card the flagship's heads of 16 run on the card's attention
+     kernels),
 
 and prints ``SERVING OK`` and ``MULTIHOST OK``; the launcher prints
 ``MULTIHOST DRYRUN PASSED`` when every rank did.
@@ -46,7 +46,6 @@ __all__ = ["flagship", "worker", "launch", "main"]
 
 LR = 1e-3
 SERVE_TOL = 2e-4
-SERVE_HEAD_DIM = 64
 LOSS_RTOL = 1e-4
 # each shard's SGD update against the one-process update, as a share of
 # the latter's norm (f32 sums in other orders give about 1e-6; a gradient
@@ -189,18 +188,13 @@ def _spec(path: str, ndim: int, rules):
 def _serve_check(cfg, qcfg, model, mesh, dev, host, n_hosts, rank) -> None:
     """One prefill and one decode step of the tensor-parallel engine over
     the same mesh (batch over the hosts, heads over a host's ranks),
-    against the one-process engine on the full batch. On a card the
-    engine reads the same weights as heads of 64 (SERVE_HEAD_DIM): the
-    card's attention kernels serve head_dim 64, 80 and 128, and the
-    flagship's eight heads are 16 wide."""
-    import dataclasses
+    against the one-process engine on the full batch (the flagship's
+    eight heads of 16 on the card as on the CPU)."""
     from ..models.transformer_lm import params_tree
     from ..nn.layers import quant_tree
     from ..serve import engine as E
     from ..serve import sharded as shd
-    lm = cfg if dev.type == "cpu" else dataclasses.replace(
-        cfg, n_heads=cfg.d_model // SERVE_HEAD_DIM)
-    ecfg = E.EngineConfig(lm=lm, weight_mode="w4", act_bits=4,
+    ecfg = E.EngineConfig(lm=cfg, weight_mode="w4", act_bits=4,
                           kv_int8=True, max_seq=32, dtype=torch.float32)
     ep = E.build_engine_params(ecfg, params_tree(model), quant_tree(model),
                                device=dev)

@@ -75,7 +75,7 @@ Phases, each printing one JSON line (numbers unrounded):
    (every K6 call
    bit-equal, every K8 call within K8_RTOL, a K6 swap with identical
    tokens and logits);
-15. bloom_main: BLOOM-7b1 at full width (DEPTHS["bloom"], 4 of its 30
+15. bloom_main: BLOOM-7b1 at full width (DEPTHS["bloom"], 2 of its 30
    layers, fused qkv at N = 12,288, embed_ln, ALiBi, GELU, vocab 250,880),
    ANT W4A4 + INT8 KV + int8 head, max_seq 2048, served as in 5: decode
    runs K1 (4 per layer and step), attention K2; a profile;
@@ -95,8 +95,16 @@ Phases, each printing one JSON line (numbers unrounded):
 19. in situ, BLOOM: 2 layers on the long cache, every K7 call checked
    against its plain version, and K9 run and checked bit for bit at every
    site matmul on the engine's own activations (no engine path calls K9);
+   then bloom1b1: BLOOM-1b1 (d_model 1536, 16 heads of 96, d_ff 6144,
+   vocab 250,880) at full width and depth (24 layers), ANT W4A4 + INT8
+   KV + int8 head, max_seq 2048, served as in 5 with K2 at head_dim 96
+   (its stream floor beside it); in situ at 2 layers, every K2 call at
+   head_dim 96 checked against its plain version; and w4pack_ff196: the
+   "w4pack" engine at OPT-6.7B width with d_ff 196, 2 layers, one 4 x
+   512 prefill whose every K8 call (fc_out at K = 196) is checked against
+   its plain version;
 20. scheduler: a ``ContinuousBatcher`` over the OPT-6.7B ANT W4A4 engine
-   (DEPTHS["serving"], 8 layers; 4 slots, buckets 32/128/512; 10 requests of 20-512
+   (DEPTHS["serving"], 7 layers; 4 slots, buckets 32/128/512; 10 requests of 20-512
    prompt tokens and 16-64 new tokens, 3 with an eos that fires early),
    run with ticks_per_dispatch 1, 8, 8, 1: completed tokens and ticks per
    second, K1 and K2 launches per tick and prefill, and every completion
@@ -115,7 +123,7 @@ Phases, each printing one JSON line (numbers unrounded):
    the plain head, the baseline of bench.py, OPT-6.7B 32 layers, served
    as in 5 (no kernel of the port launches), with its stream floor, a
    decode step held as in 22 and a profile;
-24. gpt2_main: GPT-2 XL at full width (DEPTHS["gpt2"], 4 of its 48
+24. gpt2_main: GPT-2 XL at full width (DEPTHS["gpt2"], 2 of its 48
    layers, d_model 1600,
    25 heads of 64, d_ff 6400, vocab 50,257, every site Conv1D, quantized
    per input channel on the card into ``kscale``), ANT W4A4 + INT8 KV +
@@ -168,11 +176,12 @@ snap pre-kernel and one product kernel) bit for bit,
 K8 (M 4 and 2048, bf16 and f32 x, flint, int and unsigned float grids) within K8_RTOL of each
 output's sum of term magnitudes; K7 (S 2048 and 16,384,
 T 1, 4 and 16, ragged pos0, ALiBi on and off) within K2's tolerance; K2
-and K7 at head_dim 64 (GPT-2 XL: H 25, K2 at S 608) and 80 (BLOOM-3b: H
-32, K2 at S 2048 with ALiBi), K2 at T 1, 4, 16, 17 and 512, K7 at S
-16,384, T 1, 4 and 16, within K2's tolerance, each call one launch and
-one launch's device kernels (the split pass and its combine, or the
-prefill kernel); K9
+and K7 at each head_dim of HEADDIM_CASES (64: GPT-2 XL, H 25, K2 at S
+608; 80: BLOOM-3b, H 32, S 2048, ALiBi; 96: BLOOM-1b1, H 16, S 2048,
+ALiBi; 16: the flagship, H 8, S 608; 256, H 8, S 2048; 40, H 16, S 608,
+ALiBi), K2 at T 1, 4, 16, 17 and 512, K7 at S 16,384, T 1, 4, 16, 17 and
+64, within K2's tolerance, each call one launch and one launch's device
+kernels (the split pass and its combine, or the prefill kernel); K9
 (fc_in and fc_out, M 1, 4, 64, 65, 257, 300 and 2048; K 4160 by N 4104
 at M 65 and 300; exact midpoint ties after the multiply by 1 / a_scale)
 bit for bit; and the library product of the plain bf16 products
@@ -181,7 +190,9 @@ f32 product on the same bf16 operands at OPT-6.7B's sites and head, M 4
 and 2048, within K8_RTOL of |x| @ |w|, a bound that the f32 result
 rounded to bf16 breaks. F5 (ROADMAP Queue 3): ``int8_matmul`` at (32, 12)
 x (8, 12) and K = 196, and K1, K3, K4, K5 and K6 at K = 196 by N = 4096,
-bit-equal to their plain versions (``phase_checks_f5``); and
+bit-equal to their plain versions, K8 at K = 196 (M 2048) within
+K8_RTOL and K9 at K = 196 (M 4 and 300) bit-equal (``phase_checks_f5``);
+and
 ``outlier_thresholds`` at 67M elements bit-equal to the reference's f32
 arithmetic on the host and within 1e-5 of ``np.percentile``
 (``phase_checks_percentile``).
@@ -252,7 +263,7 @@ arithmetic on the host and within 1e-5 of ``np.percentile``
 33. parallel (run last): tensor parallelism as two gloo ranks on the
    one card (NCCL takes a card a rank), started with the ``spawn``
    method after the kernels are built: OPT-6.7B at full width and
-   DEPTHS["parallel"] (8) layers, ANT W4A4 + INT8 KV + int8 head, 16
+   DEPTHS["parallel"] (4) layers, ANT W4A4 + INT8 KV + int8 head, 16
    heads a rank, against the one-process engine on the same weights; a
    4 x 512 prefill through the sequence-parallel int8 rings, whose
    logits and each rank's cache shard must be bit-equal to one process
@@ -270,10 +281,12 @@ arithmetic on the host and within 1e-5 of ``np.percentile``
    OPT-width blocks against the sequential stack; one short
    ``tp_bench`` (its JSON line printed); NCCL's refusal of two ranks on
    one card; NCCL at one rank, tp 1, bit-equal to the plain engine; and
-   ``multihost_dryrun --device cuda`` at 2 processes of one rank.
+   ``multihost_dryrun --device cuda`` at 2 processes of one rank (the
+   flagship's heads of 16 on the card's kernels).
 
-K2 at head_dim 80 and K7 at head_dim 64 are timed on random caches
-(``phase_times_headdim``, after 27).
+K2 at head_dim 80, 96, 16 and 256 and K7 at head_dim 64, 96, 16 and 256
+are timed on random caches beside SDPA (``phase_times_headdim``, after
+27).
 
 Then the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -326,8 +339,11 @@ SP_OVP_RTOL = 1e-3
 # "gpt2_olive" (its decode is host-bound, about 0.8 s per step at 48
 # layers). OPT's ANT main path and the bf16 baseline run all 32.
 # "parallel" is the tensor-parallel engine of phase_parallel (two ranks).
-DEPTHS = {"serving": 8, "olive": 4, "w4pack": 4, "bloom": 4,
-          "bloom_long": 2, "gpt2": 4, "gpt2_olive": 2, "parallel": 8}
+# "serving" stays above SPEC_DRAFT_LAYERS (6), the speculative draft;
+# "olive" and "w4pack" at 4 keep their timed weight stacks (4 x 16.7 MB
+# at the 4096 x 4096 sites) beyond the 50 MB L2.
+DEPTHS = {"serving": 7, "olive": 4, "w4pack": 4, "bloom": 2,
+          "bloom_long": 2, "gpt2": 2, "gpt2_olive": 2, "parallel": 4}
 
 _T0 = time.perf_counter()
 
@@ -1350,6 +1366,56 @@ def phase_w4pack(torch, gen, n_layers: int = 32):
     return engine, res["launches"], ids
 
 
+def phase_w4pack_ff196(torch, gen):
+    """F9 on the engine path: the "w4pack" engine at OPT-6.7B width with
+    d_ff 196 (the d_ff of tests/test_torch_lm_calibrate.py's opt_ff196),
+    2 layers, one ``Engine.prefill`` of bs 4 x 512: every site matmul
+    runs K8 at M = 2048, fc_out at K = 196 (K/2 = 98, the stack padded
+    to 112 once), each call checked against its plain version on the
+    engine's own inputs (within K8_RTOL of the sum of term
+    magnitudes)."""
+    import dataclasses
+    from ant_quantization_tpu_torch.kernels import qmatmul as kq
+    from ant_quantization_tpu_torch.serve import engine as eng
+    cfg = opt_engine_config(2, torch.bfloat16, weight_mode="w4pack")
+    cfg = dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm, d_ff=F5_K))
+    ep = w4pack_engine_params(torch, cfg, seed=23)
+    ids = torch.randint(0, cfg.lm.vocab_size, (BATCH, PREFILL),
+                        device="cuda", generator=gen)
+    stats, k_seen = {}, []
+    k8 = _checked(torch, stats, "K8", kq.quantized_matmul_w4,
+                  kq.quantized_matmul_w4_plain,
+                  lambda out, want, a: k8_close(torch, out, want,
+                                                _k8_size(torch, *a[:4])))
+
+    def k8_logged(x, *a):
+        k_seen.append(x.shape[1])
+        return k8(x, *a)
+
+    reset_counts()
+    with mock.patch.object(eng, "quantized_matmul_w4", k8_logged):
+        engine = eng.Engine(cfg, ep, BATCH)
+        logits = engine.prefill(ids)
+    torch.cuda.synchronize()
+    launched = {k: v["launches"] for k, v in read_counts().items()}
+    reset_counts()
+    res = {"phase": "w4pack_ff196", "layers": 2, "d_ff": F5_K,
+           "prefill_tokens": PREFILL, "per_call": stats,
+           "k8_K": sorted(set(k_seen)), "k8_rtol": K8_RTOL,
+           "launches": launched,
+           "logits_finite": bool(torch.isfinite(logits).all())}
+    res["pass"] = (stats["K8"]["calls"] == 6 * 2
+                   and not stats["K8"]["failed"]
+                   and launched["K8"] == 6 * 2 and F5_K in k_seen
+                   and res["logits_finite"])
+    emit(res)
+    if not res["pass"]:
+        fail(f"w4pack at d_ff 196: {res}")
+    del engine, ep
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_stacked_prefill(torch, engine, ids, phase: str):
     """``engine``'s params (shared, not copied) served by a second Engine
     with ``stacked_prefill=True`` (its own cache): one fenced prefill,
@@ -2108,12 +2174,22 @@ RAGGED_STEPS = 16
 K9_A_SCALE = 0.19      # not a power of two: x * (1 / a) and x / a differ
 
 
-def bloom_engine_config(n_layers: int, max_seq: int, dtype):
+# BLOOM-1b1's dims beside BLOOM-7b1's (Hugging Face
+# bigscience/bloom-1b1 config.json: hidden_size 1536, n_head 16, n_layer
+# 24; d_ff 4 x hidden; vocabulary, ALiBi, embedding LayerNorm, fused qkv
+# and GELU as 7b1): heads of 96
+BLOOM_1B1 = {"d_model": 1536, "n_heads": 16, "d_ff": 6144}
+BLOOM_1B1_LAYERS = 24
+
+
+def bloom_engine_config(n_layers: int, max_seq: int, dtype, **dims):
+    """BLOOM-7b1 (or, with ``dims``, another BLOOM's widths) under ANT W4A4,
+    INT8 KV and the int8 head."""
     import dataclasses
     from ant_quantization_tpu_torch.models.transformer_lm import bloom_config
     from ant_quantization_tpu_torch.serve.engine import EngineConfig
     lm = dataclasses.replace(bloom_config("7b1"), n_layers=n_layers,
-                             max_seq=max_seq)
+                             max_seq=max_seq, **dims)
     return EngineConfig(lm=lm, weight_mode="w4", act_bits=4, kv_int8=True,
                         lm_head_int8=True, max_seq=max_seq, dtype=dtype)
 
@@ -2348,6 +2424,78 @@ def phase_bloom_main(torch, gen, n_layers: int = 30):
     serve_path(torch, engine, ids, "bloom_main", want,
                {"param_build_s": build_s}, model="BLOOM-7b1")
     return engine, ep, ids
+
+
+def phase_bloom1b1(torch, gen, n_layers: int = BLOOM_1B1_LAYERS):
+    """BLOOM-1b1 at full width and depth (d_model 1536, 16 heads of 96,
+    d_ff 6144, vocab 250,880, 24 layers; ALiBi, embedding LayerNorm,
+    fused qkv, GELU), ANT W4A4 + INT8 KV + int8 head, max_seq 2048,
+    random weights from a seeded generator: ``Engine.prefill`` of bs 4 x
+    512 and 64 greedy decode steps, K2 at head_dim 96 at both (the
+    reference's route: its 6 MiB tile rule gives 614 queries a chunk
+    here). Beside the readings, the stream floor of a decode step
+    (``stream_floor``: the int8 layer weights, the int8 head and the KV
+    read once at 3.35 TB/s)."""
+    from ant_quantization_tpu_torch.serve.engine import Engine, attention_route
+    cfg = bloom_engine_config(n_layers, BLOOM_MAX_SEQ, torch.bfloat16,
+                              **BLOOM_1B1)
+    c = cfg.lm
+    routes = {T: attention_route(c, T, cfg.max_seq) for T in (1, PREFILL)}
+    if c.head_dim != 96 or set(routes.values()) != {"K2"}:
+        fail(f"bloom1b1: head_dim {c.head_dim}, attention routes {routes}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = Engine(cfg, random_engine_params(torch, cfg, seed=21), BATCH)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ids = torch.randint(0, c.vocab_size, (BATCH, PREFILL), device="cuda",
+                        generator=gen)
+    L = c.n_layers
+    want = {"K1": 4 * L * DECODE, "K2": L * (1 + DECODE)}
+    floor = stream_floor(cfg, _site_bytes(c, 1), c.vocab_size * c.d_model)
+    res = serve_path(torch, engine, ids, "bloom1b1_main", want,
+                     {"param_build_s": build_s, "head_dim": c.head_dim,
+                      "routes": routes, "stream_floor": floor},
+                     model="BLOOM-1b1")
+    del engine
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_insitu_bloom1b1(torch, gen):
+    """BLOOM-1b1 at 2 layers and full width, prefill of bs 4 x 512 + 8
+    greedy steps: every K2 call (head_dim 96, T 512 and 1, ALiBi) checked
+    against its plain version on the engine's own q and cache (K2_TOL at
+    bf16)."""
+    from ant_quantization_tpu_torch.kernels import attention as k2
+    from ant_quantization_tpu_torch.kernels import stacked as k1
+    from ant_quantization_tpu_torch.serve import engine as eng
+    cfg = bloom_engine_config(2, BLOOM_MAX_SEQ, torch.bfloat16, **BLOOM_1B1)
+    ep = random_engine_params(torch, cfg, seed=22)
+    ids = torch.randint(0, cfg.lm.vocab_size, (BATCH, PREFILL),
+                        device="cuda", generator=gen)
+    stats = {}
+    k2_checked = _checked(torch, stats, "K2", k2.stacked_int8_kv_attention,
+                          k2.stacked_int8_kv_attention_plain,
+                          lambda out, want, a: k2_close(torch, out, want,
+                                                        "bf16"))
+    reset_counts()
+    _, logits = _greedy(torch, eng, cfg, ep, ids, k1.stacked_quant_matmul,
+                        k2_checked)
+    launched = {k: v["launches"] for k, v in read_counts().items()}
+    reset_counts()
+    res = {"phase": "in_situ_bloom1b1", "layers": 2, "head_dim": 96,
+           "dtype": "bfloat16", "decode_steps": 8, "per_call": stats,
+           "k2_atol_rtol": K2_TOL["bf16"], "launches": launched,
+           "logits_finite": bool(torch.isfinite(logits).all())}
+    res["pass"] = (stats["K2"]["calls"] == 2 * 9
+                   and not stats["K2"]["failed"]
+                   and launched["K2"] == 2 * 9 and res["logits_finite"])
+    emit(res)
+    if not res["pass"]:
+        fail(f"BLOOM-1b1 in-situ check: {res}")
+    return res
 
 
 def phase_bloom_ragged(torch, engine, gen):
@@ -3070,19 +3218,29 @@ def phase_speculative(torch, gen, cfg, ep):
 
 # head_dims beside 128 that K2 and K7 serve, at their models' shapes:
 # (head_dim, heads, K2's cache length, ALiBi) for GPT-2 XL at the main
-# path's max_seq and BLOOM-3b at bloom_main's
-HEADDIM_CASES = ((64, 25, MAX_SEQ, False), (80, 32, BLOOM_MAX_SEQ, True))
+# path's max_seq, BLOOM-3b and BLOOM-1b1 at bloom_main's, the reference's
+# flagship LM (d_model 128, 8 heads) at the main path's max_seq; 256, the
+# widest the kernels serve (8 heads); and 40, a head_dim that is no
+# multiple of 16 (its cache rows are copied 8 bytes at a time)
+HEADDIM_CASES = ((64, 25, MAX_SEQ, False), (80, 32, BLOOM_MAX_SEQ, True),
+                 (96, 16, BLOOM_MAX_SEQ, True), (16, 8, MAX_SEQ, False),
+                 (256, 8, BLOOM_MAX_SEQ, False), (40, 16, MAX_SEQ, True))
+# K7's query counts: the reference engine's (up to 16, the split pass)
+# and more (K2's prefill kernel on the layer as a stack of one)
+K7_CHECK_T = (1, 4, 16, 17, 64)
 
 
 def phase_checks_headdim(torch, gen):
-    """K2 and K7 against their plain versions at head_dim 64 (GPT-2 XL: B
-    4, H 25, S 608) and 80 (BLOOM-3b: B 4, H 32, S 2048, ALiBi): K2 at T 1,
-    4 and 16 (positions split across blocks) and 17 and 512 (bf16 tensor
-    cores), pos0 0 and ragged with a last query at S - 1, bf16 q with bf16
-    output and f32 with f32; K7 on one layer at S 16,384, T 1, 4 and 16,
-    ragged pos0, ALiBi on and off. Within K2_TOL, each call one launch;
-    the profiler sees one launch's kernels per call (the split pass and
-    its combine up to 16 queries, one kernel above)."""
+    """K2 and K7 against their plain versions at each of HEADDIM_CASES
+    (head_dim 64: GPT-2 XL, B 4, H 25, S 608; 80: BLOOM-3b, H 32, S 2048,
+    ALiBi; 96: BLOOM-1b1, H 16, S 2048, ALiBi; 16: the flagship, H 8, S
+    608; 256, H 8, S 2048; 40, H 16, S 608, ALiBi): K2 at T 1, 4 and 16
+    (positions split across blocks) and 17 and 512 (bf16 tensor cores),
+    pos0 0 and ragged with a last query at S - 1, bf16 q with bf16 output
+    and f32 with f32; K7 on one layer at S 16,384, T of K7_CHECK_T, ragged
+    pos0, ALiBi on and off. Within K2_TOL, each call one launch; the
+    profiler sees one launch's kernels per call (the split pass and its
+    combine up to 16 queries, one kernel above)."""
     from ant_quantization_tpu_torch.kernels import attention as k2
     from ant_quantization_tpu_torch.models.transformer_lm import alibi_slopes
     errs = {"K2": {}, "K7": {}}
@@ -3151,9 +3309,9 @@ def phase_checks_headdim(torch, gen):
                 for _ in range(2))
         ks, vs = (torch.rand((B, H, S), device="cuda", generator=gen) * 0.02
                   for _ in range(2))
-        p0 = [0, 77, S // 2 + 5, S - 16][:B]
-        pos0 = torch.tensor(p0, dtype=torch.int32, device="cuda")
-        for T in (1, 4, 16):
+        for T in K7_CHECK_T:
+            p0 = [0, 77, S // 2 + 5, S - T][:B]
+            pos0 = torch.tensor(p0, dtype=torch.int32, device="cuda")
             q32 = torch.randn((B, H, T, D), device="cuda", generator=gen)
             for sl in (None, slopes):
                 for tag, dt in dts:
@@ -3164,9 +3322,12 @@ def phase_checks_headdim(torch, gen):
                               *args, out_dtype=dt),
                           k2.K7_COUNTS, tag, H=H, S=S, T=T, pos0=p0,
                           alibi=sl is not None)
-        args = (q32[:, :, :1].to(torch.bfloat16), k, v, ks, vs, pos0, slopes)
-        per_call_kernels(f"K7 D={D} T=1",
-                         lambda: k2.int8_kv_attention(*args), 2)
+        for T in (1, 17):
+            args = (q32[:, :, :T].to(torch.bfloat16), k, v, ks, vs, pos0,
+                    slopes)
+            per_call_kernels(f"K7 D={D} T={T}",
+                             lambda: k2.int8_kv_attention(*args),
+                             2 if T <= k2.K7_MAX_T else 1)
         del k, v, ks, vs
     emit({"phase": "checks_headdim", "checks": n_checks,
           "kernels_per_call": per_call, "profiler_attempts": attempts})
@@ -3444,16 +3605,22 @@ def phase_times_k7_bloom3b(torch, gen):
     return row
 
 
+# the head_dims that phase_times_headdim times on random caches beside
+# the engine paths' 128 and 64: (name, head_dim, heads)
+HEADDIM_TIMES = (("BLOOM-3b", 80, 32), ("BLOOM-1b1", 96, 16),
+                 ("flagship", 16, 8), ("head_dim 256", 256, 8))
+
+
 def phase_times_headdim(torch, gen) -> dict:
     """The head_dim rows that the engine paths leave untimed, on random
-    INT8 caches: K2 at head_dim 80 (BLOOM-3b: B 4, H 32, S 2048, 8 layers
-    rotated; decode at position 575 and a 512-query prefill, no ALiBi, as
+    INT8 caches, no ALiBi: K2 at each of HEADDIM_TIMES (B 4, S 2048, 8
+    layers rotated; decode at position 575 and a 512-query prefill, as
     ``k2_time_rows`` times D 128 and 64) and K7 at head_dim 64 (GPT-2 XL:
-    B 4, H 25, S 16,384, 2 layers; T = 1 at the bloom_long path's last
-    decode position, no ALiBi; ``k7_time_row``)."""
+    H 25) and at each of HEADDIM_TIMES but BLOOM-3b's 80 (timed by
+    ``phase_times_k7_bloom3b``): B 4, S 16,384, 2 layers; T = 1 at the
+    bloom_long path's last decode position (``k7_time_row``)."""
     from ant_quantization_tpu_torch.kernels.kv_cache import QuantKV
-    from ant_quantization_tpu_torch.models.transformer_lm import (
-        bloom_config, gpt2_config)
+    from ant_quantization_tpu_torch.models.transformer_lm import gpt2_config
 
     def cache(L, H, S, D):
         shape = (L, BATCH, H, S)
@@ -3463,18 +3630,23 @@ def phase_times_headdim(torch, gen) -> dict:
                        *(torch.rand(shape, device="cuda", generator=gen)
                          * 0.02 for _ in range(2)))
 
-    c = bloom_config("3b")
-    kv = cache(8, c.n_heads, BLOOM_MAX_SEQ, c.head_dim)
-    k2_rows = k2_time_rows(torch, kv, 8, gen)
-    del kv
+    k2_rows, k7_rows = {}, {}
+    for name, D, H in HEADDIM_TIMES:
+        kv = cache(8, H, BLOOM_MAX_SEQ, D)
+        k2_rows[D] = k2_time_rows(torch, kv, 8, gen)
+        del kv
     c = gpt2_config("xl")
-    kv = cache(2, c.n_heads, BLOOM_LONG_SEQ, c.head_dim)
-    k7_row = k7_time_row(torch, kv, BLOOM_LONG_PROMPT + DECODE - 1, None)
-    del kv
+    for name, D, H in (("GPT-2 XL", c.head_dim, c.n_heads),
+                       *HEADDIM_TIMES[1:]):
+        kv = cache(2, H, BLOOM_LONG_SEQ, D)
+        k7_rows[D] = k7_time_row(torch, kv, BLOOM_LONG_PROMPT + DECODE - 1,
+                                 None)
+        del kv
     torch.cuda.empty_cache()
     emit({"phase": "kernel_times_headdim", "graphed": True,
-          "K2_head_dim_80": k2_rows, "K7_head_dim_64": k7_row})
-    return {"K2": k2_rows, "K7": k7_row}
+          "models": {D: name for name, D, _ in HEADDIM_TIMES},
+          "K2_by_head_dim": k2_rows, "K7_by_head_dim": k7_rows})
+    return {"K2": k2_rows, "K7": k7_rows}
 
 
 def phase_insitu_gpt2(torch, gen):
@@ -3534,7 +3706,11 @@ def phase_checks_f5(torch, gen):
     bit-equal to its plain version on the same card tensors (int8_matmul:
     to the CPU's exact product), each kernel call one launch. The
     wrappers pad K with zeros (x per call, the weight stack once per
-    layout; ``kernels/stacked.py``), which adds nothing to the sums."""
+    layout; ``kernels/stacked.py``), which adds nothing to the sums. F9:
+    K8 at K = 196 (M 2048, bf16 and f32 x, a layer of a packed stack)
+    within K8_RTOL of its plain version's term magnitudes, and K9 at K =
+    196 (M 4 and 300) bit-equal to its plain version
+    (``kernels/qmatmul.py``: w4_padded, w8a8_padded)."""
     import numpy as np
     from ant_quantization_tpu_torch.kernels import qmatmul as kq
     from ant_quantization_tpu_torch.kernels import stacked as ks
@@ -3544,7 +3720,7 @@ def phase_checks_f5(torch, gen):
     K, N, L = F5_K, 4096, 2
     worst = {}
 
-    def check(kernel, counts, call, plain, **info):
+    def check(kernel, counts, call, plain, close=None, **info):
         before = counts["launches"] if counts is not None else 0
         got = call()
         if counts is not None and counts["launches"] != before + 1:
@@ -3553,9 +3729,10 @@ def phase_checks_f5(torch, gen):
         torch.cuda.synchronize()
         equal = torch.equal(got.cpu(), want.cpu())
         err = (got.double().cpu() - want.double().cpu()).abs().max().item()
+        ok = equal if close is None else close(got, want)
         emit({"phase": "check_f5", "kernel": kernel, **info,
-              "max_abs_err": err, "bit_equal": equal})
-        if not equal:
+              "max_abs_err": err, "bit_equal": equal, "pass": ok})
+        if not ok:
             fail(f"F5: {kernel} differs from its plain version at {info} "
                  f"(max abs err {err})")
         worst[kernel] = max(worst.get(kernel, 0.0), err)
@@ -3612,6 +3789,36 @@ def phase_checks_f5(torch, gen):
                   lambda: ks.stacked_quant_matmul_p4_plain(
                       l, x[:M], wp, sc, aq, asc, q16, affine),
                   M=M, K=K, N=N, affine=affine)
+    grid = torch.tensor(cb.ant_grid("flint", 4, True), dtype=torch.float32,
+                        device="cuda")
+    tab, unit, _ = kq.w4_term_plan(grid.cpu().numpy())
+    terms = torch.tensor(tab, device="cuda")
+    unit = torch.tensor([unit], dtype=torch.float32, device="cuda")
+    codes = torch.randint(0, 16, (L, K, N), device="cuda", generator=gen)
+    wp = torch.stack([pack_w4(codes[i]) for i in range(L)])
+    scale = torch.rand((N,), device="cuda", generator=gen) * 1e-2
+    x = torch.randn((2048, K), device="cuda", generator=gen)
+    for dt in (torch.bfloat16, torch.float32):
+        xd = x.to(dt)
+        size = _k8_size(torch, xd, wp[l], scale, grid)
+        check("K8", kq.K8_COUNTS,
+              lambda: kq.quantized_matmul_w4(xd, wp[l], scale, grid, terms,
+                                             unit),
+              lambda: kq.quantized_matmul_w4_plain(xd, wp[l], scale, grid),
+              close=lambda got, want: k8_close(torch, got, want, size),
+              M=2048, K=K, N=N, x=str(dt))
+    a_q, a_scale, ties = _k9_operands(torch)
+    w = torch.randint(-64, 64, (L, N, K), dtype=torch.int8, device="cuda",
+                      generator=gen)
+    osc = torch.rand((N,), device="cuda", generator=gen) * 2e-3 + 1e-3
+    for M in (4, 300):
+        xm = x[:M] * 8 * K9_A_SCALE
+        xm[0, :ties.shape[0]] = ties
+        check("K9", kq.K9_COUNTS,
+              lambda: kq.fused_w8a8_matmul(xm, w[l], a_q, a_scale, osc),
+              lambda: kq.fused_w8a8_matmul_plain(xm, w[l], a_q, a_scale,
+                                                 osc),
+              M=M, K=K, N=N)
     reset_counts()
     torch.cuda.empty_cache()
     return worst
@@ -4695,7 +4902,7 @@ ENC_WORDS = 3000           # WordPiece words taken from the generated corpus
 ENC_GLUE_ROWS = {"train": 128, "dev": 512}   # one calibration batch, 4 eval
 # layers of the encoder runs cut for the qat phase (full width; PERF.md
 # section 4): BART-base encoder and decoder each, BERT-base under SQuAD
-ENC_CUT_LAYERS = {"bart": 2, "squad": 4}
+ENC_CUT_LAYERS = {"bart": 2, "squad": 2}
 ENC_SQUAD_EXAMPLES = 32    # 2-3 features each at max_seq 384, stride 128
 ENC_HOLD_LAYERS = 2        # the card held to the CPU: BERT-base width
 ENC_HOLD_ROWS = 8          # one 8 x 128 batch
@@ -5922,7 +6129,7 @@ def par_rank(n_layers: int, ids, tokens, device: str) -> dict:
             {"i8_stream_kernel": 6 * L, "split_kernel<128": L})
         out["prefill_traced"] = traced_counts(
             torch, lambda: fwd(ep, ids, fresh(), 0, last_index=T - 1),
-            {"prefill_kernel<128>": L, "i8_stream_kernel": 0,
+            {"prefill_kernel<128,": L, "i8_stream_kernel": 0,
              "snap_i8_kernel": 0, "i8_wgmma_kernel": 0})
         reset_counts()
         del ep, kv
@@ -6208,7 +6415,7 @@ def phase_parallel(torch, smi: str, n_layers: int = None,
             r["decode_traced"], r["prefill_traced"])
         want_tr = ({"i8_stream_kernel": 6 * n_layers,
                     "split_kernel<128": n_layers},
-                   {"prefill_kernel<128>": n_layers, "i8_stream_kernel": 0,
+                   {"prefill_kernel<128,": n_layers, "i8_stream_kernel": 0,
                     "snap_i8_kernel": 0, "i8_wgmma_kernel": 0})
         for got, want in zip((r["decode_traced"][0],
                               r["prefill_traced"][0]), want_tr):
@@ -6421,6 +6628,9 @@ def main() -> int:
     k9_rows = phase_times_k9(torch, gen)
     insitu_bloom = phase_insitu_bloom(torch, gen)
     torch.cuda.empty_cache()
+    b1 = phase_bloom1b1(torch, gen)
+    insitu_b1 = phase_insitu_bloom1b1(torch, gen)
+    ff196 = phase_w4pack_ff196(torch, gen)
     gpt2, gpt2_counts, gpt2_ids = phase_gpt2_main(torch, gen,
                                                   DEPTHS["gpt2"])
     gpt2_k2_rows, kscale_per_layer = phase_times_gpt2(torch, gpt2)
@@ -6452,6 +6662,16 @@ def main() -> int:
         "w4a16": {k: v["launches"] for k, v in w4a16["launches"].items()}}
 
     dec, pre = k2_rows
+    from ant_quantization_tpu_torch.kernels import attention as k2
+    served = {"head_dims": f"1 to {k2.MAX_HEAD_DIM}",
+              "widths": list(k2.KERNEL_WIDTHS),
+              "rule": "head_dim D runs at the smallest width >= D, zeros "
+                      "past D",
+              "queries": "K2 and K7 any T, one launch a call on the "
+                         "layer: the split pass up to 16 queries "
+                         "(int8_kv_attention_split.cu), the prefill "
+                         "kernel above (int8_kv_attention.cu)"}
+    hd_names = {D: name for name, D, _ in HEADDIM_TIMES}
     kernels = [
         {"name": "stacked_quant_matmul (K1)", "route": "cuda",
          "source": "ant_quantization_tpu_torch/csrc/stacked_i8.cu",
@@ -6469,11 +6689,14 @@ def main() -> int:
          "bound_ms": sum(s["bound_ms"] for s in sites), "bound_by": "bytes",
          "library_ms": sum(s["library_ms"] for s in sites),
          "launches_serving_paths": {k: v["K1"] for k, v in new_paths.items()},
+         "launches_bloom1b1": b1["launches"]["K1"]["launches"],
          "launches_parallel": {
              f"rank {r['rank']} decode (local shards)":
              r["decode_launches"]["K1"] for r in par["ranks"]}},
         {"name": "stacked_int8_kv_attention (K2)", "route": "cuda",
          "source": "ant_quantization_tpu_torch/csrc/int8_kv_attention.cu",
+         "source_t_le_16": "ant_quantization_tpu_torch/csrc/"
+                           "int8_kv_attention_split.cu",
          "replaces": "ant_quantization_tpu/kernels/attention.py:207",
          "launches": counts["K2"]["launches"],
          "max_abs_err": max(k2_err.values()),
@@ -6496,7 +6719,10 @@ def main() -> int:
                                                           "decode")},
          "launches_gpt2": {"gpt2_main": gpt2_counts["K2"]["launches"],
                            "gpt2_olive": gpt2o_counts["K2"]["launches"]},
-         "head_dims": [128, 64, 80],
+         "launches_bloom1b1": b1["launches"]["K2"]["launches"],
+         "in_situ_bloom1b1": insitu_b1["per_call"]["K2"],
+         "head_dims_served": served,
+         "head_dims": [128] + [c[0] for c in HEADDIM_CASES],
          "max_abs_err_by_head_dim": {128: k2_err, **hd_err["K2"]},
          "head_dim_64": {
              "at": "GPT-2 XL: B=4 H=25 D=64, cache S=608 (gpt2_main's)",
@@ -6504,12 +6730,13 @@ def main() -> int:
                  k: r[k] for k in ("T", "pos0", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}
                 for r in gpt2_k2_rows}},
-         "head_dim_80": {
-             "at": "BLOOM-3b: B=4 H=32 D=80, a random cache S=2048",
+         **{f"head_dim_{D}": {
+             "at": f"{hd_names[D]}: B={rows[0]['B']} H={rows[0]['H']} "
+                   f"D={D}, a random cache S={rows[0]['S']}",
              **{("decode" if r["T"] == 1 else "prefill"): {
                  k: r[k] for k in ("T", "pos0", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}
-                for r in hd_times["K2"]}}},
+                for r in rows}} for D, rows in hd_times["K2"].items()}},
     ]
     for tag, fname, src, line, launches in (
             ("K3", "stacked_quant_matmul ovp=True (K3)", "stacked_i8.cu",
@@ -6590,6 +6817,9 @@ def main() -> int:
     k8["bf16_mm_ms"] = sum(x["bf16_mm_ms"] for x in k8_rows)
     k8["bf16_mm_note"] = ("torch.mm in bf16 on the bf16 operands: rounds "
                           "its output, a reference point only")
+    k8["launches_w4pack_ff196"] = ff196["launches"]["K8"]
+    k8["k_served"] = ("any even K: K/2 padded to a multiple of 16 (x per "
+                      "call, the packed stack once)")
     k6 = next(x for x in kernels if x["name"].endswith("(K6)"))
     k6["design"] = ("one launch on K1's staged split-K weight stream with "
                     "a nibble-decode policy, the snap fused a stage ahead "
@@ -6618,6 +6848,8 @@ def main() -> int:
     kernels.append({
         "name": "int8_kv_attention (K7)", "route": "cuda",
         "source": "ant_quantization_tpu_torch/csrc/int8_kv_attention_split.cu",
+        "source_t_gt_16": "ant_quantization_tpu_torch/csrc/"
+                          "int8_kv_attention.cu",
         "replaces": "ant_quantization_tpu/kernels/attention.py:102",
         "launches": long_counts["K7"]["launches"],
         "max_abs_err": max(k7_err.values()), "max_abs_err_by_out": k7_err,
@@ -6630,7 +6862,9 @@ def main() -> int:
         "library_ms": k7_row["library_ms"],
         "library_note": "SDPA on the dequantized bf16 cache, ALiBi as its "
                         "mask",
-        "head_dims": [128, 64, 80],
+        "head_dims_served": served,
+        "head_dims": [128] + [c[0] for c in HEADDIM_CASES],
+        "query_counts_checked": list(K7_CHECK_T),
         "max_abs_err_by_head_dim": {128: k7_err, **hd_err["K7"]},
         "head_dim_80": {
             "at": f"one BLOOM-3b decode layer: B={k7_3b_row['B']} "
@@ -6638,12 +6872,13 @@ def main() -> int:
                   f"{k7_3b_row['pos0']}, cache S={k7_3b_row['S']}, ALiBi",
             **{k: k7_3b_row[k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")}},
-        "head_dim_64": {
-            "at": f"GPT-2 XL: B={BATCH} H=25 T=1 D=64 at position "
-                  f"{hd_times['K7']['pos0']}, a random cache "
-                  f"S={BLOOM_LONG_SEQ}, no ALiBi",
-            **{k: hd_times["K7"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                              "bound_by", "library_ms")}}})
+        **{f"head_dim_{D}": {
+            "at": f"{hd_names.get(D, 'GPT-2 XL')}: B={r['B']} H={r['H']} "
+                  f"T=1 D={D} at position {r['pos0']}, a random cache "
+                  f"S={r['S']}, no ALiBi",
+            **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}}
+           for D, r in hd_times["K7"].items()}})
     k9_at = {f"{x['site']} M={x['M']}": x for x in k9_rows}
     k9_main = k9_at["fc_in M=4"]
     kernels.append({
@@ -6683,6 +6918,12 @@ def main() -> int:
                                          "decode_ms_per_step")}
               for f in ("ant", "olive")},
           "gpt2_kscale_route_per_layer": kscale_per_layer,
+          "bloom1b1": {k: b1[k] for k in (
+              "layers", "head_dim", "prefill_ms", "decode_ms_per_step",
+              "decode_tokens_per_s", "max_memory_allocated",
+              "stream_floor")},
+          "w4pack_ff196": {k: ff196[k] for k in ("k8_K", "per_call",
+                                                 "launches")},
           "serve_cli": {k: serve[k] for k in ("seconds", "serve",
                                               "w4_bytes_i8",
                                               "w4_bytes_packed",

@@ -189,8 +189,8 @@ def test_unported_features_raise():
     (per-input-channel ``kscale``, ROADMAP Queue 1 item 5, from the port's
     build_engine_params and from a reference tree) build and serve; a
     tensor-parallel config is accepted and its forward asks for its tp
-    group; a head_dim that the attention kernels are not built for raises
-    on the card's path."""
+    group; on the card's path the attention kernels take head_dim 96 and
+    raise past 256, the widest they are built for."""
     _, tcfg = _configs()
     params, quant = _model(seed=5)
     for i in range(_GEOM["n_layers"]):
@@ -239,18 +239,22 @@ def test_unported_features_raise():
     with pytest.raises(ValueError, match="tp group"):
         teng.forward(tp2, ep, torch.zeros((1, 3), dtype=torch.int64),
                      teng.init_cache(tcfg, 1, device="cpu"), 0)
-    # a head_dim the CUDA kernels are not built for: both wrappers' card
-    # paths raise before they build or launch anything
-    B, H, S, D = 1, 2, 64, 96
-    q = torch.zeros((B, H, 1, D))
-    kc = torch.zeros((1, B, H, S, D), dtype=torch.int8)
-    sc = torch.zeros((1, B, H, S))
+    # head_dims on the card: BLOOM-1b1's 96 passes the kernels' operand
+    # checks (on one layer, as both wrappers launch; no ALiBi: no slopes
+    # pointer); 257, past the widest the CUDA kernels are built for,
+    # raises before anything is built or launched
+    B, H, S = 1, 2, 64
     pos0 = torch.zeros((B,), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        tk2._launch(0, q, kc, kc, sc, sc, pos0, None, torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        tk2._launch_split(q, kc[0], kc[0], sc[0], sc[0], pos0, None,
-                          torch.float32)
+    for D in (96, 257):
+        q = torch.zeros((B, H, 1, D))
+        kc = torch.zeros((B, H, S, D), dtype=torch.int8)
+        sc = torch.zeros((B, H, S))
+        args = (q, kc, kc, sc, sc, pos0, None, torch.float32, (B, H, S))
+        if D == 96:
+            assert tk2._checked_operands(*args) == 0
+        else:
+            with pytest.raises(NotImplementedError, match="ROADMAP Queue 3"):
+                tk2._checked_operands(*args)
 
 
 def test_package_imports_no_jax():

@@ -4,7 +4,8 @@ embedding LayerNorm, ALiBi, GELU) on a 2-layer BLOOM-shaped W4A4 + INT8-KV
 route where attention runs K2 (a short cache), and the port's
 build_engine_params and ragged serving. Logits within 5e-3 of the reference, as for
 the OPT engine. Two heads of head_dim 128, so the reference keeps its
-cache flat."""
+cache flat; and two heads of 96, BLOOM-1b1's head_dim (d_model 192,
+d_ff 768), also flat there."""
 
 import numpy as np
 import pytest
@@ -29,9 +30,12 @@ _D, _FF = 256, 1024
 _GEOM = dict(vocab_size=128, d_model=_D, n_layers=2, n_heads=2, d_ff=_FF,
              positions="alibi", activation="gelu", fused_qkv=True,
              embed_ln=True)
-_SITES = {"qkv": (_D, 3 * _D), "out": (_D, _D), "fc_in": (_D, _FF),
-          "fc_out": (_FF, _D)}
 _B = 2
+
+
+def _sites(d, ff):
+    return {"qkv": (d, 3 * d), "out": (d, d), "fc_in": (d, ff),
+            "fc_out": (ff, d)}
 
 
 def _state(alpha, grid):
@@ -44,20 +48,21 @@ def _state(alpha, grid):
         initialized=jnp.asarray(True), aux=jnp.asarray(0.0, jnp.float32))
 
 
-def bloom_model(seed=0):
-    """Random float weights and flint W4A4 states of a BLOOM-shaped model:
-    a fused qkv site, an embedding LayerNorm, no position table."""
+def bloom_model(seed=0, d=_D, ff=_FF):
+    """Random float weights and flint W4A4 states of a BLOOM-shaped model
+    of width ``d`` and d_ff ``ff``: a fused qkv site, an embedding
+    LayerNorm, no position table."""
     rng = np.random.default_rng(seed)
     wgrid = cb.ant_grid("flint", 4, True)
     agrid = cb.ant_grid("flint", 4, True)       # GELU inputs are signed
     f32 = lambda a: np.asarray(a, np.float32)
-    ln = lambda: {"scale": f32(1 + 0.1 * rng.normal(size=_D)),
-                  "bias": f32(0.1 * rng.normal(size=_D))}
+    ln = lambda: {"scale": f32(1 + 0.1 * rng.normal(size=d)),
+                  "bias": f32(0.1 * rng.normal(size=d))}
     params, quant = {}, {}
     for i in range(_GEOM["n_layers"]):
         p = {"ln_1": ln(), "ln_2": ln(), "attn": {}}
         q = {"attn": {}}
-        for site, (K, N) in _SITES.items():
+        for site, (K, N) in _sites(d, ff).items():
             w = f32(rng.normal(size=(K, N)) / np.sqrt(K))
             node = {"kernel": w, "bias": f32(0.05 * rng.normal(size=N))}
             st = {"weight_q": _state(0.9 * np.abs(w).max(0), wgrid),
@@ -66,16 +71,16 @@ def bloom_model(seed=0):
             (p["attn"] if site in ("qkv", "out") else p)[site] = node
             (q["attn"] if site in ("qkv", "out") else q)[site] = st
         params[f"h_{i}"], quant[f"h_{i}"] = p, q
-    params["wte"] = {"embedding": f32(rng.normal(size=(128, _D)))}
+    params["wte"] = {"embedding": f32(rng.normal(size=(128, d)))}
     params["embed_ln"] = ln()
     params["ln_f"] = ln()
     return params, quant
 
 
-def configs(max_seq):
+def configs(max_seq, d=_D, ff=_FF):
     kw = dict(weight_mode="w4", act_bits=4, kv_int8=True, lm_head_int8=True,
               max_seq=max_seq)
-    geom = dict(_GEOM, max_seq=max_seq)
+    geom = dict(_GEOM, max_seq=max_seq, d_model=d, d_ff=ff)
     jcfg = jeng.EngineConfig(lm=JLMConfig(**geom), dtype=jnp.float32,
                              interpret=True, **kw)
     tcfg = teng.EngineConfig(lm=LMConfig(**geom), dtype=torch.float32, **kw)
@@ -86,14 +91,15 @@ def np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def check_route(monkeypatch, max_seq, chunks, decode, per_seq, seed=0):
+def check_route(monkeypatch, max_seq, chunks, decode, per_seq, seed=0,
+                d=_D, ff=_FF):
     """Prefill chunks of ``chunks`` positions, then ``decode`` greedy steps,
     through the reference's ``forward`` and the port's on the same engine
-    params; pos0 is a scalar, or per sequence (sequence b starts at 3 b).
-    Logits within 5e-3 at every call. Returns the route of each of the
-    port's attention calls."""
-    jcfg, tcfg = configs(max_seq)
-    jep = jeng.build_engine_params(jcfg, *bloom_model(seed))
+    params (width ``d``, d_ff ``ff``); pos0 is a scalar, or per sequence
+    (sequence b starts at 3 b). Logits within 5e-3 at every call. Returns
+    the route of each of the port's attention calls."""
+    jcfg, tcfg = configs(max_seq, d, ff)
+    jep = jeng.build_engine_params(jcfg, *bloom_model(seed, d, ff))
     tep = convert.from_jax_engine_params(np_tree(jep), device="cpu")
     jfwd = jax.jit(lambda ep, ids, kv, pos: jeng.forward(jcfg, ep, ids, kv,
                                                          pos))
@@ -130,6 +136,13 @@ def check_route(monkeypatch, max_seq, chunks, decode, per_seq, seed=0):
 @pytest.mark.parametrize("per_seq", [False, True])
 def test_bloom_k2_route_matches_reference(monkeypatch, per_seq):
     seen = check_route(monkeypatch, 64, [8], 3, per_seq)
+    assert seen == ["K2"] * 2 * 4
+
+
+def test_bloom_head_dim_96_matches_reference(monkeypatch):
+    """BLOOM-1b1's head_dim: a 2-layer engine of 2 heads of 96, a
+    20-token prefill and 3 decode steps on K2, per-sequence pos0."""
+    seen = check_route(monkeypatch, 64, [20], 3, True, d=192, ff=768)
     assert seen == ["K2"] * 2 * 4
 
 
