@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import _ext
+from ..utils.profiling import span
 
 __all__ = ["stacked_int8_kv_attention", "stacked_int8_kv_attention_plain",
            "int8_kv_attention", "int8_kv_attention_plain",
@@ -261,14 +262,15 @@ def stacked_int8_kv_attention(l: int, q: torch.Tensor, k: torch.Tensor,
     slopes:           optional (H,) f32 ALiBi slopes
     returns           (B, H, T, D) out_dtype
     """
-    if not 0 <= l < k.shape[0]:
-        raise IndexError(f"layer {l} outside a cache of {k.shape[0]}")
-    if q.is_cuda:
-        return _launch(_kernel_q(q), k[l], v[l], k_scale[l], v_scale[l],
-                       pos0, slopes, out_dtype, COUNTS)
-    return stacked_int8_kv_attention_plain(l, q, k, v, k_scale, v_scale,
-                                           pos0, slopes,
-                                           out_dtype=out_dtype)
+    with span("kernel.launch"):
+        if not 0 <= l < k.shape[0]:
+            raise IndexError(f"layer {l} outside a cache of {k.shape[0]}")
+        if q.is_cuda:
+            return _launch(_kernel_q(q), k[l], v[l], k_scale[l], v_scale[l],
+                           pos0, slopes, out_dtype, COUNTS)
+        return stacked_int8_kv_attention_plain(l, q, k, v, k_scale, v_scale,
+                                               pos0, slopes,
+                                               out_dtype=out_dtype)
 
 
 def int8_kv_attention(q: torch.Tensor, k_i8: torch.Tensor,
@@ -289,11 +291,12 @@ def int8_kv_attention(q: torch.Tensor, k_i8: torch.Tensor,
     slopes:           optional (H,) f32 ALiBi slopes
     returns           (B, H, T, D) out_dtype
     """
-    if q.is_cuda:
-        return _launch(_kernel_q(q), k_i8, v_i8, k_scale, v_scale, pos0,
-                       slopes, out_dtype, K7_COUNTS)
-    return int8_kv_attention_plain(q, k_i8, v_i8, k_scale, v_scale, pos0,
-                                   slopes, out_dtype=out_dtype)
+    with span("kernel.launch"):
+        if q.is_cuda:
+            return _launch(_kernel_q(q), k_i8, v_i8, k_scale, v_scale, pos0,
+                           slopes, out_dtype, K7_COUNTS)
+        return int8_kv_attention_plain(q, k_i8, v_i8, k_scale, v_scale,
+                                       pos0, slopes, out_dtype=out_dtype)
 
 
 def _bf16_parts(x: torch.Tensor, parts: int) -> list:

@@ -22,6 +22,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import count, span
+
 __all__ = ["QuantKV", "init_kv", "quantize_kv", "append_kv_stacked",
            "dequant_kv"]
 
@@ -52,8 +54,11 @@ def quantize_kv(x: torch.Tensor):
     # divide by a tensor on x's device: CUDA turns a division by a
     # Python scalar into a multiply by its reciprocal, which can move
     # the scale by one ulp
-    scale = torch.where(amax > 0, amax / amax.new_tensor(127.0),
-                        amax.new_tensor(1.0))
+    with span("host.sync"):
+        c127 = amax.new_tensor(127.0)
+    with span("host.sync"):
+        one = amax.new_tensor(1.0)
+    scale = torch.where(amax > 0, amax / c127, one)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale[..., 0].to(torch.float32)
 
@@ -65,37 +70,41 @@ def append_kv_stacked(cache: QuantKV, k: torch.Tensor, v: torch.Tensor,
     batch, or per sequence a (B,) int tensor or a sequence of B ints
     (sequence b's rows go to ``index[b] .. index[b]+T-1``). An int8 cache
     takes the quantized codes and scales, any other the raw values. A
-    write past the end of the cache raises. Returns the same cache."""
-    B, T = k.shape[:2]
-    S = cache.k.shape[3]
-    if isinstance(index, int):
-        starts = None
-        checked = [index]
-    else:
-        starts = [int(i) for i in (index.tolist() if isinstance(
-            index, torch.Tensor) else index)]
-        if len(starts) != B:
-            raise ValueError(f"{len(starts)} write positions for a batch "
-                             f"of {B}")
-        checked = starts
-    for i in checked:
-        if i < 0 or i + T > S:
-            raise ValueError(f"write of {T} positions at {i} exceeds the "
-                             f"cache length {S}")
-    raw = cache.k.dtype != torch.int8
-    for codes, scales, x in ((cache.k, cache.k_scale, k),
-                             (cache.v, cache.v_scale, v)):
-        x = x.to(torch.float32).transpose(1, 2)
-        q, s = (x.to(codes.dtype), None) if raw else quantize_kv(x)
-        if starts is None:
-            codes[layer, :, :, index:index + T] = q
-            if s is not None:
-                scales[layer, :, :, index:index + T] = s
-            continue
-        for b, i in enumerate(starts):
-            codes[layer, b, :, i:i + T] = q[b]
-            if s is not None:
-                scales[layer, b, :, i:i + T] = s[b]
+    write past the end of the cache raises. Returns the same cache. Counts
+    its indexed copies as ``kv.copies``."""
+    with span("kv.append"):
+        B, T = k.shape[:2]
+        S = cache.k.shape[3]
+        if isinstance(index, int):
+            starts = None
+            checked = [index]
+        else:
+            starts = [int(i) for i in (index.tolist() if isinstance(
+                index, torch.Tensor) else index)]
+            if len(starts) != B:
+                raise ValueError(f"{len(starts)} write positions for a "
+                                 f"batch of {B}")
+            checked = starts
+        for i in checked:
+            if i < 0 or i + T > S:
+                raise ValueError(f"write of {T} positions at {i} exceeds "
+                                 f"the cache length {S}")
+        raw = cache.k.dtype != torch.int8
+        for codes, scales, x in ((cache.k, cache.k_scale, k),
+                                 (cache.v, cache.v_scale, v)):
+            x = x.to(torch.float32).transpose(1, 2)
+            q, s = (x.to(codes.dtype), None) if raw else quantize_kv(x)
+            if starts is None:
+                codes[layer, :, :, index:index + T] = q
+                if s is not None:
+                    scales[layer, :, :, index:index + T] = s
+                continue
+            for b, i in enumerate(starts):
+                codes[layer, b, :, i:i + T] = q[b]
+                if s is not None:
+                    scales[layer, b, :, i:i + T] = s[b]
+        count("kv.copies", 2 * (1 if raw else 2)
+              * (1 if starts is None else B))
     return cache
 
 

@@ -82,6 +82,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 from .. import _ext
 from ..ops.ovp import victim_mask
 from ..ops.snap import snap_value
+from ..utils.profiling import span
 from .qmatmul import OVP_OFFSET, int8_matmul, ovp_clip, unpack_w4
 
 __all__ = ["stacked_quant_matmul", "stacked_quant_matmul_plain",
@@ -520,21 +521,22 @@ def stacked_quant_matmul(l: int, x: torch.Tensor, w: torch.Tensor,
              multiply by the reciprocal)
     block_k: K3's f32 partition of K (the reference's ``block_k``)
     """
-    if not 0 <= l < w.shape[0]:
-        raise IndexError(f"layer {l} outside a stack of {w.shape[0]}")
-    if x.is_cuda:
-        x = x.to(torch.float32)
-        seg_fold = None
-        if ovp:
-            x, w, seg, fold = _ovp_operands(x, w, block_k, _SUB)
-            seg_fold = (seg, fold)
-        else:
-            x, w = _end_padded(x, w, _K5_BK if x.shape[0] > PREFILL_M
-                               else 16)
-        return _launch(l, x.contiguous(), w, scales, a_q, a_scale, ovp,
-                       seg_fold)
-    return stacked_quant_matmul_plain(l, x, w, scales, a_q, a_scale, ovp,
-                                      block_k)
+    with span("kernel.launch"):
+        if not 0 <= l < w.shape[0]:
+            raise IndexError(f"layer {l} outside a stack of {w.shape[0]}")
+        if x.is_cuda:
+            x = x.to(torch.float32)
+            seg_fold = None
+            if ovp:
+                x, w, seg, fold = _ovp_operands(x, w, block_k, _SUB)
+                seg_fold = (seg, fold)
+            else:
+                x, w = _end_padded(x, w, _K5_BK if x.shape[0] > PREFILL_M
+                                   else 16)
+            return _launch(l, x.contiguous(), w, scales, a_q, a_scale, ovp,
+                           seg_fold)
+        return stacked_quant_matmul_plain(l, x, w, scales, a_q, a_scale,
+                                          ovp, block_k)
 
 
 def stacked_quant_matmul_p4_plain(l: int, x: torch.Tensor, w: torch.Tensor,
@@ -631,14 +633,15 @@ def stacked_quant_matmul_p4(l: int, x: torch.Tensor, w: torch.Tensor,
     q16:     (L, 16) int32 int8 values of each layer's weight grid
     affine:  decode as ``code - 8`` (every layer's q16 is arange(16) - 8)
     """
-    if not 0 <= l < w.shape[0]:
-        raise IndexError(f"layer {l} outside a stack of {w.shape[0]}")
-    if x.is_cuda:
-        x, w = _p4_padded(x.to(torch.float32), w, q16, affine)
-        return _launch_p4(l, x.contiguous(), w, scales, a_q, a_scale, q16,
-                          affine)
-    return stacked_quant_matmul_p4_plain(l, x, w, scales, a_q, a_scale, q16,
-                                         affine)
+    with span("kernel.launch"):
+        if not 0 <= l < w.shape[0]:
+            raise IndexError(f"layer {l} outside a stack of {w.shape[0]}")
+        if x.is_cuda:
+            x, w = _p4_padded(x.to(torch.float32), w, q16, affine)
+            return _launch_p4(l, x.contiguous(), w, scales, a_q, a_scale,
+                              q16, affine)
+        return stacked_quant_matmul_p4_plain(l, x, w, scales, a_q, a_scale,
+                                             q16, affine)
 
 
 def aovp_snap_encode(xs: torch.Tensor, mids: torch.Tensor,
@@ -747,12 +750,14 @@ def stacked_quant_matmul_aovp(l: int, x: torch.Tensor, w: torch.Tensor,
     enc:      (L, 32) f32 encoded byte of each sorted concat entry
     block_k:  the f32 partition of K (the reference's ``block_k``)
     """
-    if not 0 <= l < w.shape[0]:
-        raise IndexError(f"layer {l} outside a stack of {w.shape[0]}")
-    if x.is_cuda:
-        x, w, seg, _ = _ovp_operands(x.to(torch.float32), w, block_k,
-                                     w.shape[2])
-        return _launch_aovp(l, x.contiguous(), w, scales, prescale, mids,
-                            ties, enc, w_ovp, seg)
-    return stacked_quant_matmul_aovp_plain(l, x, w, scales, prescale, mids,
-                                           ties, enc, w_ovp, block_k)
+    with span("kernel.launch"):
+        if not 0 <= l < w.shape[0]:
+            raise IndexError(f"layer {l} outside a stack of {w.shape[0]}")
+        if x.is_cuda:
+            x, w, seg, _ = _ovp_operands(x.to(torch.float32), w, block_k,
+                                         w.shape[2])
+            return _launch_aovp(l, x.contiguous(), w, scales, prescale,
+                                mids, ties, enc, w_ovp, seg)
+        return stacked_quant_matmul_aovp_plain(l, x, w, scales, prescale,
+                                               mids, ties, enc, w_ovp,
+                                               block_k)

@@ -99,6 +99,7 @@ from ..ops.snap import snap_concat, snap_value
 from ..parallel import comm
 from ..parallel.collective_matmul import (matmul_reducescatter_i8,
                                           ring_allgather_matmul_i8)
+from ..utils.profiling import span
 
 __all__ = ["EngineConfig", "quantize_lm_head", "quantize_activation",
            "quantize_activation_ovp", "weight_entry", "packed_weight_entry",
@@ -186,7 +187,8 @@ def _f32(v, dev: torch.device) -> torch.Tensor:
 def _const(like: torch.Tensor, value: float) -> torch.Tensor:
     # a tensor on the operand's device: CUDA turns a division by a Python
     # scalar into a multiply by its reciprocal
-    return torch.tensor(value, dtype=torch.float32, device=like.device)
+    with span("host.sync"):
+        return torch.tensor(value, dtype=torch.float32, device=like.device)
 
 
 def quantize_lm_head(wte: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -488,7 +490,9 @@ def _lm_logits(top: Dict, x: torch.Tensor) -> torch.Tensor:
 def _take_last(x: torch.Tensor, last_index) -> torch.Tensor:
     """x (B, T, D) -> (B, 1, D) rows at ``last_index`` (scalar or (B,))."""
     B = x.shape[0]
-    li = torch.as_tensor(last_index, device=x.device).reshape(-1).expand(B)
+    with span("host.sync"):
+        li = torch.as_tensor(last_index, device=x.device)
+    li = li.reshape(-1).expand(B)
     return x[torch.arange(B, device=x.device), li.long()][:, None]
 
 
@@ -509,9 +513,12 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     if name == "relu":
         return torch.relu(x)
     cube = torch.pow(x.to(torch.float32), 3.0).to(x.dtype)
-    inner = x + torch.tensor(0.044715, device=x.device).to(x.dtype) * cube
-    c = torch.tensor(np.sqrt(2.0 / np.pi).astype(np.float32),
-                     device=x.device)
+    with span("host.sync"):
+        c3 = torch.tensor(0.044715, device=x.device)
+    inner = x + c3.to(x.dtype) * cube
+    with span("host.sync"):
+        c = torch.tensor(np.sqrt(2.0 / np.pi).astype(np.float32),
+                         device=x.device)
     t = torch.tanh(c * inner.to(torch.float32))
     return (0.5 * x).to(torch.float32) * (1.0 + t)
 
@@ -754,85 +761,90 @@ def forward(cfg: EngineConfig, ep: Dict, ids: torch.Tensor, kv: QuantKV,
     fc_out over the group before their bias, and a prefill that passes
     :func:`_sp_gate` runs sequence parallel (:func:`_sp_forward`).
     """
-    _check_config(cfg)
-    c = cfg.lm
-    top, lay = ep["top"], ep["layers"]
-    B, T = ids.shape
-    dev = ids.device
-    if (cfg.tp_axis is None) != (tp_group is None):
-        raise ValueError("a tensor-parallel config (tp_axis) runs with its "
-                         "tp group, and only it does "
-                         "(serve.sharded.make_sharded_forward)")
-    if tp_group is not None and dist.get_world_size(tp_group) != \
-            cfg.tp_size:
-        raise ValueError(f"tp group of {dist.get_world_size(tp_group)} "
-                         f"ranks for tp_size {cfg.tp_size}")
-    tp_rank = dist.get_rank(tp_group) if tp_group is not None else 0
-    if isinstance(pos0, torch.Tensor) and pos0.ndim:
-        write_at = [int(p) for p in pos0.tolist()]      # one host read
-        if len(write_at) != B:
-            raise ValueError(f"{len(write_at)} positions for a batch of {B}")
-        pos_vec = torch.tensor(write_at, dtype=torch.int32, device=dev)
-    else:
-        write_at = operator.index(pos0)
-        pos_vec = torch.full((B,), write_at, dtype=torch.int32, device=dev)
-    x = _embed(top, ids, cfg.dtype)
-    if c.positions in ("learned", "learned_offset2"):
-        positions = pos_vec.to(torch.int64)[:, None] + torch.arange(
-            T, device=dev)                                          # (B, T)
-        x = x + top["wpe"][positions + (2 if c.positions == "learned_offset2"
-                                        else 0)]
-    if "embed_ln" in top:
-        x = _ln(x, top["embed_ln"]["scale"], top["embed_ln"]["bias"],
-                c.ln_eps)
-    # this rank's heads, and their ALiBi slopes
-    heads, hd = c.n_heads // cfg.tp_size, c.head_dim
-    slopes = None
-    if c.positions == "alibi":
-        slopes = torch.tensor(alibi_slopes(c.n_heads)[
-            tp_rank * heads:(tp_rank + 1) * heads], dtype=torch.float32,
-            device=dev)
-    d_attn = heads * hd
-    M = B * T
-    route = attention_route(c, T, kv.k.shape[3], cfg.kv_int8)
-    if _sp_gate(cfg, ep, B, T, tp_group):
-        return _sp_forward(cfg, ep, x, kv, pos_vec, write_at, last_index,
-                           slopes, heads, route, tp_group)
-    stk = _prepare_stacked(cfg, ep, M)
-
-    def row(name: str, a2d: torch.Tensor, l: int) -> torch.Tensor:
-        """A row-parallel site: the partials summed over the tp group,
-        then the bias once (the plain site without a group)."""
-        if tp_group is None:
-            return _site_matmul(cfg, ep, name, a2d, l, stk)
-        y = comm.all_reduce(_site_matmul_nobias(cfg, ep, name, a2d, l, stk),
-                            tp_group)
-        return (y + lay[name]["bias"][l]).to(cfg.dtype)
-
-    for l in range(c.n_layers):
-        h = _ln(x, lay["ln_1"]["scale"][l], lay["ln_1"]["bias"][l],
-                c.ln_eps)
-        x2 = h.reshape(M, c.d_model)
-        if c.fused_qkv:
-            qkv = _site_matmul(cfg, ep, "qkv", x2, l, stk)
-            qh, kh, vh = (t.reshape(B, T, heads, hd)
-                          for t in qkv.split(d_attn, dim=-1))
+    with span("engine.forward"):
+        _check_config(cfg)
+        c = cfg.lm
+        top, lay = ep["top"], ep["layers"]
+        B, T = ids.shape
+        dev = ids.device
+        if (cfg.tp_axis is None) != (tp_group is None):
+            raise ValueError("a tensor-parallel config (tp_axis) runs with "
+                             "its tp group, and only it does "
+                             "(serve.sharded.make_sharded_forward)")
+        if tp_group is not None and dist.get_world_size(tp_group) != \
+                cfg.tp_size:
+            raise ValueError(f"tp group of {dist.get_world_size(tp_group)} "
+                             f"ranks for tp_size {cfg.tp_size}")
+        tp_rank = dist.get_rank(tp_group) if tp_group is not None else 0
+        if isinstance(pos0, torch.Tensor) and pos0.ndim:
+            write_at = [int(p) for p in pos0.tolist()]      # one host read
+            if len(write_at) != B:
+                raise ValueError(f"{len(write_at)} positions for a batch "
+                                 f"of {B}")
+            with span("host.sync"):
+                pos_vec = torch.tensor(write_at, dtype=torch.int32, device=dev)
         else:
-            qh, kh, vh = (_site_matmul(cfg, ep, n, x2, l, stk).reshape(
-                B, T, heads, hd) for n in ("q", "k", "v"))
-        append_kv_stacked(kv, kh, vh, l, write_at)
-        a = _attention(cfg, route, qh, kv, l, pos_vec, slopes).reshape(
-            M, d_attn)
-        x = x + row("out", a, l).reshape(B, T, c.d_model)
-        h = _ln(x, lay["ln_2"]["scale"][l], lay["ln_2"]["bias"][l],
-                c.ln_eps)
-        h2 = _act(c.activation, _site_matmul(
-            cfg, ep, "fc_in", h.reshape(M, c.d_model), l, stk))
-        x = x + row("fc_out", h2, l).reshape(B, T, c.d_model)
-    if last_index is not None:
-        x = _take_last(x, last_index)
-    x = _ln(x, top["ln_f"]["scale"], top["ln_f"]["bias"], c.ln_eps)
-    return _lm_logits(top, x), kv
+            write_at = operator.index(pos0)
+            pos_vec = torch.full((B,), write_at, dtype=torch.int32, device=dev)
+        x = _embed(top, ids, cfg.dtype)
+        if c.positions in ("learned", "learned_offset2"):
+            positions = pos_vec.to(torch.int64)[:, None] + torch.arange(
+                T, device=dev)                                      # (B, T)
+            x = x + top["wpe"][positions + (
+                2 if c.positions == "learned_offset2" else 0)]
+        if "embed_ln" in top:
+            x = _ln(x, top["embed_ln"]["scale"], top["embed_ln"]["bias"],
+                    c.ln_eps)
+        # this rank's heads, and their ALiBi slopes
+        heads, hd = c.n_heads // cfg.tp_size, c.head_dim
+        slopes = None
+        if c.positions == "alibi":
+            with span("host.sync"):
+                slopes = torch.tensor(alibi_slopes(c.n_heads)[
+                    tp_rank * heads:(tp_rank + 1) * heads],
+                    dtype=torch.float32, device=dev)
+        d_attn = heads * hd
+        M = B * T
+        route = attention_route(c, T, kv.k.shape[3], cfg.kv_int8)
+        if _sp_gate(cfg, ep, B, T, tp_group):
+            return _sp_forward(cfg, ep, x, kv, pos_vec, write_at, last_index,
+                               slopes, heads, route, tp_group)
+        stk = _prepare_stacked(cfg, ep, M)
+
+        def row(name: str, a2d: torch.Tensor, l: int) -> torch.Tensor:
+            """A row-parallel site: the partials summed over the tp group,
+            then the bias once (the plain site without a group)."""
+            if tp_group is None:
+                return _site_matmul(cfg, ep, name, a2d, l, stk)
+            y = comm.all_reduce(
+                _site_matmul_nobias(cfg, ep, name, a2d, l, stk), tp_group)
+            return (y + lay[name]["bias"][l]).to(cfg.dtype)
+
+        for l in range(c.n_layers):
+            h = _ln(x, lay["ln_1"]["scale"][l], lay["ln_1"]["bias"][l],
+                    c.ln_eps)
+            x2 = h.reshape(M, c.d_model)
+            if c.fused_qkv:
+                qkv = _site_matmul(cfg, ep, "qkv", x2, l, stk)
+                qh, kh, vh = (t.reshape(B, T, heads, hd)
+                              for t in qkv.split(d_attn, dim=-1))
+            else:
+                qh, kh, vh = (_site_matmul(cfg, ep, n, x2, l, stk).reshape(
+                    B, T, heads, hd) for n in ("q", "k", "v"))
+            append_kv_stacked(kv, kh, vh, l, write_at)
+            a = _attention(cfg, route, qh, kv, l, pos_vec, slopes).reshape(
+                M, d_attn)
+            x = x + row("out", a, l).reshape(B, T, c.d_model)
+            h = _ln(x, lay["ln_2"]["scale"][l], lay["ln_2"]["bias"][l],
+                    c.ln_eps)
+            h2 = _act(c.activation, _site_matmul(
+                cfg, ep, "fc_in", h.reshape(M, c.d_model), l, stk))
+            x = x + row("fc_out", h2, l).reshape(B, T, c.d_model)
+        with span("engine.head"):
+            if last_index is not None:
+                x = _take_last(x, last_index)
+            x = _ln(x, top["ln_f"]["scale"], top["ln_f"]["bias"], c.ln_eps)
+            return _lm_logits(top, x), kv
 
 
 def _sp_site_ok(site: Dict) -> bool:

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..kernels.kv_cache import QuantKV
+from ..utils.profiling import span
 from . import engine as eng
 from .sampling import SamplingConfig, sample
 
@@ -150,16 +151,22 @@ class ContinuousBatcher:
     def step(self) -> List[Completion]:
         """One decode tick for every active slot; returns the requests
         that finished (their slots are refilled from the queue)."""
-        self._fill_free_slots()
-        if self.n_active == 0:
+        with span("batcher.dispatch"):
+            self._fill_free_slots()
+            if self.n_active == 0:
+                out, self.done = self.done, []
+                return out
+            with span("host.sync"):
+                tok = torch.as_tensor(self.last_token, device=self.device)
+            with span("batcher.tick", key=self._tick):
+                nxt = self._decode_tick(tok, self._positions(0),
+                                        self._next_gen())
+            with span("host.sync"):
+                nxt = nxt.tolist()
+            self._apply_tick(nxt)
+            self._fill_free_slots()
             out, self.done = self.done, []
             return out
-        tok = torch.as_tensor(self.last_token, device=self.device)
-        nxt = self._decode_tick(tok, self._positions(0), self._next_gen())
-        self._apply_tick(nxt.tolist())
-        self._fill_free_slots()
-        out, self.done = self.done, []
-        return out
 
     @torch.no_grad()
     def step_chunk(self, n_ticks: int) -> List[Completion]:
@@ -169,22 +176,29 @@ class ContinuousBatcher:
         per-tick stepping's; sampled ones use the same absolute-tick
         seeds, but a refill's timing can move a request onto other
         ticks."""
-        self._fill_free_slots()
-        if self.n_active == 0 or n_ticks <= 1:
-            return self.step()
-        tok = torch.as_tensor(self.last_token, device=self.device)
-        toks = []
-        for i in range(n_ticks):
-            self._gen.manual_seed(tick_seed(self.seed, self._tick + i))
-            nxt = self._decode_tick(tok, self._positions(i), self._gen)
-            toks.append(nxt)
-            tok = nxt[:, None]
-        self._tick += n_ticks
-        for row in torch.stack(toks).tolist():          # (n_ticks, B)
-            self._apply_tick(row)
-        self._fill_free_slots()
-        out, self.done = self.done, []
-        return out
+        with span("batcher.dispatch"):
+            self._fill_free_slots()
+            if self.n_active == 0 or n_ticks <= 1:
+                return self.step()
+            with span("host.sync"):
+                tok = torch.as_tensor(self.last_token, device=self.device)
+            toks = []
+            for i in range(n_ticks):
+                with span("batcher.tick", key=self._tick + i):
+                    self._gen.manual_seed(tick_seed(self.seed,
+                                                    self._tick + i))
+                    nxt = self._decode_tick(tok, self._positions(i),
+                                            self._gen)
+                    toks.append(nxt)
+                    tok = nxt[:, None]
+            self._tick += n_ticks
+            with span("host.sync"):
+                rows = torch.stack(toks).tolist()       # (n_ticks, B)
+            for row in rows:
+                self._apply_tick(row)
+            self._fill_free_slots()
+            out, self.done = self.done, []
+            return out
 
     def run(self, max_steps: int = 10_000,
             ticks_per_dispatch: int = 1) -> List[Completion]:
@@ -220,19 +234,20 @@ class ContinuousBatcher:
     def _apply_tick(self, nxt: List[int]) -> None:
         """Fold one tick's tokens (B,) into the slots; a slot without a
         request ignores its (garbage) token."""
-        for b in range(self.B):
-            req = self.slot_req[b]
-            if req is None:
-                continue
-            tok = int(nxt[b])
-            self.slot_tokens[b].append(tok)
-            self.lengths[b] += 1
-            self.last_token[b, 0] = tok
-            hit_eos = req.eos_id is not None and tok == req.eos_id
-            full = (len(self.slot_tokens[b]) >= req.max_new_tokens
-                    or self.lengths[b] + 1 >= self.cfg.max_seq)
-            if hit_eos or full:
-                self._finish(b, "eos" if hit_eos else "length")
+        with span("batcher.apply"):
+            for b in range(self.B):
+                req = self.slot_req[b]
+                if req is None:
+                    continue
+                tok = int(nxt[b])
+                self.slot_tokens[b].append(tok)
+                self.lengths[b] += 1
+                self.last_token[b, 0] = tok
+                hit_eos = req.eos_id is not None and tok == req.eos_id
+                full = (len(self.slot_tokens[b]) >= req.max_new_tokens
+                        or self.lengths[b] + 1 >= self.cfg.max_seq)
+                if hit_eos or full:
+                    self._finish(b, "eos" if hit_eos else "length")
 
     def _finish(self, b: int, reason: str) -> None:
         req = self.slot_req[b]
@@ -250,7 +265,8 @@ class ContinuousBatcher:
         Tb = _bucket(T, self.buckets)
         ids = torch.full((1, Tb), self.pad_id, dtype=torch.int64)
         ids[0, :T] = torch.as_tensor(prompt, dtype=torch.int64)
-        ids = ids.to(self.device)
+        with span("host.sync"):
+            ids = ids.to(self.device)
         if self._scratch is None:
             # the slots' cache at batch 1 (a tp rank's holds its heads)
             self._scratch = QuantKV(*(t.new_zeros((t.shape[0], 1)
@@ -264,10 +280,12 @@ class ContinuousBatcher:
             logits, self._scratch = self._fwd(self.ep, ids, self._scratch,
                                               zero)
             logits = logits[:, T - 1:T]
-        for dst, src in zip(self.kv, self._scratch):
-            dst[:, b, :, :Tb].copy_(src[:, 0, :, :Tb])
-        return int(sample(logits[:, -1], self.sampling,
-                          self._next_gen())[0])
+        with span("batcher.slot_copy"):
+            for dst, src in zip(self.kv, self._scratch):
+                dst[:, b, :, :Tb].copy_(src[:, 0, :, :Tb])
+        tok = sample(logits[:, -1], self.sampling, self._next_gen())
+        with span("host.sync"):
+            return int(tok[0])
 
     def _fill_free_slots(self) -> None:
         for b in range(self.B):
@@ -276,7 +294,8 @@ class ContinuousBatcher:
             req = self.queue.pop(0)
             if not req.prompt:
                 raise ValueError(f"request {req.id} has an empty prompt")
-            tok = self._prefill_slot(b, req.prompt)
+            with span("batcher.prefill", key=req.id):
+                tok = self._prefill_slot(b, req.prompt)
             self.slot_req[b] = req
             self.slot_tokens[b] = [tok]
             self.lengths[b] = len(req.prompt)
