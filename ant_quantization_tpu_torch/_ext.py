@@ -32,7 +32,7 @@ CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 SOURCES = ("stacked_i8.cu", "stacked_aovp.cu", "int8_kv_attention.cu",
            "stacked_prefill.cu", "stacked_p4.cu", "qmatmul_w4.cu",
-           "int8_kv_attention_split.cu", "w8a8_matmul.cu")
+           "int8_kv_attention_split.cu", "w8a8_matmul.cu", "kv_append.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

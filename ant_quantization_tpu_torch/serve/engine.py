@@ -49,6 +49,10 @@ Routing follows the reference (``_prepare_stacked``):
   run the activation fake-quant where there is one and a library product
   of ``cfg.dtype`` operands with an f32 result (``f32_out_product``), at
   every M; so does "w4" without ``a_q``, against the int8 values;
+- each layer's new K and V enter the cache (INT8 codes and scales, or
+  the bf16 cache's raw values) by one launch of the KV append kernel
+  (``kernels/kv_cache.py``), at each sequence's position as K2 reads it
+  (``pos_vec``, on the device);
 - attention takes the reference's route at every shape
   (:func:`attention_route`): on the INT8 cache K2
   (``kernels/attention.py``, one launch per layer for any T) while one
@@ -831,7 +835,7 @@ def forward(cfg: EngineConfig, ep: Dict, ids: torch.Tensor, kv: QuantKV,
             else:
                 qh, kh, vh = (_site_matmul(cfg, ep, n, x2, l, stk).reshape(
                     B, T, heads, hd) for n in ("q", "k", "v"))
-            append_kv_stacked(kv, kh, vh, l, write_at)
+            append_kv_stacked(kv, kh, vh, l, write_at, pos_vec)
             a = _attention(cfg, route, qh, kv, l, pos_vec, slopes).reshape(
                 M, d_attn)
             x = x + row("out", a, l).reshape(B, T, c.d_model)
@@ -943,7 +947,7 @@ def _sp_forward(cfg: EngineConfig, ep: Dict, x: torch.Tensor, kv: QuantKV,
         else:
             qh, kh, vh = (col(n, h, l).reshape(B, T, heads, hd)
                           for n in ("q", "k", "v"))
-        append_kv_stacked(kv, kh, vh, l, write_at)
+        append_kv_stacked(kv, kh, vh, l, write_at, pos_vec)
         a = _attention(cfg, route, qh, kv, l, pos_vec, slopes)
         xs = xs + row("out", a.reshape(M, heads * hd), l)
         h = _ln(xs, lay["ln_2"]["scale"][l], lay["ln_2"]["bias"][l],

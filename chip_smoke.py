@@ -1541,9 +1541,48 @@ def phase_times(torch, engine):
                       "plain_ms": t_p, "library_ms": t_l, "bound_ms": bound,
                       "bytes": byts, "ops": ops})
     k2_rows = k2_time_rows(torch, kv, L, gen)
+    kv_row = kv_append_time_row(torch, gen)
     emit({"phase": "kernel_times", "graphed": True, "K1_sites": sites,
-          "K2": k2_rows})
+          "K2": k2_rows, "kv_append": kv_row})
     return sites, k2_rows
+
+
+# the benchmark cells' decode append: 64 slots, T 1, OPT-6.7B's 32 heads
+# of 128, bf16 k and v into the INT8 cache at ragged positions
+KV_APPEND_SHAPE = dict(B=64, T=1, H=32, D=128, S=2048, L=4)
+
+
+def kv_append_time_row(torch, gen) -> dict:
+    """The KV append kernel at ``KV_APPEND_SHAPE``, one layer a launch,
+    layers rotated: its device time (graphed) and its time launched one
+    by one (eager, the host's cost included), beside the plain version
+    eager (its constants are blocking copies, which a graph cannot hold)
+    and the byte bound (k and v read, codes and scales written once).
+    Fails unless the kernel's cache equals the plain version's."""
+    from ant_quantization_tpu_torch.kernels import kv_cache as kvc
+    B, T, H, D, S, L = (KV_APPEND_SHAPE[k] for k in "BTHDSL")
+    kv = kvc.init_kv(L, B, S, H, D, torch.device("cuda"))
+    k, v = (torch.randn((B, T, H, D), device="cuda", generator=gen).to(
+        torch.bfloat16) for _ in range(2))
+    starts = [(97 * b) % (S - T) for b in range(B)]
+    pos = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    want = kvc.init_kv(L, B, S, H, D, torch.device("cuda"))
+    kvc.append_kv_stacked_plain(want, k, v, 1, starts)
+    kvc.append_kv_stacked(kv, k, v, 1, starts, pos)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(kv, want)):
+        fail("kv_append: the kernel's cache differs from the plain one")
+    del want
+    iters = 2 * L
+    t_k = cuda_ms(torch, lambda i: kvc.append_kv_stacked(
+        kv, k, v, i % L, starts, pos), iters)
+    t_e = cuda_ms(torch, lambda i: kvc.append_kv_stacked(
+        kv, k, v, i % L, starts, pos), iters, graph=False)
+    t_p = cuda_ms(torch, lambda i: kvc.append_kv_stacked_plain(
+        kv, k, v, i % L, starts), iters, graph=False)
+    byts = 2 * B * T * H * (D * 2 + D + 4) + 4 * B
+    return {**KV_APPEND_SHAPE, "ms": t_k, "eager_ms": t_e, "plain_ms": t_p,
+            "bound_ms": byts / HBM_BPS * 1e3, "bytes": byts}
 
 
 def k2_time_rows(torch, kv, L: int, gen) -> list:

@@ -7,12 +7,16 @@ the serving path records them.
   records and counts the ones it let go.
 - A tiny ANT W4A4 OPT and BLOOM behind ``ContinuousBatcher``: each
   ``batcher.dispatch`` holds its ticks, each tick one ``engine.forward``
-  with ``n_layers`` ``kv.append`` spans, ``kv.copies`` is 4 B L a tick,
-  and greedy tokens are the same with recording on and off.
+  with ``n_layers`` ``kv.append`` spans, ``kv.copies`` is 4 B L a tick
+  on the CPU (the plain append's indexed copies, each under its four
+  ``host.sync`` constants), and greedy tokens are the same with
+  recording on and off.
 - On a card (marker ``cuda``): one decode dispatch raises exactly as
   many synchronizing-call warnings under
   ``torch.cuda.set_sync_debug_mode("warn")`` as it records ``host.sync``
-  spans. This file imports no JAX; on the card's machine:
+  spans; its ticks record ``kv.copies`` = L (one KV append launch a
+  layer) and no ``host.sync`` under ``kv.append``. This file imports no
+  JAX; on the card's machine:
 
     python -m pytest --noconftest -m cuda tests/test_torch_tracing.py
 """
@@ -192,6 +196,18 @@ def test_batcher_records_its_ticks(fresh, family):
                 ["host.sync"] * 4
 
 
+def _warm_card_batcher(family: str):
+    """A tiny engine's batcher on the card, every slot busy, after one
+    dispatch that builds the kernels and warms."""
+    cfg, ep = tiny_engine(family, "cuda", d_model=256, d_ff=512)
+    b = ContinuousBatcher(cfg, ep, SLOTS, prefill_buckets=(16, 32))
+    for n in (5, 12, 20):
+        b.submit(Request(prompt=list(range(1, n + 1)), max_new_tokens=64))
+    b.step_chunk(TICKS)
+    torch.cuda.synchronize()
+    return cfg, b
+
+
 @pytest.mark.cuda
 def test_host_syncs_are_the_cards_synchronizing_calls():
     """Under the sync debug mode torch warns at each call that waits for
@@ -200,13 +216,7 @@ def test_host_syncs_are_the_cards_synchronizing_calls():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels build and run there")
     for family in sorted(FAMILIES):
-        cfg, ep = tiny_engine(family, "cuda", d_model=256, d_ff=512)
-        b = ContinuousBatcher(cfg, ep, SLOTS, prefill_buckets=(16, 32))
-        for n in (5, 12, 20):
-            b.submit(Request(prompt=list(range(1, n + 1)),
-                             max_new_tokens=64))
-        b.step_chunk(TICKS)                      # builds and warms
-        torch.cuda.synchronize()
+        cfg, b = _warm_card_batcher(family)
         profiling.clear()
         torch.cuda.set_sync_debug_mode("warn")
         try:
@@ -223,5 +233,32 @@ def test_host_syncs_are_the_cards_synchronizing_calls():
                                           [str(w.message)[:200]
                                            for w in syncs[:3]])
         L = cfg.lm.n_layers
-        per_tick = 4 * L + 2 + (1 + 2 * L if family == "bloom" else 0)
+        # the positions and the head's constant; BLOOM's slopes and two
+        # GELU constants a layer (the KV append waits for nothing)
+        per_tick = 2 + (1 + 2 * L if family == "bloom" else 0)
         assert len(spans) == TICKS * per_tick + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_card_decode_appends_once_a_layer(fresh, family):
+    """On the card each decode tick writes the cache by one launch a
+    layer: ``kv.copies`` = L a tick, each ``kv.append`` span without
+    children (no wait, no ``kernel.launch``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels build and run there")
+    cfg, b = _warm_card_batcher(family)
+    L = cfg.lm.n_layers
+    with profiling.recording():
+        assert b.step_chunk(TICKS) == []
+    recs = profiling.records()
+    ticks = [i for i, r in enumerate(recs) if r[0] == "batcher.tick"]
+    copies = {p: c for n, c, _, p in profiling.counts() if n == "kv.copies"}
+    assert len(ticks) == TICKS
+    for t in ticks:
+        (fwd,) = _children(recs, t)
+        appends = [j for j in _children(recs, fwd)
+                   if recs[j][0] == "kv.append"]
+        assert len(appends) == L
+        assert [copies[j] for j in appends] == [1] * L
+        assert all(_children(recs, j) == [] for j in appends)
